@@ -1,0 +1,1 @@
+"""Tensor ops: masked reductions, losses, SpecAugment, the spline time warp."""

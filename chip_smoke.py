@@ -1,0 +1,371 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``acvae_tpu_torch``) on one card.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Phases, each of which exits nonzero on failure:
+
+1. device: a CUDA card is required (no CPU fallback); TF32 is turned off for
+   matmuls and cuDNN; prints the card's name and power limit.
+2. build: compiles every CUDA source of the port with nvcc.
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at edge cases; max |error| <= 1e-6; times the
+   kernel, the plain version and the library call that computes the same
+   function with CUDA events (median, L2 flushed).
+4. parity: one small train step on the card against the same step on the
+   CPU (plain versions), same weights and draws.
+5. train: the main path — ``Trainer`` on the flagship recipe at full width
+   (Cnn10 64->512 in bf16, embed/hidden 512, vocab 4981, batch 32, T_mel
+   1024 ragged, F 64, L 22) with ``augments: [timewarp, timemask,
+   freqmask]`` for 5 steps on seeded random batches; every metric
+   finite; each kernel launched on that path.
+
+Prints a ``{"kernels": [...]}`` JSON line, then, last, the ``{"ok": true,
+"device": ...}`` line.  ``--profile DIR`` also traces two more steps with
+torch.profiler and writes the trace and its op table into DIR.
+"""
+import argparse
+import copy
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# H100 SXM: HBM rate and the float32 (non-tensor-core) rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+VOCAB, DATA_DIM, BATCH, T_MEL, CAP_LEN = 4981, 64, 32, 1024, 22
+STEPS = 5
+# Clotho dev: 3839 clips x 5 captions x 0.9 train split / batch 32 = 540
+# iterations per epoch, over the recipe's 25 epochs
+ITERS_PER_EPOCH, EPOCHS = 540, 25
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def device_phase():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the port's smoke runs on "
+             "the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+
+
+def time_ms(fn, flush, reps=30):
+    """Median ms of one call, L2 flushed before each (CUDA events).  The
+    flush reads 256 MB (~80 us of device work): it leaves L2 holding clean
+    lines (a write would leave dirty ones, whose writeback the timed call
+    would pay for), and it is still running when the host has launched
+    ``fn``, so the events time the device, not the launch."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_phase(flush):
+    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d, time_warp_1d_ref
+    from acvae_tpu_torch.ops.warp import warp_flow
+
+    g = torch.Generator("cuda").manual_seed(0)
+    dev = "cuda"
+    # the main path's inputs: a Clotho-shaped batch and the spline flow the
+    # train step builds for it (W=40, ragged lengths)
+    img = torch.randn((BATCH, T_MEL, DATA_DIM), generator=g, device=dev)
+    lens = torch.randint(T_MEL // 2, T_MEL + 1, (BATCH,), generator=g, device=dev)
+    flow = warp_flow(img, 40, lens, generator=g)
+    cases = [("main path", img, flow, 64),
+             ("flows beyond ±max_shift", img,
+              torch.randn(img.shape, generator=g, device=dev) * 96, 64)]
+    for B, T, F, max_shift in ((2, 256, 16, 128), (2, 64, 16, 64),
+                               (1, 128, 8, 8)):
+        x = torch.randn((B, T, F), generator=g, device=dev)
+        cases.append((f"[{B},{T},{F}] max_shift={max_shift}", x,
+                      torch.randn(x.shape, generator=g, device=dev)
+                      * max_shift / 2, max_shift))
+    max_err = 0.0
+    for name, x, fl, ms in cases:
+        out = time_warp_1d(x, fl, ms)
+        torch.cuda.synchronize()
+        err = (out - time_warp_1d_ref(x, fl, ms)).abs().max().item()
+        print(f"time_warp_1d {name}: max_abs_err {err:.3e}")
+        check(err <= 1e-6, f"time_warp_1d disagrees with its plain version "
+                           f"({name}: {err})")
+        max_err = max(max_err, err)
+    # the library call: grid_sample with border padding and aligned corners
+    # clips q to [0, T-1] and lerps rows floor(q), floor(q)+1, which is the
+    # reference's edge clamp; it differs only by the rounding of the
+    # normalised coordinate (~T * 6e-8 in q, times a row difference of a few
+    # units), hence the 2e-3 tolerance
+    grid = grid_sample_grid(flow, 64)
+    lib_err = (grid_sample_warp(img, grid)
+               - time_warp_1d_ref(img, flow, 64)).abs().max().item()
+    print(f"grid_sample (border, align_corners) vs plain: max_abs_err "
+          f"{lib_err:.3e}")
+    check(lib_err <= 2e-3, f"grid_sample does not compute time_warp_1d "
+                           f"({lib_err})")
+    k_ms = time_ms(lambda: time_warp_1d(img, flow, 64), flush)
+    p_ms = time_ms(lambda: time_warp_1d_ref(img, flow, 64), flush)
+    l_ms = time_ms(lambda: grid_sample_warp(img, grid), flush)
+    n = img.numel()
+    # each input read once, the output written once; ~12 flops per element
+    bytes_ms = 3 * 4 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = 12 * n / FP32_FLOPS * 1e3
+    print(f"time_warp_1d [{BATCH},{T_MEL},{DATA_DIM}]: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} ms (grid built "
+          f"before), bound {bytes_ms * 1e3:.2f} us (bytes)")
+    return {"name": "time_warp_1d", "route": "cuda",
+            "source": "acvae_tpu_torch/csrc/time_warp.cu",
+            "replaces": "acvae_tpu/ops/pallas/warp_kernel.py:145",
+            "launches": None, "max_abs_err": max_err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": l_ms}
+
+
+def grid_sample_grid(flow, max_shift):
+    """The [B, T, F, 2] sampling grid of the warp for ``grid_sample``:
+    x = f (exact), y = t - clip(flow, ±max_shift), both normalised with
+    aligned corners."""
+    B, T, F = flow.shape
+    q = (torch.arange(T, dtype=flow.dtype, device=flow.device)[None, :, None]
+         - flow.clamp(-max_shift, max_shift))
+    x = (torch.arange(F, dtype=flow.dtype, device=flow.device)
+         * (2.0 / (F - 1)) - 1.0).expand(B, T, F)
+    return torch.stack((x, q * (2.0 / (T - 1)) - 1.0), dim=-1)
+
+
+def grid_sample_warp(img, grid):
+    """One library call computing time_warp_1d (timed as ``library_ms``;
+    the port never calls it)."""
+    return torch.nn.functional.grid_sample(
+        img[:, None], grid, mode="bilinear", padding_mode="border",
+        align_corners=True)[:, 0]
+
+
+def small_conf():
+    from acvae_tpu_torch.configs import flagship_conf
+    return flagship_conf(
+        encoder_args={"embed_size": 16, "channels": [4, 8, 8, 16],
+                      "conv_dropout": 0.0, "head_dropout": 0.0},
+        decoder_args={"embed_size": 16, "hidden_size": 16, "dropout": 0.0},
+        model_args={"posterior_model": "PosteriorRNN_hybrid",
+                    "posterior_args": {"hidden_size": 16},
+                    "prior_model": "PriorRNN", "prior_args": {"hidden_size": 16}},
+        augment_args={"p": 1.0, "W": 8, "T": 10, "F": 4})
+
+
+def parity_phase():
+    """One small step on the card (kernels) and on the CPU (plain
+    versions) from the same weights and draws: metrics within rtol 1e-3."""
+    from acvae_tpu_torch.ops.specaug import draw_span
+    from acvae_tpu_torch.ops.warp import draw_anchors
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    conf = small_conf()
+    V, N, T, F, L, E = 25, 3, 64, 16, 8, 16
+    rng = np.random.default_rng(0)
+    batch = {"feats": rng.normal(size=(N, T, F)).astype(np.float32),
+             "feat_lens": np.array([64, 48, 33], np.int32),
+             "caps": rng.integers(3, V, size=(N, L)).astype(np.int32),
+             "cap_lens": np.array([8, 5, 3], np.int32)}
+    g = torch.Generator().manual_seed(1)
+    lens = torch.tensor(batch["feat_lens"])
+    aug = conf["augment_args"]
+    draws = {"spec": {
+        "gate": torch.ones(N, dtype=torch.bool),
+        "time": [draw_span(aug["T"], lens, N, g, "cpu") for _ in range(2)],
+        "freq": [draw_span(aug["F"], torch.full((N,), F), N, g, "cpu")
+                 for _ in range(2)],
+        "warp": draw_anchors(N, T, aug["W"], lens, g, "cpu")}}
+    noise = {"q_eps": torch.randn((N, L - 1, E), generator=g),
+             "p_eps": torch.randn((L - 1, N, E), generator=g),
+             "ss_coins": torch.ones(L - 1, dtype=torch.bool),
+             "dis_coins": torch.rand(L - 1, generator=g) < 0.5}
+    gpu = Trainer(conf, V, F, device="cuda", total_iters=100)
+    cpu = Trainer(conf, V, F, device="cpu", total_iters=100)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    m_gpu = gpu.step(batch, 1, 12, draws=draws, noise=noise)
+    m_cpu = cpu.step(batch, 1, 12, draws=draws, noise=noise)
+    for k in ("loss", "ce", "kl", "global", "grad_norm"):
+        a, b = float(m_gpu[k]), float(m_cpu[k])
+        print(f"parity {k}: card {a:.6f} cpu {b:.6f}")
+        check(math.isfinite(a) and abs(a - b) <= 1e-3 * abs(b) + 1e-6,
+              f"card and CPU disagree on {k}: {a} vs {b}")
+    sd_cpu = cpu.model.state_dict()
+    for k, v in gpu.model.state_dict().items():
+        if "running" in k:
+            torch.testing.assert_close(v.cpu(), sd_cpu[k], rtol=1e-3, atol=1e-4)
+
+
+def make_batch(rng):
+    lens = rng.integers(T_MEL // 2, T_MEL + 1, size=BATCH).astype(np.int32)
+    lens[0] = T_MEL
+    feats = rng.normal(size=(BATCH, T_MEL, DATA_DIM)).astype(np.float32)
+    feats[np.arange(T_MEL)[None, :] >= lens[:, None]] = 0.0
+    cap_lens = rng.integers(8, CAP_LEN + 1, size=BATCH).astype(np.int32)
+    cap_lens[0] = CAP_LEN
+    caps = rng.integers(4, VOCAB, size=(BATCH, CAP_LEN)).astype(np.int32)
+    caps[:, 0] = 1                                     # <start>
+    caps[np.arange(BATCH), cap_lens - 1] = 2           # <end>
+    caps[np.arange(CAP_LEN)[None, :] >= cap_lens[:, None]] = 0   # <pad>
+    return {"feats": feats, "feat_lens": lens, "caps": caps,
+            "cap_lens": cap_lens}
+
+
+def train_phase(steps, profile_dir=None):
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    conf = copy.deepcopy(FLAGSHIP_CONF)
+    trainer = Trainer(conf, VOCAB, DATA_DIM, device="cuda",
+                      total_iters=ITERS_PER_EPOCH * EPOCHS)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    rng = np.random.default_rng(1)
+    batches = [make_batch(rng) for _ in range(steps)]
+    # mid-run (epoch 12): scheduled sampling < 1 and prior grounding > 0, so
+    # both coin branches of the decode loop run
+    epoch = 12
+    it0 = ITERS_PER_EPOCH * (epoch - 1)
+    print(f"train: flagship {n_params} params, batch {BATCH}, T_mel {T_MEL}, "
+          f"L {CAP_LEN}, epoch {epoch}, ratios {trainer.ratios(it0 + 1, epoch)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {"time_warp_1d": time_warp_1d}
+    for fn in launches.values():
+        fn.launches = 0
+    step_ms = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        m = trainer.step(batch, it0 + 1 + i, epoch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"step {i + 1}: loss {vals['loss']:.4f} ce {vals['ce']:.4f} "
+              f"kl {vals['kl']:.4f} global {vals['global']:.4f} "
+              f"grad_norm {vals['grad_norm']:.4f} lr {vals['lr']:.3e} "
+              f"{step_ms[-1]:.1f} ms")
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"non-finite metric at step {i + 1}: {vals}")
+    counts = {name: fn.launches for name, fn in launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
+          "non-finite parameters after the steps")
+    print(f"train: step ms median {statistics.median(step_ms):.1f} "
+          f"(first {step_ms[0]:.1f}, steps 2-{steps} "
+          f"{statistics.median(step_ms[1:] or step_ms):.1f}); "
+          f"peak memory {peak / 2**30:.3f} GiB; launches {counts}")
+    check(counts["time_warp_1d"] == steps,
+          f"time_warp_1d launched {counts['time_warp_1d']} times in "
+          f"{steps} steps (expected {steps})")
+    if profile_dir:
+        profile_steps(trainer, rng, it0 + steps, epoch, step_ms, profile_dir)
+    return counts
+
+
+RANGES = ("augment", "forward", "encoder", "posterior", "decode_loop",
+          "backward", "optimizer")
+
+
+def profile_steps(trainer, rng, it, epoch, step_ms, out_dir):
+    """Trace two more steps; split device (kernel) time by the trainer's
+    record_function ranges.  Backward ops run on autograd's thread, outside
+    the "backward" range, so backward = all kernels - the other phases."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    batches = [make_batch(rng) for _ in range(2)]
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, b in enumerate(batches):
+            trainer.step(b, it + 1 + i, epoch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and e.key not in RANGES) / 1e3 / 2
+    by_range = {e.key: e.device_time_total / 1e3 / 2 for e in events
+                if e.key in RANGES and e.device_type == DeviceType.CPU}
+    by_range["backward"] = kernel_ms - sum(by_range.get(k, 0.0) for k in
+                                           ("augment", "forward", "optimizer"))
+    # each range's span on the device timeline (kernels and the gaps between)
+    spans = {e.key: e.self_device_time_total / 1e3 / 2 for e in events
+             if e.key in RANGES and e.device_type == DeviceType.CUDA}
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    (out / "profile_train_step.txt").write_text(table)
+    prof.export_chrome_trace(str(out / "trace_train_step.json"))
+    wall = statistics.median(step_ms[1:] or step_ms)
+    print(f"profile: kernel time per step {kernel_ms:.2f} ms vs step wall "
+          f"{wall:.2f} ms (unprofiled): device busy share {kernel_ms / wall:.3f}")
+    print("profile: kernel ms per step by phase " + json.dumps(
+        {k: round(v, 3) for k, v in by_range.items()}))
+    print("profile: device-timeline span ms per step by phase " + json.dumps(
+        {k: round(v, 3) for k, v in spans.items()}))
+    print("\n".join(table.splitlines()[:24]))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="trace two more train steps into DIR")
+    args = ap.parse_args()
+
+    device_phase()
+    torch.manual_seed(0)   # the dropouts draw from the global generator
+    from acvae_tpu_torch.ops.cuda.build import CSRC, build
+    for src in sorted(CSRC.glob("*.cu")):
+        t0 = time.perf_counter()
+        log = build(src.stem)
+        print(f"build {src.name}: {time.perf_counter() - t0:.1f} s; " + " | ".join(
+            line.strip() for line in log.splitlines() if "registers" in line
+            or "spill" in line))
+    flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kernels = [kernel_phase(flush)]
+    del flush
+    parity_phase()
+    counts = train_phase(STEPS, args.profile)
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
