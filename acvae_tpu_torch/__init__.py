@@ -5,11 +5,18 @@ its own copies of everything it needs and imports nothing of ``acvae_tpu``;
 the JAX package is the frozen reference that the tests hold it against.
 
 * ``acvae_tpu_torch.ops``    — masked reductions, losses, SpecAugment, the
-  spline time warp, and ``ops.cuda`` (hand-written Hopper kernels built from
-  ``csrc/`` at first use).
+  spline time warp, the log-mel frontend, and ``ops.cuda`` (hand-written
+  Hopper kernels built from ``csrc/`` at first use).
 * ``acvae_tpu_torch.models`` — the flagship Hybrid AC-VAE (Cnn10 encoder,
-  hybrid posterior, AR prior, attention GRU decoder).
-* ``acvae_tpu_torch.train``  — schedules and the train step.
+  hybrid posterior, AR prior, attention GRU decoder), its train forward
+  and its inference forward.
+* ``acvae_tpu_torch.decoding`` — next-word sampling and the batched beam
+  search.
+* ``acvae_tpu_torch.data`` — the vocabulary.
+* ``acvae_tpu_torch.train``  — schedules, the train step and the
+  experiment dir (config, vocabulary, weights).
+* ``acvae_tpu_torch.serve``  — ``CaptionService`` and the micro-batching
+  HTTP server (``python -m acvae_tpu_torch.serve <exp_dir>``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

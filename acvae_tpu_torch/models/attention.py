@@ -32,10 +32,25 @@ class AdditiveAttention(nn.Module):
     def forward(self, h_dec: torch.Tensor, h_enc: torch.Tensor,
                 enc_proj: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """h_dec: [N, dec]; h_enc: [N, S, enc]; enc_proj: [N, S, attn];
-        mask: [N, S] bool (True = valid).  Returns (ctx [N, enc],
-        weights [N, S])."""
+        """h_dec: [Nq, dec]; h_enc: [N, S, enc]; enc_proj: [N, S, attn];
+        mask: [N, S] bool (True = valid).  Returns (ctx [Nq, enc],
+        weights [Nq, S]).
+
+        ``Nq`` may be ``N * B`` (beam-folded queries, row-major per
+        instance): query ``n*B + b`` attends over memory row ``n``.  The
+        memory is broadcast over the beam axis, never replicated."""
         dec_proj = F.linear(h_dec, self.h2attn.weight[:, :self.dec_dim])
+        N, Nq = h_enc.shape[0], h_dec.shape[0]
+        if Nq != N:
+            B = Nq // N
+            score = torch.tanh(enc_proj[:, None]
+                               + dec_proj.view(N, B, 1, -1)) @ self.v  # [N,B,S]
+            if mask is not None:
+                score = score.masked_fill(~mask[:, None], NEG_INF)
+            weights = torch.softmax(score, dim=-1)
+            ctx = torch.einsum("nbs,nse->nbe", weights, h_enc)
+            return (ctx.reshape(Nq, h_enc.shape[-1]),
+                    weights.reshape(Nq, h_enc.shape[1]))
         score = torch.tanh(enc_proj + dec_proj[:, None, :]) @ self.v
         if mask is not None:
             score = score.masked_fill(~mask, NEG_INF)

@@ -1,1 +1,2 @@
-"""Tensor ops: masked reductions, losses, SpecAugment, the spline time warp."""
+"""Tensor ops: masked reductions, losses, SpecAugment, the spline time warp,
+the log-mel frontend."""

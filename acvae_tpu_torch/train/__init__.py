@@ -1,1 +1,1 @@
-"""Schedules and the train step of the flagship recipe."""
+"""Schedules, the train step of the flagship recipe, and the experiment dir."""

@@ -14,15 +14,27 @@ Phases, each of which exits nonzero on failure:
    function with CUDA events (median, L2 flushed).
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
-5. train: the main path — ``Trainer`` on the flagship recipe at full width
-   (Cnn10 64->512 in bf16, embed/hidden 512, vocab 4981, batch 32, T_mel
-   1024 ragged, F 64, L 22) with ``augments: [timewarp, timemask,
+5. train: the train path — ``Trainer`` on the flagship recipe at full
+   width (Cnn10 64->512 in bf16, embed/hidden 512, vocab 4981, batch 32,
+   T_mel 1024 ragged, F 64, L 22) with ``augments: [timewarp, timemask,
    freqmask]`` for 5 steps on seeded random batches; every metric
    finite; each kernel launched on that path.
+6. decode parity: a small flagship's beam-3 and greedy decodes on the card
+   against the CPU (same weights and prior noise): tokens identical,
+   scores within rtol 1e-4; ``beam_topk``'s tie order on the card.
+7. serve: the serving path at full width — the flagship written to an
+   experiment dir with ``save_experiment`` and read back with
+   ``load_experiment``; (a) beam-3 decode at batch 512, T_mel 1024, max
+   length 20 through ``inference_forward`` (one warm-up batch, 5 timed):
+   captions/s, p50 batch latency, peak memory; (b) ``CaptionService`` at
+   the CLI defaults behind ``run_server`` on a free port, driven over HTTP
+   with every request kind and a malformed one, ``/stats`` counts checked.
 
-Prints a ``{"kernels": [...]}`` JSON line, then, last, the ``{"ok": true,
-"device": ...}`` line.  ``--profile DIR`` also traces two more steps with
-torch.profiler and writes the trace and its op table into DIR.
+Prints a ``{"kernels": [...]}`` JSON line (launches counted on the train
+path; the serving path launches none), then, last, the ``{"ok": true,
+"device": ...}`` line.  ``--profile DIR`` also traces two more train steps
+and one full-width decode batch with torch.profiler and writes the traces
+and op tables into DIR.
 """
 import argparse
 import copy
@@ -31,7 +43,11 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +61,9 @@ STEPS = 5
 # Clotho dev: 3839 clips x 5 captions x 0.9 train split / batch 32 = 540
 # iterations per epoch, over the recipe's 25 epochs
 ITERS_PER_EPOCH, EPOCHS = 540, 25
+# the serving headline's shape (bench.py:25-36): beam 3 over batches of 512
+# clips of 1024 frames, captions of at most 20 words
+DEC_BATCH, BEAM, MAX_LEN, DEC_TIMED = 512, 3, 20, 5
 
 
 def fail(msg):
@@ -338,10 +357,302 @@ def profile_steps(trainer, rng, it, epoch, step_ms, out_dir):
     print("\n".join(table.splitlines()[:24]))
 
 
+def phase(name, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def decode_parity_phase():
+    """Phase 6: beam_topk's tie order on the card, then a small flagship's
+    beam-3 and greedy decodes on the card and on the CPU from the same
+    weights and prior noise: tokens identical, scores within rtol 1e-4."""
+    from acvae_tpu_torch.decoding.beam import beam_topk
+    from acvae_tpu_torch.models.build import build_model
+
+    rows = torch.tensor([[1, 3, 3, 2, 3, 0], [5, 5, 5, 5, 5, 5],
+                         [0, 2, 2, 2, 1, 2], [4, 1, 4, 0, 4, 4]],
+                        dtype=torch.float32, device="cuda")
+    _, idx = beam_topk(rows.view(4, 2, 3), 2)
+    check(idx.tolist() == [[1, 2], [0, 1], [1, 2], [0, 2]],
+          f"beam_topk tie order on the card: {idx.tolist()}")
+    # full width, coarse values (many exact ties): descending value, then
+    # ascending index, as numpy's lexsort orders them
+    rng = np.random.default_rng(3)
+    coarse = (np.round(rng.normal(size=(DEC_BATCH, BEAM * VOCAB)) * 2) / 2
+              ).astype(np.float32)
+    _, idx = beam_topk(torch.tensor(coarse, device="cuda").view(
+        DEC_BATCH, BEAM, VOCAB), BEAM)
+    want = np.stack([np.lexsort((np.arange(r.size), -r))[:BEAM] for r in coarse])
+    check(np.array_equal(idx.cpu().numpy(), want),
+          "beam_topk's order on the card differs from lax.top_k's at full width")
+
+    conf = small_conf()
+    V, N, T, F, L = 25, 3, 64, 16, 8
+    torch.manual_seed(5)
+    gpu = build_model(conf, V, F, device="cuda")
+    cpu = build_model(conf, V, F, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    feats = torch.tensor(rng.normal(size=(N, T, F)).astype(np.float32))
+    lens = torch.tensor([64, 48, 33])
+    eps = torch.randn((L, N * BEAM, 16), generator=torch.Generator().manual_seed(3))
+    for method, rows_, score in (("beam", N * BEAM, "scores"),
+                                 ("greedy", N, "sampled_logprobs")):
+        outs = [m.inference_forward(feats.to(d), lens.to(d), decode_method=method,
+                                    beam_size=BEAM, max_length=L,
+                                    eps=eps[:, :rows_].to(d))
+                for m, d in ((gpu, "cuda"), (cpu, "cpu"))]
+        a, b = (o[score].cpu() for o in outs)
+        err = ((a - b).abs() / b.abs().clamp_min(1e-6)).max().item()
+        print(f"decode parity {method}: seqs {outs[0]['seqs'].shape[1:]} "
+              f"identical {torch.equal(outs[0]['seqs'].cpu(), outs[1]['seqs'])}, "
+              f"{score} max rel err {err:.2e}")
+        check(torch.equal(outs[0]["seqs"].cpu(), outs[1]["seqs"]),
+              f"{method} decode tokens differ between the card and the CPU")
+        check(torch.allclose(a, b, rtol=1e-4, atol=0),
+              f"{method} decode {score} differ beyond rtol 1e-4: {err}")
+
+
+def flagship_vocab():
+    """The four specials, then synthetic words w4..w4980 (vocab 4981)."""
+    from acvae_tpu_torch.data.vocab import Vocabulary
+    vocab = Vocabulary()
+    for i in range(4, VOCAB):
+        vocab.add_word(f"w{i}")
+    return vocab
+
+
+def serve_phase(profile_dir=None):
+    """Phase 7, the serving path: (a) beam-3 decode at batch 512 through
+    ``inference_forward``, (b) the HTTP service at its CLI defaults.
+    Returns the kernel launches counted over the phase."""
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
+    from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
+
+    launches = {"time_warp_1d": time_warp_1d}
+    for fn in launches.values():
+        fn.launches = 0
+    torch.manual_seed(7)
+    with tempfile.TemporaryDirectory() as exp:
+        conf = copy.deepcopy(FLAGSHIP_CONF)
+        save_experiment(exp, build_model(conf, VOCAB, DATA_DIM, device="cuda"),
+                        conf, flagship_vocab())
+        _, vocab, model = load_experiment(exp, device="cuda")
+        check(len(vocab) == VOCAB, f"vocab of {len(vocab)} words read back")
+        decode_rate(model, vocab)
+        if profile_dir:
+            profile_decode(model, profile_dir)
+        del model
+        torch.cuda.empty_cache()
+        http_checks(exp)
+    return {name: fn.launches for name, fn in launches.items()}
+
+
+def decode_rate(model, vocab):
+    """(a) One warm-up batch, then DEC_TIMED timed batches, each ending in a
+    synchronise; outputs checked after the timing."""
+    from acvae_tpu_torch.decoding.beam import beam_topk
+
+    g = torch.Generator("cuda").manual_seed(11)
+    feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
+    lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
+    kw = dict(decode_method="beam", beam_size=BEAM, max_length=MAX_LEN)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, outs = [], []
+    for _ in range(1 + DEC_TIMED):
+        t0 = time.perf_counter()
+        outs.append(model.inference_forward(feats, lens, generator=g, **kw))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    for out in outs:
+        seqs, scores = out["seqs"], out["scores"]
+        check(tuple(seqs.shape) == (DEC_BATCH, BEAM, MAX_LEN)
+              and seqs.dtype == torch.long, f"seqs {seqs.shape} {seqs.dtype}")
+        check(bool(((seqs >= 0) & (seqs < VOCAB)).all()), "a token outside the vocab")
+        check(bool(torch.isfinite(scores).all()), "a non-finite beam score")
+        check(bool((scores[:, 1:] <= scores[:, :-1]).all()),
+              "beam scores not in descending order")
+    timed = ms[1:]
+    rate = DEC_BATCH * DEC_TIMED / (sum(timed) / 1e3)
+    print(f"serve decode: batch {DEC_BATCH}, beam {BEAM}, T_mel {T_MEL}, "
+          f"max_length {MAX_LEN}: {rate:.1f} captions/s; batch ms p50 "
+          f"{statistics.median(timed):.1f} (timed {', '.join(f'{t:.1f}' for t in timed)}; "
+          f"first {ms[0]:.1f}); peak memory {peak / 2**30:.3f} GiB")
+    top = outs[-1]["seqs"][:2, 0].cpu().numpy()
+    print("serve decode: first captions: "
+          + " | ".join(" ".join(vocab.decode(s)) for s in top))
+    # the split, one more batch: encoder, then the decode from its output
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = model.encode(feats, lens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.inference_from_encoded(enc, generator=g, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    print(f"serve decode split: encoder {(t1 - t0) * 1e3:.1f} ms, beam search "
+          f"{(t2 - t1) * 1e3:.1f} ms ({MAX_LEN} steps)")
+    total = torch.randn((DEC_BATCH, BEAM, VOCAB), generator=g, device="cuda")
+    flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
+    s_ms = time_ms(lambda: beam_topk(total, BEAM), flush)
+    k_ms = time_ms(lambda: torch.topk(total.view(DEC_BATCH, -1), BEAM), flush)
+    print(f"beam_topk [{DEC_BATCH},{BEAM},{VOCAB}]: stable sort {s_ms:.4f} ms "
+          f"per step; torch.topk {k_ms:.4f} ms (not used: tie order)")
+
+
+def _http(url, data=None, headers=None):
+    """(status, JSON reply) of one request."""
+    req = urllib.request.Request(url, data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_checks(exp):
+    """(b) CaptionService at the CLI defaults behind run_server: one request
+    of each kind, one malformed, then a burst of 16 concurrent mels."""
+    from acvae_tpu_torch.serve import CaptionService, run_server
+
+    t0 = time.perf_counter()
+    svc = CaptionService(exp)
+    print(f"serve: CaptionService(batch {svc.batch_size}, bucket {svc.bucket}) "
+          f"ready in {time.perf_counter() - t0:.1f} s (load + 2 warm-up batches)")
+    rng = np.random.default_rng(4)
+    mel = rng.normal(size=(T_MEL, DATA_DIM)).astype(np.float32)
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        caps = svc.caption([mel] * svc.batch_size)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(len(caps) == svc.batch_size and all(isinstance(c, str) for c in caps),
+              f"CaptionService.caption: {caps}")
+    print(f"serve: CaptionService.caption of {svc.batch_size} clips, no HTTP: "
+          f"p50 {statistics.median(ms):.1f} ms ({', '.join(f'{t:.1f}' for t in ms)})")
+    server = run_server(svc, port=0, block=False)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    js = {"Content-Type": "application/json"}
+    short = rng.normal(size=(700, DATA_DIM)).astype(np.float32)
+    lo, hi = float(mel.min()), float(mel.max())
+    scale = (hi - lo) / 255.0
+    q = np.clip(np.round((mel - lo) / scale), 0, 255).astype(np.uint8)
+    wav = (rng.normal(size=320000) * 0.1).astype(np.float32)   # 10 s at 32 kHz
+    octet = {"Content-Type": "application/octet-stream",
+             "X-Mel-Frames": str(T_MEL), "X-Mel-Bins": str(DATA_DIM)}
+    good = [
+        ("json mel 1024", json.dumps({"mel": mel.tolist()}).encode(), js),
+        ("json mel 700", json.dumps({"mel": short.tolist()}).encode(), js),
+        ("binary f32", mel.astype("<f4").tobytes(), octet),
+        ("binary uint8", q.tobytes(), dict(octet, **{
+            "X-Mel-Dtype": "uint8", "X-Mel-Scale": str(scale),
+            "X-Mel-Offset": str(lo)})),
+        ("json mel_q8", json.dumps({"mel_q8": q.tolist(), "scale": scale,
+                                    "offset": lo}).encode(), js),
+        ("json wav 10 s", json.dumps({"wav": wav.tolist(), "sr": 32000}).encode(),
+         js)]
+    try:
+        code, health = _http(base + "/health")
+        check(code == 200 and health["status"] == "ok", f"/health: {health}")
+        for name, data, headers in good:
+            t1 = time.perf_counter()
+            code, reply = _http(base + "/caption", data, headers)
+            check(code == 200 and isinstance(reply.get("caption"), str),
+                  f"{name}: {code} {reply}")
+            print(f"serve: {name}: 200 in {(time.perf_counter() - t1) * 1e3:.1f} "
+                  f"ms: {reply['caption'][:60]!r}")
+        code, reply = _http(base + "/caption", b'{"nope": 1}', js)
+        check(code == 400, f"malformed request: {code} {reply}")
+        burst = json.dumps({"mel": mel.tolist()}).encode()
+        codes = []
+        workers = [threading.Thread(target=lambda: codes.append(
+            _http(base + "/caption", burst, js)[0])) for _ in range(16)]
+        t1 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=600)
+        burst_s = time.perf_counter() - t1
+        check(codes == [200] * 16, f"burst replies {codes}")
+        code, stats = _http(base + "/stats")
+        sent_ok = len(good) + 16
+        check(code == 200 and stats["requests"] == sent_ok + 1
+              and stats["ok"] == sent_ok and stats["client_errors"] == 1
+              and stats["server_errors"] == 0 and stats["timeouts"] == 0
+              and stats["batched_requests"] == sent_ok,
+              f"/stats counts differ from what was sent: {stats}")
+        print(f"serve: 16 concurrent requests in {burst_s * 1e3:.1f} ms; /stats "
+              + json.dumps({k: stats.get(k) for k in (
+                  "requests", "ok", "client_errors", "batches",
+                  "mean_batch_size", "latency_ms_p50", "latency_ms_p95")}))
+    finally:
+        server._acvae_stop()
+        thread.join(timeout=30)
+        server.server_close()
+    check(not thread.is_alive(), "the HTTP server did not stop")
+
+
+DECODE_RANGES = ("encoder", "decode_loop", "beam_topk")
+
+
+def profile_decode(model, out_dir):
+    """Trace one full-width decode batch; for the encoder, the decode loop
+    and the top-k inside it, the kernel time inside each range's spans on
+    the device timeline and the spans' total length (read from the exported
+    trace: key_averages' per-range totals count nested ranges twice)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator("cuda").manual_seed(12)
+    feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
+    lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.inference_forward(feats, lens, decode_method="beam",
+                                beam_size=BEAM, max_length=MAX_LEN, generator=g)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=40)
+    (out / "profile_decode.txt").write_text(table)
+    trace = out / "trace_decode.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [(e["ts"], e["dur"]) for e in events if "dur" in e
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernel_ms = sum(d for _, d in kernels) / 1e3
+    timeline = (max(t + d for t, d in kernels) - min(t for t, _ in kernels)) / 1e3
+    split = {}
+    for name in DECODE_RANGES:
+        spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") == "gpu_user_annotation" and e["name"] == name]
+        inside = sum(d for t, d in kernels if any(a <= t < b for a, b in spans))
+        split[name] = {"kernel_ms": round(inside / 1e3, 3),
+                       "span_ms": round(sum(b - a for a, b in spans) / 1e3, 3),
+                       "spans": len(spans)}
+    print(f"profile decode: kernel time {kernel_ms:.2f} ms over a "
+          f"{timeline:.2f} ms device timeline (busy share "
+          f"{kernel_ms / timeline:.3f}); profiled batch wall {wall:.2f} ms")
+    print("profile decode: by range " + json.dumps(split))
+    print("\n".join(table.splitlines()[:24]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace two more train steps into DIR")
+                    help="trace two more train steps and one full-width "
+                         "decode batch into DIR")
     args = ap.parse_args()
 
     device_phase()
@@ -354,13 +665,16 @@ def main():
             line.strip() for line in log.splitlines() if "registers" in line
             or "spill" in line))
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
-    kernels = [kernel_phase(flush)]
+    kernels = [phase("kernels", kernel_phase, flush)]
     del flush
-    parity_phase()
-    counts = train_phase(STEPS, args.profile)
+    phase("parity", parity_phase)
+    counts = phase("train", train_phase, STEPS, args.profile)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    phase("decode parity", decode_parity_phase)
+    serve_counts = phase("serve", serve_phase, args.profile)
+    print(f"serve: kernel launches on the serving path {serve_counts}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
