@@ -5,11 +5,12 @@ its own copies of everything it needs and imports nothing of ``acvae_tpu``;
 the JAX package is the frozen reference that the tests hold it against.
 
 * ``acvae_tpu_torch.ops``    — masked reductions, losses, SpecAugment, the
-  spline time warp, the log-mel frontend, and ``ops.cuda`` (hand-written
-  Hopper kernels built from ``csrc/`` at first use).
+  spline time warp, the log-mel frontend, the int8 encoder's plain
+  arithmetic, and ``ops.cuda`` (hand-written Hopper kernels built from
+  ``csrc/`` at first use).
 * ``acvae_tpu_torch.models`` — the flagship Hybrid AC-VAE (Cnn10 encoder,
   hybrid posterior, AR prior, attention GRU decoder), its train forward
-  and its inference forward.
+  and its inference forward, and the int8 serving encoder (``quant``).
 * ``acvae_tpu_torch.decoding`` — next-word sampling and the batched beam
   search.
 * ``acvae_tpu_torch.data`` — the vocabulary.

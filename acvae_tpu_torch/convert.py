@@ -12,6 +12,9 @@ returns the tensors under the port's (the reference's torch) names:
 * a BiGRU's ``fwd``/``bwd`` cells become ``*_l0`` / ``*_l0_reverse``;
 * an attention's ``dec_proj``/``enc_proj`` kernels join into one
   ``h2attn`` Linear over [h_dec; h_enc].
+
+``quant_from_flax(baked)`` carries a baked JAX int8 encoder across (no new
+calibration).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from acvae_tpu_torch import DEFAULT_DEVICE
 
 _RNN = {"wi": "weight_ih", "wh": "weight_hh", "bi": "bias_ih", "bh": "bias_hh"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -83,3 +88,37 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             [parts["dec_proj.kernel"].T, parts["enc_proj.kernel"].T], axis=1)
         sd[key + "h2attn.bias"] = parts["enc_proj.bias"]
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def quant_from_flax(baked: Dict[str, Any], device=DEFAULT_DEVICE):
+    """The port's ``QuantPannEncoder`` from the arrays of a baked JAX
+    ``acvae_tpu.models.quant.QuantPannEncoder``, as numpy, without
+    calibrating again:
+
+    * ``act_scales``: one float32 array (a [C] vector or a scalar) per
+      quantize point;
+    * ``blocks``: per block ``pool`` and ``w1``/``w2`` (int8 HWIO),
+      ``A1``/``A2``, ``B1``/``B2``;
+    * ``bn0``: (scale, bias); ``fc``: (kernel [in, out], bias);
+    * ``subsample`` and the scheme flags ``per_channel``, ``offset``,
+      ``mse_clip``, ``bias_correct``, ``quant_tail``.
+
+    The JAX stem pads its one mel lane with lanes whose codes are always 0
+    (``quant.py:246-261``), so their weights add nothing to any accumulator:
+    the port drops them, with their activation scales.  A per-channel stem
+    scale above the empty-lane floor (0/127 + 1e-12) would mean a padded
+    lane was not empty in calibration; that raises."""
+    from acvae_tpu_torch.models.quant import QuantPannEncoder
+
+    blocks = [dict(b) for b in baked["blocks"]]
+    blocks[0]["w1"] = np.asarray(blocks[0]["w1"])[:, :, :1]
+    scales = [np.asarray(s, np.float32) for s in baked["act_scales"]]
+    if scales[0].ndim:
+        if (scales[0][1:] > np.float32(1e-12)).any():
+            raise ValueError("the stem's padded input lanes were not empty "
+                             f"in calibration (scales {scales[0]})")
+        scales[0] = scales[0][:1]
+    kernel, bias = baked["fc"]
+    arrays = dict(baked, blocks=blocks, act_scales=scales,
+                  fc=(np.asarray(kernel, np.float32).T, bias))
+    return QuantPannEncoder.from_arrays(arrays, device)

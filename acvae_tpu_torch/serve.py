@@ -15,7 +15,15 @@
   report readiness and counters.  Requests queue and decode together, up to
   ``batch_size`` or ``max_wait_ms``, whichever comes first.
 
-Run it as ``python -m acvae_tpu_torch.serve <exp_dir> [--port ...]``.
+With ``encoder_int8=True`` (``--encoder_int8``) the service encodes with the
+int8 serving encoder (``models/quant.py``; scheme ``int8_scheme``, flag
+``--int8_scheme``, default ``v2sym``), calibrated at start-up from bn0's
+running statistics on the service's device, for f32 and uint8 batches alike;
+on the card its convs and pools are the hand-written kernels of
+``ops/cuda/conv_i8_kernel.py``.
+
+Run it as ``python -m acvae_tpu_torch.serve <exp_dir> [--port ...]
+[--encoder_int8 [--int8_scheme v2sym]]``.
 """
 from __future__ import annotations
 
@@ -32,6 +40,9 @@ import numpy as np
 import torch
 
 from acvae_tpu_torch import DEFAULT_DEVICE
+from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, SCHEMES,
+                                          int8_decode_fn, quant_encoder_for,
+                                          scheme_kwargs)
 from acvae_tpu_torch.models.vae import _check_decode_method
 from acvae_tpu_torch.train.checkpoints import load_experiment
 
@@ -44,13 +55,15 @@ class CaptionService:
                  max_length: int = 20, batch_size: int = 16,
                  mel_bucket: int = 1024, seed: int = 1,
                  device=DEFAULT_DEVICE, encoder_int8: bool = False,
-                 int8_scheme: Optional[str] = None,
+                 int8_scheme: str = DEFAULT_INT8_SCHEME,
                  exported: Optional[str] = None,
                  upload_dtype: str = "float32",
                  decode_dtype: Optional[str] = None, temp: float = 1.0):
-        if encoder_int8 or int8_scheme is not None:
-            raise NotImplementedError("the int8 serving encoder is not ported "
-                                      "(ROADMAP B2 + A13)")
+        if decode_dtype and encoder_int8:
+            raise ValueError("decode_dtype does not combine with "
+                             "encoder_int8 (the int8 path fixes its own "
+                             "precision); pick one serving mode")
+        scheme = scheme_kwargs(int8_scheme) if encoder_int8 else None
         if exported is not None:
             raise NotImplementedError("serving an exported artifact is not "
                                       "ported (ROADMAP A18, torch.export)")
@@ -77,10 +90,15 @@ class CaptionService:
         self._decode_kwargs = dict(decode_method=decode_method,
                                    max_length=max_length, beam_size=beam_size,
                                    temp=temp)
+        # the int8 serving encoder, calibrated from bn0's running statistics
+        # (no training data at serving time); None serves the f32 encoder
+        self.quant = (quant_encoder_for(self.conf, self.model, **scheme)
+                      if encoder_int8 else None)
         self._gen = torch.Generator(self.device).manual_seed(seed + 2)
         self._lock = threading.Lock()
         # warm both upload paths so the first live batch of either kind
-        # does not pay the set-up (cuDNN algorithm choice, allocator growth)
+        # does not pay the set-up (cuDNN algorithm choice, the kernels'
+        # build and load, allocator growth)
         self.caption([np.zeros((64, self.data_dim), np.float32)])
         self.caption([(np.zeros((64, self.data_dim), np.uint8), 1.0, 0.0)])
 
@@ -164,10 +182,14 @@ class CaptionService:
                             len(mels))
 
     def _decode(self, feats: torch.Tensor, lens: np.ndarray, n: int) -> List[str]:
+        lens = torch.from_numpy(lens).to(self.device)
         with self._lock:
-            out = self.model.inference_forward(
-                feats, torch.from_numpy(lens).to(self.device),
-                generator=self._gen, **self._decode_kwargs)
+            if self.quant is not None:
+                out = int8_decode_fn(self.model, self.quant, **self._decode_kwargs)(
+                    feats, lens, generator=self._gen)
+            else:
+                out = self.model.inference_forward(
+                    feats, lens, generator=self._gen, **self._decode_kwargs)
         return self._to_captions(out, n)
 
     def _to_captions(self, out, n: int) -> List[str]:
@@ -374,12 +396,20 @@ def main(argv=None):
     ap.add_argument("--max_wait_ms", type=float, default=20.0)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--encoder_int8", action="store_true",
+                    help="encode with the int8 serving encoder, calibrated "
+                         "from bn0's running statistics")
+    ap.add_argument("--int8_scheme", default=DEFAULT_INT8_SCHEME,
+                    choices=sorted(SCHEMES),
+                    help="quantization scheme of --encoder_int8 "
+                         f"(default {DEFAULT_INT8_SCHEME})")
     args = ap.parse_args(argv)
     service = CaptionService(
         args.experiment_path, checkpoint=args.checkpoint,
         decode_method=args.decode_method, beam_size=args.beam_size,
         max_length=args.max_length, batch_size=args.batch_size,
-        mel_bucket=args.mel_bucket, seed=args.seed, device=args.device)
+        mel_bucket=args.mel_bucket, seed=args.seed, device=args.device,
+        encoder_int8=args.encoder_int8, int8_scheme=args.int8_scheme)
     run_server(service, host=args.host, port=args.port,
                max_wait_ms=args.max_wait_ms)
 

@@ -7,11 +7,17 @@ Phases, each of which exits nonzero on failure:
 
 1. device: a CUDA card is required (no CPU fallback); TF32 is turned off for
    matmuls and cuDNN; prints the card's name and power limit.
-2. build: compiles every CUDA source of the port with nvcc.
+2. build: compiles every CUDA source of the port, one nvcc each, all
+   started together.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at edge cases; max |error| <= 1e-6; times the
-   kernel, the plain version and the library call that computes the same
-   function with CUDA events (median, L2 flushed).
+   the main path's shapes and at edge cases; times the kernel, the plain
+   version and the library call that computes the same function with CUDA
+   events (median, L2 flushed).  ``time_warp_1d``: max |error| <= 1e-6.
+   ``conv3x3_i8`` (every conv of the int8 encoder at batch 512, block 1's
+   2^31-element tensors included) and ``avgpool2x2_i8`` (its 3 pools):
+   max |error| 0, and each beside cuDNN's bf16 ``conv2d``/``avg_pool2d``
+   at the same shapes, channels-last (a labelled comparison, not the same
+   function).
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -29,14 +35,28 @@ Phases, each of which exits nonzero on failure:
    captions/s, p50 batch latency, peak memory; (b) ``CaptionService`` at
    the CLI defaults behind ``run_server`` on a free port, driven over HTTP
    with every request kind and a malformed one, ``/stats`` counts checked.
+8. int8 decode parity: a small flagship's int8 encoders (v2sym, v2, v4)
+   baked on the CPU and carried to the card: the codes at every quantize
+   point identical to the CPU's; beam-3 tokens identical, scores within
+   rtol 1e-4.
+9. int8 serve: the slice's path at full width — the flagship through
+   ``save_experiment``/``load_experiment``, ``quant_encoder_for(...,
+   v2sym)`` calibrated from bn0's statistics on the card, then (a) one
+   warm-up and 5 timed batches of 512 at beam 3, T_mel 1024, max_length
+   20 through ``int8_decode_fn``: captions/s, p50, the encoder/beam split,
+   peak memory, and 8 ``conv3x3_i8`` + 3 ``avgpool2x2_i8`` launches a batch;
+   (b) ``CaptionService(encoder_int8=True)`` behind ``run_server`` over
+   HTTP as in phase 7, its launches counted against its batches.
 
-Prints a ``{"kernels": [...]}`` JSON line (launches counted on the train
-path; the serving path launches none), then, last, the ``{"ok": true,
-"device": ...}`` line.  ``--profile DIR`` also traces two more train steps
-and one full-width decode batch with torch.profiler and writes the traces
-and op tables into DIR.
+Kernel launches are counted from 0 over each path (train, serve, int8
+serve).  Prints a ``{"kernels": [...]}`` JSON line (``launches`` on each
+kernel's own path, ``launches_by_path`` on all three), then, last, the
+``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
+more train steps and one full-width decode batch of each serving path with
+torch.profiler and writes the traces and op tables into DIR.
 """
 import argparse
+import concurrent.futures
 import copy
 import json
 import math
@@ -53,9 +73,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM: HBM rate and the float32 (non-tensor-core) rate
+# H100 SXM: HBM rate, the float32 (non-tensor-core) rate, the int8
+# tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+INT8_OPS = 1979e12
 VOCAB, DATA_DIM, BATCH, T_MEL, CAP_LEN = 4981, 64, 32, 1024, 22
 STEPS = 5
 # Clotho dev: 3839 clips x 5 captions x 0.9 train split / batch 32 = 540
@@ -64,6 +86,30 @@ ITERS_PER_EPOCH, EPOCHS = 540, 25
 # the serving headline's shape (bench.py:25-36): beam 3 over batches of 512
 # clips of 1024 frames, captions of at most 20 words
 DEC_BATCH, BEAM, MAX_LEN, DEC_TIMED = 512, 3, 20, 5
+# the int8 encoder's convs (H, W, Ci, Co) and pools (H, W, C) at T_mel 1024,
+# F 64, Cnn10 64->512: 8 convs and 3 int8 pools a batch (block 4 pools f32)
+CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
+               (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
+               (128, 8, 256, 512), (128, 8, 512, 512)]
+POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
+PATHS = ("train", "serve", "int8_serve")
+
+
+def kernel_fns():
+    """Every kernel wrapper of the port, by kernel name."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
+    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
+    return {"time_warp_1d": time_warp_1d, "conv3x3_i8": conv3x3_i8,
+            "avgpool2x2_i8": avgpool2x2_i8}
+
+
+def reset_counts():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_fns().items()}
 
 
 def fail(msg):
@@ -132,7 +178,7 @@ def kernel_phase(flush):
         cases.append((f"[{B},{T},{F}] max_shift={max_shift}", x,
                       torch.randn(x.shape, generator=g, device=dev)
                       * max_shift / 2, max_shift))
-    max_err = 0.0
+    worst = 0.0
     for name, x, fl, ms in cases:
         out = time_warp_1d(x, fl, ms)
         torch.cuda.synchronize()
@@ -140,7 +186,7 @@ def kernel_phase(flush):
         print(f"time_warp_1d {name}: max_abs_err {err:.3e}")
         check(err <= 1e-6, f"time_warp_1d disagrees with its plain version "
                            f"({name}: {err})")
-        max_err = max(max_err, err)
+        worst = max(worst, err)
     # the library call: grid_sample with border padding and aligned corners
     # clips q to [0, T-1] and lerps rows floor(q), floor(q)+1, which is the
     # reference's edge clamp; it differs only by the rounding of the
@@ -158,17 +204,15 @@ def kernel_phase(flush):
     l_ms = time_ms(lambda: grid_sample_warp(img, grid), flush)
     n = img.numel()
     # each input read once, the output written once; ~12 flops per element
-    bytes_ms = 3 * 4 * n / HBM_BYTES_PER_S * 1e3
-    ops_ms = 12 * n / FP32_FLOPS * 1e3
+    b_ms, by = bound(12 * n, 3 * 4 * n, FP32_FLOPS)
     print(f"time_warp_1d [{BATCH},{T_MEL},{DATA_DIM}]: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms, grid_sample {l_ms:.4f} ms (grid built "
-          f"before), bound {bytes_ms * 1e3:.2f} us (bytes)")
+          f"before), bound {b_ms * 1e3:.2f} us ({by})")
     return {"name": "time_warp_1d", "route": "cuda",
             "source": "acvae_tpu_torch/csrc/time_warp.cu",
             "replaces": "acvae_tpu/ops/pallas/warp_kernel.py:145",
-            "launches": None, "max_abs_err": max_err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "launches": None, "max_abs_err": worst, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": l_ms}
 
 
@@ -190,6 +234,144 @@ def grid_sample_warp(img, grid):
     return torch.nn.functional.grid_sample(
         img[:, None], grid, mode="bilinear", padding_mode="border",
         align_corners=True)[:, 0]
+
+
+def conv_inputs(N, H, W, ci, co, g):
+    """Random codes [N, H, W, ci], OHWI weights and an epilogue affine that
+    spreads the outputs over the codes."""
+    x = torch.randint(-128, 128, (N, H, W, ci), dtype=torch.int8, device="cuda",
+                      generator=g)
+    w = torch.randint(-127, 128, (co, 3, 3, ci), dtype=torch.int8, device="cuda",
+                      generator=g)
+    A = ((torch.rand(co, generator=g, device="cuda") + 0.5)
+         * (40.0 / (math.sqrt(9 * ci) * 73.0 * 73.0)))
+    B = torch.randn(co, generator=g, device="cuda") * 20
+    return x, w, A, B
+
+
+def max_err(a, b):
+    """max |a - b| over the batch, 32 rows at a time."""
+    return max((a[i:i + 32].float() - b[i:i + 32].float()).abs().max().item()
+               for i in range(0, a.shape[0], 32))
+
+
+def bound(ops, nbytes, peak_ops):
+    """(ms, by): the least time for the work, the larger of its operations
+    over the peak rate and its bytes over the memory rate."""
+    ops_ms, bytes_ms = ops / peak_ops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms > bytes_ms else "bytes"
+
+
+CONV_EDGES = [  # (N, H, W, Ci, Co, mode, pad_code)
+    (3, 100, 64, 1, 64, "sym", 0), (3, 100, 64, 1, 128, "f32relu", -128),
+    (3, 100, 64, 1, 64, "offset", 0), (3, 100, 64, 64, 64, "offset", -128),
+    (3, 100, 64, 64, 64, "sym", -128), (3, 37, 13, 128, 192, "f32relu", -128),
+    (3, 50, 8, 512, 512, "f32", 0), (3, 9, 5, 64, 64, "offset", 0),
+    (2, 1, 1, 64, 64, "sym", 0)]
+POOL_EDGES = [(3, 101, 63, 64), (3, 7, 9, 512), (3, 2, 2, 16), (2, 1, 1, 16)]
+
+
+def int8_kernel_phase(flush):
+    """conv3x3_i8 and avgpool2x2_i8 against their plain versions: every
+    shape of a batch of 512 and the edge cases, max |err| 0; times summed
+    over a batch's 8 convs and 3 pools."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
+    from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
+
+    F = torch.nn.functional
+    g = torch.Generator("cuda").manual_seed(2)
+    conv = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0,
+                by={"operations": 0.0, "bytes": 0.0})
+    for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1):
+        mode = "f32relu" if k == len(CONV_SHAPES) else "sym"
+        x, w, A, B = conv_inputs(DEC_BATCH, H, W, ci, co, g)
+        w_hwio = w.permute(1, 2, 3, 0)
+        out = conv3x3_i8(x, w, A, B, mode, 0)
+        torch.cuda.synchronize()
+        err = max_err(out, conv3x3_i8_ref(x, w_hwio, A, B, mode, 0))
+        check(err == 0, f"conv3x3_i8 disagrees with its plain version at "
+                        f"[{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: {err}")
+        conv["err"] = max(conv["err"], err)
+        del out
+        k_ms = time_ms(lambda: conv3x3_i8(x, w, A, B, mode, 0), flush)
+        p_ms = time_ms(lambda: conv3x3_i8_ref(x, w_hwio, A, B, mode, 0), flush,
+                       reps=2)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # NHWC as channels-last
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+        l_ms = time_ms(lambda: F.conv2d(xb, wb, padding=1), flush, reps=10)
+        del xb, wb, x
+        ops = 2.0 * DEC_BATCH * H * W * 9 * ci * co
+        nbytes = (DEC_BATCH * H * W * (ci + co * (4 if mode == "f32relu" else 1))
+                  + 9 * ci * co + 8 * co)
+        b_ms, by = bound(ops, nbytes, INT8_OPS)
+        print(f"conv3x3_i8 [{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: kernel "
+              f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), plain {p_ms:.4f} "
+              f"ms, bf16 cuDNN conv2d {l_ms:.4f} ms (not the same function), "
+              f"bound {b_ms:.4f} ms ({by}); max_abs_err {err}")
+        conv["ms"] += k_ms
+        conv["plain"] += p_ms
+        conv["bound"] += b_ms
+        conv["by"][by] += b_ms
+        conv["bf16"] += l_ms
+    pool = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0)
+    for H, W, C in POOL_SHAPES:
+        x = torch.randint(-128, 128, (DEC_BATCH, H, W, C), dtype=torch.int8,
+                          device="cuda", generator=g)
+        err = max_err(avgpool2x2_i8(x), avgpool2x2_i8_ref(x))
+        check(err == 0, f"avgpool2x2_i8 disagrees with its plain version at "
+                        f"[{DEC_BATCH},{H},{W},{C}]: {err}")
+        pool["err"] = max(pool["err"], err)
+        k_ms = time_ms(lambda: avgpool2x2_i8(x), flush)
+        p_ms = time_ms(lambda: avgpool2x2_i8_ref(x), flush, reps=10)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        l_ms = time_ms(lambda: F.avg_pool2d(xb, 2), flush)
+        del xb
+        b_ms, _ = bound(0, DEC_BATCH * H * W * C * 5 // 4, INT8_OPS)
+        print(f"avgpool2x2_i8 [{DEC_BATCH},{H},{W},{C}]: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bf16 cuDNN avg_pool2d {l_ms:.4f} ms (not "
+              f"the same function), bound {b_ms:.4f} ms (bytes); max_abs_err {err}")
+        pool["ms"] += k_ms
+        pool["plain"] += p_ms
+        pool["bound"] += b_ms
+        pool["bf16"] += l_ms
+    del x
+    for n, H, W, ci, co, mode, pad in CONV_EDGES:
+        x, w, A, B = conv_inputs(n, H, W, ci, co, g)
+        err = max_err(conv3x3_i8(x, w, A, B, mode, pad),
+                      conv3x3_i8_ref(x, w.permute(1, 2, 3, 0), A, B, mode, pad))
+        print(f"conv3x3_i8 edge [{n},{H},{W},{ci}]->{co} {mode} pad {pad}: "
+              f"max_abs_err {err}")
+        check(err == 0, f"conv3x3_i8 disagrees at the edge case "
+                        f"{(n, H, W, ci, co, mode, pad)}: {err}")
+        conv["err"] = max(conv["err"], err)
+    for n, H, W, C in POOL_EDGES:
+        x = torch.randint(-128, 128, (n, H, W, C), dtype=torch.int8,
+                          device="cuda", generator=g)
+        out, ref = avgpool2x2_i8(x), avgpool2x2_i8_ref(x)
+        err = max_err(out, ref) if ref.numel() else 0.0
+        check(out.shape == ref.shape and err == 0,
+              f"avgpool2x2_i8 disagrees at the edge case {(n, H, W, C)}: {err}")
+        print(f"avgpool2x2_i8 edge [{n},{H},{W},{C}] -> {tuple(out.shape)}: "
+              f"max_abs_err {err}")
+        pool["err"] = max(pool["err"], err)
+    print(f"int8 kernels, a batch of {DEC_BATCH}: 8 conv3x3_i8 {conv['ms']:.3f} ms "
+          f"(plain {conv['plain']:.1f}, bf16 cuDNN {conv['bf16']:.3f}, bound "
+          f"{conv['bound']:.3f}); 3 avgpool2x2_i8 {pool['ms']:.3f} ms (plain "
+          f"{pool['plain']:.3f}, bf16 cuDNN {pool['bf16']:.3f}, bound "
+          f"{pool['bound']:.3f})")
+    common = {"route": "cuda", "source": "acvae_tpu_torch/csrc/conv_i8.cu",
+              "launches": None, "library_ms": None}
+    return [dict(common, name="conv3x3_i8",
+                 replaces="acvae_tpu/models/quant.py:424",
+                 max_abs_err=conv["err"], ms=conv["ms"], plain_ms=conv["plain"],
+                 bound_ms=conv["bound"],
+                 bound_by=max(conv["by"], key=conv["by"].get),
+                 bf16_cudnn_ms=conv["bf16"], timed=f"8 convs of a batch of {DEC_BATCH}"),
+            dict(common, name="avgpool2x2_i8",
+                 replaces="acvae_tpu/models/quant.py:86",
+                 max_abs_err=pool["err"], ms=pool["ms"], plain_ms=pool["plain"],
+                 bound_ms=pool["bound"], bound_by="bytes",
+                 bf16_cudnn_ms=pool["bf16"], timed=f"3 pools of a batch of {DEC_BATCH}")]
 
 
 def small_conf():
@@ -265,7 +447,6 @@ def make_batch(rng):
 
 def train_phase(steps, profile_dir=None):
     from acvae_tpu_torch.configs import FLAGSHIP_CONF
-    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
     from acvae_tpu_torch.train.trainer import Trainer
 
     conf = copy.deepcopy(FLAGSHIP_CONF)
@@ -282,9 +463,7 @@ def train_phase(steps, profile_dir=None):
           f"L {CAP_LEN}, epoch {epoch}, ratios {trainer.ratios(it0 + 1, epoch)}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = {"time_warp_1d": time_warp_1d}
-    for fn in launches.values():
-        fn.launches = 0
+    reset_counts()
     step_ms = []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -298,7 +477,7 @@ def train_phase(steps, profile_dir=None):
               f"{step_ms[-1]:.1f} ms")
         check(all(math.isfinite(v) for v in vals.values()),
               f"non-finite metric at step {i + 1}: {vals}")
-    counts = {name: fn.launches for name, fn in launches.items()}
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
           "non-finite parameters after the steps")
@@ -427,15 +606,12 @@ def flagship_vocab():
 def serve_phase(profile_dir=None):
     """Phase 7, the serving path: (a) beam-3 decode at batch 512 through
     ``inference_forward``, (b) the HTTP service at its CLI defaults.
-    Returns the kernel launches counted over the phase."""
+    Returns the kernel launches counted over (a) and (b)."""
     from acvae_tpu_torch.configs import FLAGSHIP_CONF
     from acvae_tpu_torch.models.build import build_model
-    from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
     from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
 
-    launches = {"time_warp_1d": time_warp_1d}
-    for fn in launches.values():
-        fn.launches = 0
+    reset_counts()
     torch.manual_seed(7)
     with tempfile.TemporaryDirectory() as exp:
         conf = copy.deepcopy(FLAGSHIP_CONF)
@@ -443,32 +619,43 @@ def serve_phase(profile_dir=None):
                         conf, flagship_vocab())
         _, vocab, model = load_experiment(exp, device="cuda")
         check(len(vocab) == VOCAB, f"vocab of {len(vocab)} words read back")
-        decode_rate(model, vocab)
+
+        def decode(feats, lens, g):
+            return model.inference_forward(feats, lens, generator=g,
+                                           **BEAM_KW)
+        counts = decode_rate("serve decode", decode, model.encode, model,
+                             vocab)[0]
+        beam_topk_times()
         if profile_dir:
-            profile_decode(model, profile_dir)
-        del model
+            profile_decode(decode, profile_dir, "decode")
+        del model, decode
         torch.cuda.empty_cache()
-        http_checks(exp)
-    return {name: fn.launches for name, fn in launches.items()}
+        http = http_checks(exp)
+    return {k: counts[k] + http[k] for k in counts}
 
 
-def decode_rate(model, vocab):
-    """(a) One warm-up batch, then DEC_TIMED timed batches, each ending in a
-    synchronise; outputs checked after the timing."""
-    from acvae_tpu_torch.decoding.beam import beam_topk
+BEAM_KW = dict(decode_method="beam", beam_size=BEAM, max_length=MAX_LEN)
 
+
+def decode_rate(tag, decode, encode, model, vocab):
+    """(a) One warm-up batch, then DEC_TIMED timed batches of ``decode(feats,
+    lens, generator)``, each ending in a synchronise; outputs checked after
+    the timing; then one more batch split into ``encode`` and the beam
+    search.  Returns the kernel launches of the 1 + DEC_TIMED batches."""
     g = torch.Generator("cuda").manual_seed(11)
     feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
     lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
-    kw = dict(decode_method="beam", beam_size=BEAM, max_length=MAX_LEN)
+    kw = BEAM_KW
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     ms, outs = [], []
     for _ in range(1 + DEC_TIMED):
         t0 = time.perf_counter()
-        outs.append(model.inference_forward(feats, lens, generator=g, **kw))
+        outs.append(decode(feats, lens, g))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
         seqs, scores = out["seqs"], out["scores"]
@@ -480,25 +667,34 @@ def decode_rate(model, vocab):
               "beam scores not in descending order")
     timed = ms[1:]
     rate = DEC_BATCH * DEC_TIMED / (sum(timed) / 1e3)
-    print(f"serve decode: batch {DEC_BATCH}, beam {BEAM}, T_mel {T_MEL}, "
+    print(f"{tag}: batch {DEC_BATCH}, beam {BEAM}, T_mel {T_MEL}, "
           f"max_length {MAX_LEN}: {rate:.1f} captions/s; batch ms p50 "
           f"{statistics.median(timed):.1f} (timed {', '.join(f'{t:.1f}' for t in timed)}; "
-          f"first {ms[0]:.1f}); peak memory {peak / 2**30:.3f} GiB")
+          f"first {ms[0]:.1f}); peak memory {peak / 2**30:.3f} GiB; launches "
+          f"{counts}")
     top = outs[-1]["seqs"][:2, 0].cpu().numpy()
-    print("serve decode: first captions: "
+    print(f"{tag}: first captions: "
           + " | ".join(" ".join(vocab.decode(s)) for s in top))
     # the split, one more batch: encoder, then the decode from its output
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc = model.encode(feats, lens)
+        enc = encode(feats, lens)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         model.inference_from_encoded(enc, generator=g, **kw)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    print(f"serve decode split: encoder {(t1 - t0) * 1e3:.1f} ms, beam search "
+    print(f"{tag} split: encoder {(t1 - t0) * 1e3:.1f} ms, beam search "
           f"{(t2 - t1) * 1e3:.1f} ms ({MAX_LEN} steps)")
+    return counts, feats, lens
+
+
+def beam_topk_times():
+    """The stable-sort top-k of a beam step against torch.topk."""
+    from acvae_tpu_torch.decoding.beam import beam_topk
+
+    g = torch.Generator("cuda").manual_seed(13)
     total = torch.randn((DEC_BATCH, BEAM, VOCAB), generator=g, device="cuda")
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
     s_ms = time_ms(lambda: beam_topk(total, BEAM), flush)
@@ -517,15 +713,19 @@ def _http(url, data=None, headers=None):
         return e.code, json.loads(e.read())
 
 
-def http_checks(exp):
-    """(b) CaptionService at the CLI defaults behind run_server: one request
-    of each kind, one malformed, then a burst of 16 concurrent mels."""
+def http_checks(exp, tag="serve", **svc_kw):
+    """(b) CaptionService at the CLI defaults (and ``svc_kw``) behind
+    run_server: one request of each kind, one malformed, then a burst of 16
+    concurrent mels.  Returns the kernel launches of the service's life."""
     from acvae_tpu_torch.serve import CaptionService, run_server
 
+    reset_counts()
     t0 = time.perf_counter()
-    svc = CaptionService(exp)
-    print(f"serve: CaptionService(batch {svc.batch_size}, bucket {svc.bucket}) "
-          f"ready in {time.perf_counter() - t0:.1f} s (load + 2 warm-up batches)")
+    svc = CaptionService(exp, **svc_kw)
+    print(f"{tag}: CaptionService(batch {svc.batch_size}, bucket {svc.bucket}"
+          f"{', ' + str(svc_kw) if svc_kw else ''}) ready in "
+          f"{time.perf_counter() - t0:.1f} s (load, calibration if int8, 2 "
+          f"warm-up batches)")
     rng = np.random.default_rng(4)
     mel = rng.normal(size=(T_MEL, DATA_DIM)).astype(np.float32)
     ms = []
@@ -535,7 +735,7 @@ def http_checks(exp):
         ms.append((time.perf_counter() - t0) * 1e3)
         check(len(caps) == svc.batch_size and all(isinstance(c, str) for c in caps),
               f"CaptionService.caption: {caps}")
-    print(f"serve: CaptionService.caption of {svc.batch_size} clips, no HTTP: "
+    print(f"{tag}: CaptionService.caption of {svc.batch_size} clips, no HTTP: "
           f"p50 {statistics.median(ms):.1f} ms ({', '.join(f'{t:.1f}' for t in ms)})")
     server = run_server(svc, port=0, block=False)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -568,7 +768,7 @@ def http_checks(exp):
             code, reply = _http(base + "/caption", data, headers)
             check(code == 200 and isinstance(reply.get("caption"), str),
                   f"{name}: {code} {reply}")
-            print(f"serve: {name}: 200 in {(time.perf_counter() - t1) * 1e3:.1f} "
+            print(f"{tag}: {name}: 200 in {(time.perf_counter() - t1) * 1e3:.1f} "
                   f"ms: {reply['caption'][:60]!r}")
         code, reply = _http(base + "/caption", b'{"nope": 1}', js)
         check(code == 400, f"malformed request: {code} {reply}")
@@ -590,7 +790,7 @@ def http_checks(exp):
               and stats["server_errors"] == 0 and stats["timeouts"] == 0
               and stats["batched_requests"] == sent_ok,
               f"/stats counts differ from what was sent: {stats}")
-        print(f"serve: 16 concurrent requests in {burst_s * 1e3:.1f} ms; /stats "
+        print(f"{tag}: 16 concurrent requests in {burst_s * 1e3:.1f} ms; /stats "
               + json.dumps({k: stats.get(k) for k in (
                   "requests", "ok", "client_errors", "batches",
                   "mean_batch_size", "latency_ms_p50", "latency_ms_p95")}))
@@ -599,16 +799,26 @@ def http_checks(exp):
         thread.join(timeout=30)
         server.server_close()
     check(not thread.is_alive(), "the HTTP server did not stop")
+    counts = read_counts()
+    # 2 warm-up batches, 5 direct ones, then the server's
+    batches = 2 + 5 + stats["batches"]
+    want = (8 * batches, 3 * batches) if svc.quant is not None else (0, 0)
+    got = (counts["conv3x3_i8"], counts["avgpool2x2_i8"])
+    print(f"{tag}: launches over the service's {batches} batches {counts}")
+    check(got == want, f"{tag}: conv3x3_i8/avgpool2x2_i8 launched {got} times "
+                       f"in {batches} batches (expected {want})")
+    return counts
 
 
 DECODE_RANGES = ("encoder", "decode_loop", "beam_topk")
 
 
-def profile_decode(model, out_dir):
-    """Trace one full-width decode batch; for the encoder, the decode loop
-    and the top-k inside it, the kernel time inside each range's spans on
-    the device timeline and the spans' total length (read from the exported
-    trace: key_averages' per-range totals count nested ranges twice)."""
+def profile_decode(decode, out_dir, tag):
+    """Trace one full-width batch of ``decode(feats, lens, generator)``; for
+    the encoder, the decode loop and the top-k inside it, the kernel time
+    inside each range's spans on the device timeline and the spans' total
+    length (read from the exported trace: key_averages' per-range totals
+    count nested ranges twice)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     out = Path(out_dir)
@@ -619,14 +829,13 @@ def profile_decode(model, out_dir):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.inference_forward(feats, lens, decode_method="beam",
-                                beam_size=BEAM, max_length=MAX_LEN, generator=g)
+        decode(feats, lens, g)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40)
-    (out / "profile_decode.txt").write_text(table)
-    trace = out / "trace_decode.json"
+    (out / f"profile_{tag}.txt").write_text(table)
+    trace = out / f"trace_{tag}.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     kernels = [(e["ts"], e["dur"]) for e in events if "dur" in e
@@ -641,11 +850,136 @@ def profile_decode(model, out_dir):
         split[name] = {"kernel_ms": round(inside / 1e3, 3),
                        "span_ms": round(sum(b - a for a, b in spans) / 1e3, 3),
                        "spans": len(spans)}
-    print(f"profile decode: kernel time {kernel_ms:.2f} ms over a "
+    print(f"profile {tag}: kernel time {kernel_ms:.2f} ms over a "
           f"{timeline:.2f} ms device timeline (busy share "
           f"{kernel_ms / timeline:.3f}); profiled batch wall {wall:.2f} ms")
-    print("profile decode: by range " + json.dumps(split))
+    print(f"profile {tag}: by range " + json.dumps(split))
     print("\n".join(table.splitlines()[:24]))
+
+
+def int8_decode_parity_phase():
+    """Phase 8: a small flagship (Cnn10 64->128->128->64, the widths the
+    kernels take) whose int8 encoders are baked on the CPU and carried to
+    the card: codes at every quantize point identical; beam-3 tokens
+    identical, scores within rtol 1e-4."""
+    from acvae_tpu_torch.configs import flagship_conf
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+
+    E, H = 64, 32
+    conf = flagship_conf(
+        encoder_args={"embed_size": E, "channels": [64, 128, 128, 64]},
+        decoder_args={"embed_size": E, "hidden_size": H, "dropout": 0.0},
+        model_args={"posterior_model": "PosteriorRNN_hybrid",
+                    "posterior_args": {"hidden_size": H},
+                    "prior_model": "PriorRNN", "prior_args": {"hidden_size": H}})
+    V, N, T, F, L = 25, 3, 64, 16, 8
+    torch.manual_seed(9)
+    cpu = build_model(conf, V, F, device="cpu")
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():   # BatchNorm statistics away from their init
+        for name, buf in cpu.encoder.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=g) * 0.3)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=g) * 1.5 + 0.5)
+    gpu = build_model(conf, V, F, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(8)
+    feats = torch.tensor(rng.normal(size=(N, T, F)).astype(np.float32))
+    lens = torch.tensor([64, 48, 33])
+    eps = torch.randn((L, N * BEAM, E), generator=torch.Generator().manual_seed(4))
+    for scheme in ("v2sym", "v2", "v4"):
+        q_cpu = quant_encoder_for(conf, cpu, **scheme_kwargs(scheme))
+        q_gpu = copy.deepcopy(q_cpu).to("cuda")
+        codes_cpu, codes_gpu = [], []
+        with torch.inference_mode():
+            q_cpu(feats, lens, codes=codes_cpu)
+            q_gpu(feats.cuda(), lens.cuda(), codes=codes_gpu)
+        check(len(codes_cpu) == len(codes_gpu) == 8 + q_cpu.quant_tail,
+              f"{scheme}: {len(codes_cpu)} and {len(codes_gpu)} quantize points")
+        flipped = [int((a.cpu() != b).sum()) for a, b in zip(codes_gpu, codes_cpu)]
+        outs = [int8_decode_fn(m, q, decode_method="beam", beam_size=BEAM,
+                               max_length=L)(feats.to(d), lens.to(d), eps=eps.to(d))
+                for m, q, d in ((gpu, q_gpu, "cuda"), (cpu, q_cpu, "cpu"))]
+        a, b = (o["scores"].cpu() for o in outs)
+        err = ((a - b).abs() / b.abs().clamp_min(1e-6)).max().item()
+        same = torch.equal(outs[0]["seqs"].cpu(), outs[1]["seqs"])
+        print(f"int8 decode parity {scheme}: codes differing at the "
+              f"{len(flipped)} quantize points {flipped}; beam tokens "
+              f"identical {same}, scores max rel err {err:.2e}")
+        check(sum(flipped) == 0, f"{scheme}: codes differ between the card "
+                                 f"and the CPU: {flipped}")
+        check(same, f"{scheme}: int8 beam tokens differ between the card and "
+                    f"the CPU")
+        check(torch.allclose(a, b, rtol=1e-4, atol=0),
+              f"{scheme}: int8 beam scores differ beyond rtol 1e-4: {err}")
+
+
+def int8_serve_phase(profile_dir=None):
+    """Phase 9, the slice's path: the flagship's v2sym int8 encoder,
+    calibrated from bn0's statistics on the card, (a) decoding batches of
+    512 at beam 3 through ``int8_decode_fn``, (b) behind the HTTP service.
+    Returns the launches of (a)'s batches."""
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+    from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
+
+    torch.manual_seed(7)
+    with tempfile.TemporaryDirectory() as exp:
+        conf = copy.deepcopy(FLAGSHIP_CONF)
+        save_experiment(exp, build_model(conf, VOCAB, DATA_DIM, device="cuda"),
+                        conf, flagship_vocab())
+        _, vocab, model = load_experiment(exp, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
+        torch.cuda.synchronize()
+        print(f"int8 serve: v2sym encoder calibrated from bn0's statistics on "
+              f"the card in {time.perf_counter() - t0:.2f} s")
+        int8 = int8_decode_fn(model, quant, **BEAM_KW)
+
+        def decode(feats, lens, g):
+            return int8(feats, lens, generator=g)
+        counts, feats, lens = decode_rate("int8 serve decode", decode, quant,
+                                          model, vocab)
+        batches = 1 + DEC_TIMED
+        check(counts["conv3x3_i8"] == 8 * batches
+              and counts["avgpool2x2_i8"] == 3 * batches
+              and counts["time_warp_1d"] == 0,
+              f"int8 serve: launches {counts} in {batches} batches (expected "
+              f"8 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+        with torch.inference_mode():
+            a = quant(feats, lens)["audio_embeds"].flatten()
+            b = model.encode(feats, lens)["audio_embeds"].float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm() + 1e-12))
+        print(f"int8 serve: audio_embeds cosine to the bf16 encoder's {cos:.5f}")
+        check(cos > 0.9, f"the int8 encoder strays from the bf16 one: cos {cos}")
+        if profile_dir:
+            profile_decode(decode, profile_dir, "int8_decode")
+        del model, quant, int8, decode, feats
+        torch.cuda.empty_cache()
+        http_checks(exp, "int8 serve", encoder_int8=True)
+    return counts
+
+
+def build_phase():
+    """Every CUDA source of the port, one nvcc each, all started together."""
+    from acvae_tpu_torch.ops.cuda.build import CSRC, build
+
+    def one(src):
+        t0 = time.perf_counter()
+        log = build(src.stem)
+        return src, time.perf_counter() - t0, log
+    srcs = sorted(CSRC.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+        for src, secs, log in pool.map(one, srcs):
+            print(f"build {src.name}: {secs:.1f} s; " + " | ".join(
+                line.strip() for line in log.splitlines() if "registers" in line
+                or "spill" in line))
 
 
 def main():
@@ -657,24 +991,25 @@ def main():
 
     device_phase()
     torch.manual_seed(0)   # the dropouts draw from the global generator
-    from acvae_tpu_torch.ops.cuda.build import CSRC, build
-    for src in sorted(CSRC.glob("*.cu")):
-        t0 = time.perf_counter()
-        log = build(src.stem)
-        print(f"build {src.name}: {time.perf_counter() - t0:.1f} s; " + " | ".join(
-            line.strip() for line in log.splitlines() if "registers" in line
-            or "spill" in line))
+    phase("build", build_phase)
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [phase("kernels", kernel_phase, flush)]
+    kernels += phase("int8 kernels", int8_kernel_phase, flush)
     del flush
+    torch.cuda.empty_cache()
     phase("parity", parity_phase)
-    counts = phase("train", train_phase, STEPS, args.profile)
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    by_path = {"train": phase("train", train_phase, STEPS, args.profile)}
     phase("decode parity", decode_parity_phase)
-    serve_counts = phase("serve", serve_phase, args.profile)
-    print(f"serve: kernel launches on the serving path {serve_counts}")
+    by_path["serve"] = phase("serve", serve_phase, args.profile)
+    phase("int8 decode parity", int8_decode_parity_phase)
+    by_path["int8_serve"] = phase("int8 serve", int8_serve_phase, args.profile)
+    own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
+           "avgpool2x2_i8": "int8_serve"}
+    for k in kernels:
+        k["launches"] = by_path[own[k["name"]]][k["name"]]
+        k["launches_by_path"] = {p: by_path[p][k["name"]] for p in PATHS}
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    print(f"kernel launches by path {by_path}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -221,17 +221,24 @@ def test_uint8_paths_agree_with_f32(experiments, fixed_eps):
         svc.validate_q(q.astype(np.int32) + 300, 1.0, 0.0)
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"encoder_int8": True}, {"int8_scheme": "v4"}, {"exported": "artifact"},
-    {"decode_dtype": "bfloat16"}, {"upload_dtype": "bfloat16"},
-    {"decode_method": "dbs"}, {"experiment_path": "a,b"}],
+LEFT_OUT = (NotImplementedError, "ROADMAP")
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    # the int8 encoder is ported: what JAX refuses with it, the port refuses
+    ({"encoder_int8": True, "decode_dtype": "bfloat16"},
+     (ValueError, "decode_dtype")),
+    ({"encoder_int8": True, "int8_scheme": "v9"}, (ValueError, "int8_scheme")),
+    ({"exported": "artifact"}, LEFT_OUT),
+    ({"decode_dtype": "bfloat16"}, LEFT_OUT), ({"upload_dtype": "bfloat16"}, LEFT_OUT),
+    ({"decode_method": "dbs"}, LEFT_OUT), ({"experiment_path": "a,b"}, LEFT_OUT)],
     ids=["int8", "int8_scheme", "exported", "decode_dtype", "upload_dtype",
          "dbs", "ensemble"])
-def test_left_out_options_raise(experiments, kwargs):
+def test_left_out_options_raise(experiments, kwargs, error):
     kw = dict(experiment_path=experiments[1], device="cpu", batch_size=2,
               mel_bucket=BUCKET, max_length=MAXLEN)
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error[0], match=error[1]):
         CaptionService(**kw)
 
 
