@@ -5,8 +5,9 @@
 returns the tensors under the port's (the reference's torch) names:
 
 * Dense kernels [in, out] and RNN ``wi``/``wh`` transpose to torch's
-  [out, in]; conv kernels go HWIO -> OIHW, and the stem conv keeps only its
-  first input channel (the JAX stem is zero-padded to 2 lanes);
+  [out, in]; conv kernels go HWIO -> OIHW; the stem conv keeps only its
+  first input lane, and the JAX stem's padded lanes (they read only zeros)
+  go to the encoder's ``stem_pad_lanes`` buffer, which the int8 bake reads;
 * flax BatchNorm ``scale``/``bias`` and batch_stats ``mean``/``var`` become
   ``weight``/``bias`` and ``running_mean``/``running_var``;
 * a BiGRU's ``fwd``/``bwd`` cells become ``*_l0`` / ``*_l0_reverse``;
@@ -74,6 +75,8 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 sd[key + _RNN[leaf] + suffix] = a.T if a.ndim == 2 else a
             elif leaf == "kernel" and a.ndim == 4:
                 if prefix.endswith("conv_block1.conv1"):
+                    enc = prefix[:-len("conv_block1.conv1")]
+                    sd[enc + "stem_pad_lanes"] = a[:, :, 1:, :].transpose(3, 2, 0, 1)
                     a = a[:, :, :1, :]
                 sd[key + "weight"] = a.transpose(3, 2, 0, 1)
             elif leaf == "kernel":

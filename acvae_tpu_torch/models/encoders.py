@@ -5,8 +5,14 @@ Log-mel [N, T, F] -> the encoder dict of the JAX package::
     {"audio_embeds": [N, T', E], "audio_embeds_pooled": [N, E],
      "audio_embeds_lens": [N]}
 
-NCHW layout with a 1-channel stem (the TPU's stem lane padding is not
-ported).  BatchNorm follows flax, not ``nn.BatchNorm2d``: it normalizes with
+NCHW layout with a 1-channel stem.  The JAX stem conv reads
+``STEM_LANE_PAD`` input lanes, all but the first of them zero padding; the
+port computes with one lane and keeps the other lanes' weights in the
+buffer ``stem_pad_lanes`` [C, STEM_LANE_PAD - 1, 3, 3], which the forward
+never reads and only the int8 bake does (scheme v1 folds one stem scale
+into every lane, so those weights enter the stem's weight scale as in
+JAX).  It is zero in a port-native model, and a state dict without it (an
+experiment written before it existed) loads as zeros.  BatchNorm follows flax, not ``nn.BatchNorm2d``: it normalizes with
 the biased batch variance (E[x²]-E[x]², in float32) and updates
 ``running_var`` with that same biased variance at momentum 0.9 (flax's
 convention; torch's would be the unbiased variance at 0.1).  With
@@ -22,6 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from acvae_tpu_torch.ops.masked import max_with_lens, mean_with_lens
+
+STEM_LANE_PAD = 2  # the JAX stem conv's input lanes (zero-padded from 1)
 
 
 class BatchNorm(nn.Module):
@@ -101,9 +109,17 @@ class Cnn10(nn.Module):
                        for ci, co in zip(cins, channels)]
         for i, blk in enumerate(self.blocks):
             self.add_module(f"conv_block{i + 1}", blk)
+        self.register_buffer("stem_pad_lanes", torch.zeros(
+            channels[0], STEM_LANE_PAD - 1, 3, 3, device=device))
         self.embed_pooled = nn.Linear(embed_size, embed_size, device=device)
         nn.init.xavier_uniform_(self.embed_pooled.weight)
         nn.init.zeros_(self.embed_pooled.bias)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # load_state_dict hands each module a copy of the caller's dict
+        state_dict.setdefault(prefix + "stem_pad_lanes",
+                              torch.zeros_like(self.stem_pad_lanes))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:

@@ -161,6 +161,8 @@ class QuantPannEncoder:
                                     ).transpose(2, 3, 1, 0).copy()  # HWIO
                 blk[f"bn{j}"] = _fold_bn(getattr(mod, f"bn{j}"))
             self.blocks.append(blk)
+        # the JAX stem's padded input lanes (HWIO), for v1's weight scale
+        self.stem_pad = _np(encoder.stem_pad_lanes.float()).transpose(2, 3, 1, 0)
         head = getattr(encoder, spec["head"])
         self.fc = (head.weight.detach().float(), head.bias.detach().float())
         feats = torch.as_tensor(calib_feats, dtype=torch.float32, device=self.device)
@@ -174,6 +176,7 @@ class QuantPannEncoder:
                 self._bias_correct_pass(feats, lens)
         for blk in self.blocks:  # the f32 kernels are bake-time only
             del blk["wf1"], blk["wf2"]
+        del self.stem_pad, self.stem_pad_scale
 
     @classmethod
     def from_bn0_stats(cls, encoder: torch.nn.Module, arch: str = "Cnn10",
@@ -283,6 +286,12 @@ class QuantPannEncoder:
         n_convs = 2 * len(self.blocks)
         x = self._stem(feats)
         scales = [smax(x, cur_lens, self._levels(0))]
+        # the scale JAX gives each padded stem lane: its own max of zeros
+        # per channel, the stem's one scale per tensor
+        zeros = torch.zeros((1, 1, 1, self.stem_pad.shape[2]), device=x.device)
+        self.stem_pad_scale = (smax(zeros, torch.ones(1, device=x.device),
+                                    self._levels(0))
+                               if self.per_channel else scales[0])
         k = 0
         for blk in self.blocks:
             for j in (1, 2):
@@ -299,14 +308,20 @@ class QuantPannEncoder:
 
     def _fold_and_quantize(self) -> None:
         """Fold each conv's input scales into its f32 kernel, quantize per
-        output channel (``quant.py:319-334``)."""
+        output channel (``quant.py:319-334``).  The stem conv is quantized
+        over its padded lanes too, as JAX's is, and keeps lane 0."""
         for i, blk in enumerate(self.blocks):
             for j in (1, 2):
                 s_in = self.act_scales[2 * i + j - 1]
                 w_eff = blk[f"wf{j}"] * np.reshape(
                     np.asarray(s_in, np.float32), (1, 1, -1, 1))
+                lanes = w_eff.shape[2]
+                if i == 0 and j == 1:
+                    w_eff = np.concatenate([w_eff, self.stem_pad * np.reshape(
+                        np.asarray(self.stem_pad_scale, np.float32),
+                        (1, 1, -1, 1))], axis=2)
                 w_i8, sw = _quantize_w(w_eff)
-                blk[f"w{j}"] = torch.tensor(w_i8, device=self.device)
+                blk[f"w{j}"] = torch.tensor(w_i8[:, :, :lanes], device=self.device)
                 blk[f"wk{j}"] = pack_conv3x3_weight(blk[f"w{j}"])
                 blk[f"sw{j}"] = sw
                 # zero-point correction for offset inputs: ZP·Σ_hwi w_i8

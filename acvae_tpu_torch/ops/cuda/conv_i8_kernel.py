@@ -5,8 +5,10 @@ They replace ``acvae_tpu/models/quant.py`` ``QuantPannEncoder._conv`` with
 the affine and ``_requantize`` after it (:424-453), and ``_avgpool_i8``
 (:86-99), which XLA builds on the TPU (no Pallas counterpart; PyTorch has no
 CUDA int8 conv).  The CUDA source is ``csrc/conv_i8.cu``: an implicit-GEMM
-``__dp4a`` conv with the requantize in its epilogue, a scalar stem kernel for
-Ci = 1, and a vectorised pool; see the source for the bounds and the design.
+conv on the int8 tensor cores (``mma.sync`` s8, ``cp.async`` pipeline) with
+the requantize in its epilogue, a stem kernel for Ci = 1 that stages its
+input halo once and writes 16-byte vectors, and a vectorised pool; see the
+source for the bounds and the design.
 
 On a CPU tensor each wrapper runs its plain version from ``ops/int8.py``.
 On a CUDA tensor it launches the kernel or raises.  Conv weights are OHWI

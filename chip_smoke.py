@@ -8,16 +8,20 @@ Phases, each of which exits nonzero on failure:
 1. device: a CUDA card is required (no CPU fallback); TF32 is turned off for
    matmuls and cuDNN; prints the card's name and power limit.
 2. build: compiles every CUDA source of the port, one nvcc each, all
-   started together.
+   started together; counts the tensor-core MMAs (``IGMMA``/``IMMA``) and
+   ``IDP4A`` in each conv kernel's SASS (``cuobjdump -sass``) and fails if
+   the conv body has no MMA or any ``IDP4A``.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge cases; times the kernel, the plain
    version and the library call that computes the same function with CUDA
    events (median, L2 flushed).  ``time_warp_1d``: max |error| <= 1e-6.
    ``conv3x3_i8`` (every conv of the int8 encoder at batch 512, block 1's
-   2^31-element tensors included) and ``avgpool2x2_i8`` (its 3 pools):
-   max |error| 0, and each beside cuDNN's bf16 ``conv2d``/``avg_pool2d``
-   at the same shapes, channels-last (a labelled comparison, not the same
-   function).
+   2^31-element tensors included, and the ragged edges of its tiles) and
+   ``avgpool2x2_i8`` (its 3 pools): max |error| 0, and each beside cuDNN's
+   bf16 ``conv2d``/``avg_pool2d`` at the same shapes, channels-last, and
+   each body conv beside ``torch._int_mm`` of its im2col (labelled
+   comparisons, not the same function); the body (7 convs) and the stem
+   reported apart.
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -267,21 +271,50 @@ CONV_EDGES = [  # (N, H, W, Ci, Co, mode, pad_code)
     (3, 100, 64, 1, 64, "offset", 0), (3, 100, 64, 64, 64, "offset", -128),
     (3, 100, 64, 64, 64, "sym", -128), (3, 37, 13, 128, 192, "f32relu", -128),
     (3, 50, 8, 512, 512, "f32", 0), (3, 9, 5, 64, 64, "offset", 0),
-    (2, 1, 1, 64, 64, "sym", 0)]
+    (2, 1, 1, 64, 64, "sym", 0),
+    # the body's tile (128 pixels of whole rows, 128 or 64 channels, 32
+    # input channels a stage, 3 stages): H*W not a multiple of the tile,
+    # W above and below the tile width, Co = 192 against a 128-channel
+    # tile, and Ci = 192 (three 64-channel chunks, six stages' worth)
+    (2, 11, 10, 64, 128, "sym", 0), (2, 3, 150, 64, 128, "offset", -128),
+    (1, 5, 129, 64, 64, "f32", -128), (2, 40, 3, 64, 128, "f32relu", -128),
+    (2, 20, 16, 64, 192, "sym", -128), (2, 9, 70, 128, 192, "offset", 0),
+    (2, 17, 24, 192, 128, "f32", -128), (2, 8, 8, 192, 64, "sym", 0),
+    # the stem's tile (512 pixels of rows of at most 128 columns)
+    (2, 5, 200, 1, 64, "offset", -128), (2, 13, 7, 1, 192, "f32", -128),
+    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0)]
 POOL_EDGES = [(3, 101, 63, 64), (3, 7, 9, 512), (3, 2, 2, 16), (2, 1, 1, 16)]
+
+
+def int_mm_ms(x, w, flush):
+    """Time of ``torch._int_mm`` of the conv's im2col [M, 9*Ci] by its
+    weights [9*Ci, Co] (the int8 tensor cores' GEMM, not the same function:
+    no halo, no epilogue), on a batch slice whose im2col stays near 1 GiB,
+    scaled to the whole batch.  Returns (ms, images in the slice)."""
+    N, H, W, ci = x.shape
+    co = w.shape[0]
+    n = max(1, min(N, 2**30 // (H * W * 9 * ci)))
+    xp = torch.nn.functional.pad(x[:n], (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, dy:dy + H, dx:dx + W] for dy in range(3)
+                      for dx in range(3)], dim=-1).reshape(n * H * W, 9 * ci)
+    wt = w.reshape(co, 9 * ci).t()                  # [K, N], column-major
+    ms = time_ms(lambda: torch._int_mm(cols, wt), flush, reps=10)
+    return ms * N / n, n
 
 
 def int8_kernel_phase(flush):
     """conv3x3_i8 and avgpool2x2_i8 against their plain versions: every
     shape of a batch of 512 and the edge cases, max |err| 0; times summed
-    over a batch's 8 convs and 3 pools."""
+    over a batch's 7 body convs, its stem and its 3 pools."""
     from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
     from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
 
     F = torch.nn.functional
     g = torch.Generator("cuda").manual_seed(2)
-    conv = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0,
-                by={"operations": 0.0, "bytes": 0.0})
+    part = {k: dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, int_mm=0.0, ops=0.0,
+                    by={"operations": 0.0, "bytes": 0.0}, convs=0)
+            for k in ("body", "stem")}
+    err_all = 0.0
     for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1):
         mode = "f32relu" if k == len(CONV_SHAPES) else "sym"
         x, w, A, B = conv_inputs(DEC_BATCH, H, W, ci, co, g)
@@ -291,11 +324,18 @@ def int8_kernel_phase(flush):
         err = max_err(out, conv3x3_i8_ref(x, w_hwio, A, B, mode, 0))
         check(err == 0, f"conv3x3_i8 disagrees with its plain version at "
                         f"[{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: {err}")
-        conv["err"] = max(conv["err"], err)
+        err_all = max(err_all, err)
         del out
         k_ms = time_ms(lambda: conv3x3_i8(x, w, A, B, mode, 0), flush)
         p_ms = time_ms(lambda: conv3x3_i8_ref(x, w_hwio, A, B, mode, 0), flush,
                        reps=2)
+        mm = ""
+        c = part["stem" if ci == 1 else "body"]
+        if ci > 1:
+            i_ms, n = int_mm_ms(x, w, flush)
+            c["int_mm"] += i_ms
+            mm = (f", int8 torch._int_mm {i_ms:.4f} ms (GEMM only, not the same "
+                  f"function; im2col of {n} images, scaled)")
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # NHWC as channels-last
         wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
         l_ms = time_ms(lambda: F.conv2d(xb, wb, padding=1), flush, reps=10)
@@ -306,13 +346,15 @@ def int8_kernel_phase(flush):
         b_ms, by = bound(ops, nbytes, INT8_OPS)
         print(f"conv3x3_i8 [{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: kernel "
               f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), plain {p_ms:.4f} "
-              f"ms, bf16 cuDNN conv2d {l_ms:.4f} ms (not the same function), "
-              f"bound {b_ms:.4f} ms ({by}); max_abs_err {err}")
-        conv["ms"] += k_ms
-        conv["plain"] += p_ms
-        conv["bound"] += b_ms
-        conv["by"][by] += b_ms
-        conv["bf16"] += l_ms
+              f"ms, bf16 cuDNN conv2d {l_ms:.4f} ms (not the same function)"
+              f"{mm}, bound {b_ms:.4f} ms ({by}); max_abs_err {err}")
+        c["ms"] += k_ms
+        c["plain"] += p_ms
+        c["bound"] += b_ms
+        c["by"][by] += b_ms
+        c["bf16"] += l_ms
+        c["ops"] += ops
+        c["convs"] += 1
     pool = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0)
     for H, W, C in POOL_SHAPES:
         x = torch.randint(-128, 128, (DEC_BATCH, H, W, C), dtype=torch.int8,
@@ -343,7 +385,7 @@ def int8_kernel_phase(flush):
               f"max_abs_err {err}")
         check(err == 0, f"conv3x3_i8 disagrees at the edge case "
                         f"{(n, H, W, ci, co, mode, pad)}: {err}")
-        conv["err"] = max(conv["err"], err)
+        err_all = max(err_all, err)
     for n, H, W, C in POOL_EDGES:
         x = torch.randint(-128, 128, (n, H, W, C), dtype=torch.int8,
                           device="cuda", generator=g)
@@ -354,6 +396,16 @@ def int8_kernel_phase(flush):
         print(f"avgpool2x2_i8 edge [{n},{H},{W},{C}] -> {tuple(out.shape)}: "
               f"max_abs_err {err}")
         pool["err"] = max(pool["err"], err)
+    for name, c in part.items():
+        c["bound_by"] = max(c["by"], key=c["by"].get)
+        print(f"int8 kernels, a batch of {DEC_BATCH}: conv3x3_i8 {name} "
+              f"({c['convs']} convs) {c['ms']:.3f} ms ({c['ops'] / c['ms'] / 1e9:.1f} "
+              f"TOP/s; plain {c['plain']:.1f}, bf16 cuDNN {c['bf16']:.3f}, "
+              + (f"_int_mm {c['int_mm']:.3f}, " if name == "body" else "")
+              + f"bound {c['bound']:.3f} ({c['bound_by']}))")
+    conv = {k: sum(c[k] for c in part.values())
+            for k in ("ms", "plain", "bound", "bf16")}
+    by = {k: sum(c["by"][k] for c in part.values()) for k in ("operations", "bytes")}
     print(f"int8 kernels, a batch of {DEC_BATCH}: 8 conv3x3_i8 {conv['ms']:.3f} ms "
           f"(plain {conv['plain']:.1f}, bf16 cuDNN {conv['bf16']:.3f}, bound "
           f"{conv['bound']:.3f}); 3 avgpool2x2_i8 {pool['ms']:.3f} ms (plain "
@@ -361,12 +413,17 @@ def int8_kernel_phase(flush):
           f"{pool['bound']:.3f})")
     common = {"route": "cuda", "source": "acvae_tpu_torch/csrc/conv_i8.cu",
               "launches": None, "library_ms": None}
+    split = {name: {"convs": c["convs"], "ms": c["ms"], "plain_ms": c["plain"],
+                    "bound_ms": c["bound"], "bound_by": c["bound_by"],
+                    "tops": c["ops"] / c["ms"] / 1e9, "bf16_cudnn_ms": c["bf16"],
+                    "int_mm_ms": c["int_mm"] if name == "body" else None}
+             for name, c in part.items()}
     return [dict(common, name="conv3x3_i8",
                  replaces="acvae_tpu/models/quant.py:424",
-                 max_abs_err=conv["err"], ms=conv["ms"], plain_ms=conv["plain"],
-                 bound_ms=conv["bound"],
-                 bound_by=max(conv["by"], key=conv["by"].get),
-                 bf16_cudnn_ms=conv["bf16"], timed=f"8 convs of a batch of {DEC_BATCH}"),
+                 max_abs_err=err_all, ms=conv["ms"], plain_ms=conv["plain"],
+                 bound_ms=conv["bound"], bound_by=max(by, key=by.get),
+                 bf16_cudnn_ms=conv["bf16"], timed=f"8 convs of a batch of {DEC_BATCH}",
+                 **split),
             dict(common, name="avgpool2x2_i8",
                  replaces="acvae_tpu/models/quant.py:86",
                  max_abs_err=pool["err"], ms=pool["ms"], plain_ms=pool["plain"],
@@ -967,7 +1024,8 @@ def int8_serve_phase(profile_dir=None):
 
 
 def build_phase():
-    """Every CUDA source of the port, one nvcc each, all started together."""
+    """Every CUDA source of the port, one nvcc each, all started together;
+    then the conv kernels' instructions (``sass_counts``)."""
     from acvae_tpu_torch.ops.cuda.build import CSRC, build
 
     def one(src):
@@ -979,7 +1037,40 @@ def build_phase():
         for src, secs, log in pool.map(one, srcs):
             print(f"build {src.name}: {secs:.1f} s; " + " | ".join(
                 line.strip() for line in log.splitlines() if "registers" in line
-                or "spill" in line))
+                or "spill" in line or "Compiling entry" in line))
+    counts = sass_counts()
+    for name, c in counts.items():
+        print(f"sass {name}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    body = counts.get("conv3x3_i8_kernel", {})
+    check(body.get("IGMMA", 0) + body.get("IMMA", 0) > 0,
+          f"the conv body kernel has no tensor-core MMA: {body}")
+    check(body.get("IDP4A", 0) == 0, f"the conv body kernel still has IDP4A: {body}")
+
+
+SASS_OPS = {"IGMMA": r"\bIGMMA\b", "IMMA": r"\bIMMA\b",
+            "IDP4A": r"\bIDP4A\b|\bIDP\.4A\b"}
+
+
+def sass_counts():
+    """{kernel: {op: count}} over every instantiation of the two conv
+    kernels in the built conv_i8 library (``cuobjdump -sass``)."""
+    import re
+    from acvae_tpu_torch.ops.cuda.build import _lib_path, _nvcc
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path("conv_i8"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = next((k for k in ("conv3x3_i8_kernel", "conv3x3_c1_kernel")
+                        if k in line), None)
+            counts.setdefault(cur, dict.fromkeys(SASS_OPS, 0))
+        elif cur:
+            for op, pat in SASS_OPS.items():
+                counts[cur][op] += len(re.findall(pat, line))
+    counts.pop(None, None)
+    return counts
 
 
 def main():

@@ -91,6 +91,33 @@ def test_conv3x3_i8_kernel_matches_plain(card, ci, co, mode, pad):
     assert torch.equal(out, conv3x3_i8_ref(x, w, A, B, mode, pad))
 
 
+# the kernels' tiles' ragged cases (chip_smoke.py's CONV_EDGES): H*W not a
+# multiple of the body's 128-pixel tile, W above and below its width, Co =
+# 192 against a 128-channel tile, Ci = 192 against the 3-stage pipeline, the
+# stem's tile edges; every mode, pad -128 (N, H, W, Ci, Co, mode, pad)
+TILE_EDGES = [
+    (2, 11, 10, 64, 128, "sym", 0), (2, 3, 150, 64, 128, "offset", -128),
+    (1, 5, 129, 64, 64, "f32", -128), (2, 40, 3, 64, 128, "f32relu", -128),
+    (2, 20, 16, 64, 192, "sym", -128), (2, 9, 70, 128, 192, "offset", 0),
+    (2, 17, 24, 192, 128, "f32", -128), (2, 8, 8, 192, 64, "sym", 0),
+    (2, 5, 200, 1, 64, "offset", -128), (2, 13, 7, 1, 192, "f32", -128),
+    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,ci,co,mode,pad", TILE_EDGES)
+def test_conv3x3_i8_kernel_tile_edges(card, n, h, w, ci, co, mode, pad):
+    rng = np.random.default_rng(h * w + ci)
+    x = torch.tensor(rng.integers(-128, 128, size=(n, h, w, ci)).astype(np.int8))
+    wt = torch.tensor(rng.integers(-127, 128, size=(3, 3, ci, co)).astype(np.int8))
+    A = torch.tensor((rng.uniform(0.5, 1.5, size=co) * 40
+                      / (np.sqrt(9 * ci) * 73.0 * 73.0)).astype(np.float32))
+    B = torch.tensor((rng.normal(size=co) * 20).astype(np.float32))
+    x, wt, A, B = (t.cuda() for t in (x, wt, A, B))
+    out = conv3x3_i8(x, pack_conv3x3_weight(wt), A, B, mode, pad)
+    assert torch.equal(out, conv3x3_i8_ref(x, wt, A, B, mode, pad))
+
+
 @pytest.mark.cuda
 def test_avgpool2x2_i8_kernel_matches_plain(card):
     x = torch.randint(-128, 128, (3, 11, 9, 64), dtype=torch.int8, device="cuda")

@@ -291,32 +291,75 @@ def test_quant_from_flax_refuses_live_stem_lanes(encoders):
 
 
 def test_v1_stem_weight_scale_reads_the_padded_lane(encoders):
-    """A known gap (ROADMAP §C).  With one activation scale for the whole
-    stem (v1), the JAX package folds it into the padded lane's weights too,
-    so their initialised values enter the stem conv's per-channel weight
-    scale (``quant.py:80``, the max over HWI).  The port has no such lane.
-    Only block 1's conv1 weight codes and its A differ; every activation
-    scale, every other weight and every B agree."""
-    v, port, feats, live = encoders
+    """With one activation scale for the whole stem (v1), the JAX package
+    folds it into the padded lane's weights too, so their initialised
+    values enter the stem conv's per-channel weight scale (``quant.py:80``,
+    the max over HWI).  ``from_flax`` keeps those weights in
+    ``stem_pad_lanes`` and the port's bake reads them: the stem's weight
+    codes, A and B equal JAX's, and the rest of the bake agrees."""
+    v, _, feats, live = encoders
     v_live = jax.tree_util.tree_map(np.array, v)
     v_live["params"]["block0_4"]["conv1"]["kernel"][...] = live
+    port = Cnn10(inputdim=F, embed_size=CH[-1], channels=CH, device="cpu")
+    port.load_state_dict(from_flax(v_live), strict=True)
     jq = jquant.QuantPannEncoder(v_live, jnp.asarray(feats), jnp.asarray(LENS),
                                  channels=CH, **jquant.scheme_kwargs("v1"))
     pq = tquant.QuantPannEncoder(port, torch.tensor(feats), torch.tensor(LENS),
                                  **tquant.scheme_kwargs("v1"))
-    w_port = pq.blocks[0]["w1"].numpy()
-    w_jax = np.asarray(jq.blocks[0]["w1"])[:, :, :1]
-    a_port, a_jax = pq.blocks[0]["A1"].numpy(), np.asarray(jq.blocks[0]["A1"])
-    flipped = int((w_port != w_jax).sum())
-    print(f"v1 stem conv: {flipped} of {w_port.size} weight codes differ; "
-          f"A1 port/JAX {(a_port / a_jax).min():.4f}.."
-          f"{(a_port / a_jax).max():.4f}")
-    assert flipped > 0 and (a_port <= a_jax).all() and (a_port < a_jax).any()
-    np.testing.assert_array_equal(pq.blocks[0]["B1"].numpy(),
-                                  np.asarray(jq.blocks[0]["B1"]))
-    pq.blocks[0]["w1"] = torch.tensor(w_jax)       # the rest is the same bake
-    jq.blocks[0]["A1"] = pq.blocks[0]["A1"]
+    w_jax = np.asarray(jq.blocks[0]["w1"])
+    np.testing.assert_array_equal(pq.blocks[0]["w1"].numpy(), w_jax[:, :, :1])
+    for k in ("A1", "B1"):
+        np.testing.assert_array_equal(pq.blocks[0][k].numpy(),
+                                      np.asarray(jq.blocks[0][k]), err_msg=k)
     _assert_same_bake(pq, jq)
+    # the live lane matters: without it (a port-native stem) the codes move
+    zero = tquant.QuantPannEncoder(encoders[1], torch.tensor(feats),
+                                   torch.tensor(LENS), **tquant.scheme_kwargs("v1"))
+    assert (zero.blocks[0]["w1"].numpy() != w_jax[:, :, :1]).sum() > 0
+
+
+def test_from_flax_keeps_the_padded_stem_lanes(encoders):
+    """The JAX stem's padded lanes land in ``stem_pad_lanes`` (OIHW); the
+    forward never reads them; a port-native Cnn10 has zeros there."""
+    v, port, feats, live = encoders
+    v_live = jax.tree_util.tree_map(np.array, v)
+    v_live["params"]["block0_4"]["conv1"]["kernel"][...] = live
+    sd = from_flax(v_live)
+    np.testing.assert_array_equal(sd["stem_pad_lanes"].numpy(),
+                                  live[:, :, 1:].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["conv_block1.conv1.weight"].numpy(),
+                                  live[:, :, :1].transpose(3, 2, 0, 1))
+    assert not from_flax(v)["stem_pad_lanes"].any()
+    other = Cnn10(inputdim=F, embed_size=CH[-1], channels=CH, device="cpu")
+    assert not other.stem_pad_lanes.any()
+    assert "stem_pad_lanes" not in dict(other.named_parameters())
+    other.load_state_dict(sd, strict=True)
+    a = other(torch.tensor(feats), torch.tensor(LENS))
+    b = port(torch.tensor(feats), torch.tensor(LENS))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_experiment_without_stem_lanes_loads(experiments, tmp_path):
+    """An experiment dir written before ``stem_pad_lanes`` existed loads,
+    with zero lanes; any other missing key still raises."""
+    import shutil
+    _, port_exp, _ = experiments
+    for name in ("config.json", "vocab.pkl"):
+        shutil.copy(f"{port_exp}/{name}", tmp_path / name)
+    sd = torch.load(f"{port_exp}/best.pt", weights_only=True)["state_dict"]
+    assert "encoder.stem_pad_lanes" in sd
+    old = {k: v for k, v in sd.items() if k != "encoder.stem_pad_lanes"}
+    torch.save({"state_dict": old}, tmp_path / "best.pt")
+    _, _, model = load_experiment(str(tmp_path), device="cpu")
+    assert not model.encoder.stem_pad_lanes.any()
+    got = model.state_dict()
+    for k, v in old.items():
+        assert torch.equal(got[k], v), k
+    old.pop("encoder.bn0.running_mean")
+    torch.save({"state_dict": old}, tmp_path / "broken.pt")
+    with pytest.raises(RuntimeError, match="Missing"):
+        load_experiment(str(tmp_path), "broken", device="cpu")
 
 
 # --------------------------------------------------------------------- #

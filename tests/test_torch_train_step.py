@@ -166,6 +166,9 @@ def test_train_step_matches_jax(jax_model, no_jax_dropout):
         np.testing.assert_allclose(float(metrics[k]), float(v), rtol=1e-4,
                                    err_msg=k)
     ref_grads = from_flax({"params": new_state.opt_state})
+    # the JAX stem's padded lane reads only zeros: its grad is zero, and the
+    # port keeps that lane as a buffer, not a parameter
+    assert not ref_grads.pop("encoder.stem_pad_lanes").any()
     named = dict(trainer.model.named_parameters())
     assert set(ref_grads) == set(named)
     for k, g in ref_grads.items():
