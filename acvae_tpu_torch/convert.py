@@ -15,10 +15,12 @@ returns the tensors under the port's (the reference's torch) names:
   ``h2attn`` Linear over [h_dec; h_enc].
 
 ``quant_from_flax(baked)`` carries a baked JAX int8 encoder across (no new
-calibration).
+calibration).  ``experiment_from_flax`` writes a JAX experiment's weights,
+recipe and vocabulary as a port experiment dir.
 """
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, Dict, Tuple
 
@@ -91,6 +93,26 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             [parts["dec_proj.kernel"].T, parts["enc_proj.kernel"].T], axis=1)
         sd[key + "h2attn.bias"] = parts["enc_proj.bias"]
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def experiment_from_flax(tree: Dict[str, Any], conf: Dict[str, Any], vocab,
+                         out_dir: str, name: str = "best"):
+    """A port experiment dir (``config.json``, ``vocab.pkl``,
+    ``<name>.pt``) from a JAX experiment: ``tree`` is the numpy tree with
+    ``params`` and ``batch_stats`` that
+    ``acvae_tpu.train.checkpoints.load_raw_checkpoint(exp, name,
+    subset=("params", "batch_stats"))`` returns (the orbax read stays on the
+    JAX side), ``conf`` its ``config.yaml`` (read with
+    ``core.config.load_config``) and ``vocab`` its vocabulary.  Returns the
+    weights' path."""
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+
+    conf = json.loads(json.dumps(conf))
+    model = build_model(conf, len(vocab), int(conf.get("data_dim", 64)),
+                        device="cpu")
+    model.load_state_dict(from_flax(tree), strict=True)
+    return save_experiment(out_dir, model, conf, vocab, name)
 
 
 def quant_from_flax(baked: Dict[str, Any], device=DEFAULT_DEVICE):

@@ -1,1 +1,1 @@
-"""Host-side data helpers: the vocabulary."""
+"""Host-side data: the vocabulary, the synthetic corpora and the loader."""

@@ -1,15 +1,21 @@
-"""The port's experiment directory (the role of
-``acvae_tpu/train/checkpoints.py:22-38, 226-275``).
+"""The port's experiment directory and its checkpoints (counterpart of
+``acvae_tpu/train/checkpoints.py:22-154, 226-296``).
 
 An experiment dir holds ``config.json`` (the recipe, JSON rather than YAML
 so that nothing needs PyYAML), ``vocab.pkl`` (the JAX package's pickle
-format) and ``<name>.pt``, a ``torch.save`` of ``{"state_dict": ...}``.
+format) and ``<name>.pt``: a ``torch.save`` of ``{"state_dict": ...}``,
+which training extends with ``optimizer``, ``step`` and ``rng`` (the
+generators' states) so that ``--resume`` continues exactly.  ``best.pt``
+is written when the validation score improves and ``last.pt`` every epoch;
+``ckpt_steps.json`` records each checkpoint's step and the best score.
 """
 from __future__ import annotations
 
 import json
+import logging
+import os
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -17,32 +23,160 @@ from acvae_tpu_torch import DEFAULT_DEVICE
 from acvae_tpu_torch.data.vocab import Vocabulary
 from acvae_tpu_torch.models.build import build_model
 
+_LOG = logging.getLogger("acvae_tpu_torch")
+
+
+def _write_side_files(exp: Path, conf: Optional[Dict[str, Any]],
+                      vocab: Optional[Vocabulary]) -> None:
+    if conf is not None:
+        (exp / "config.json").write_text(json.dumps(conf, indent=1))
+    if vocab is not None:
+        vocab.save(str(exp / "vocab.pkl"))
+
+
+def _save(obj: Dict[str, Any], path: Path) -> None:
+    """torch.save through a temporary file and a rename, so that a run
+    stopped mid-write leaves the previous checkpoint whole."""
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
 
 def save_experiment(exp_dir: str, model: torch.nn.Module, conf: Dict[str, Any],
                     vocab: Vocabulary, name: str = "best") -> Path:
-    """Write ``config.json``, ``vocab.pkl`` and ``<name>.pt`` into
-    ``exp_dir`` (created if missing); returns the weights' path."""
+    """Write ``config.json``, ``vocab.pkl`` and ``<name>.pt`` (weights only)
+    into ``exp_dir`` (created if missing); returns the weights' path."""
     exp = Path(exp_dir)
     exp.mkdir(parents=True, exist_ok=True)
-    (exp / "config.json").write_text(json.dumps(conf, indent=1))
-    vocab.save(str(exp / "vocab.pkl"))
+    _write_side_files(exp, conf, vocab)
     path = exp / f"{name}.pt"
-    torch.save({"state_dict": {k: v.detach().cpu()
-                               for k, v in model.state_dict().items()}}, path)
+    _save({"state_dict": {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()}}, path)
     return path
+
+
+def save_checkpoint(exp_dir: str, name: str, trainer, step: int,
+                    vocab: Optional[Vocabulary] = None,
+                    conf: Optional[Dict[str, Any]] = None) -> Path:
+    """``<name>.pt`` with the trainer's full state (weights, optimizer,
+    generators) and ``step``; also ``vocab.pkl``/``config.json`` when
+    given."""
+    exp = Path(exp_dir)
+    exp.mkdir(parents=True, exist_ok=True)
+    _write_side_files(exp, conf, vocab)
+    path = exp / f"{name}.pt"
+    _save(dict(trainer.state(), step=int(step)), path)
+    return path
+
+
+def _resolve_checkpoint_path(exp_dir: str, name: str) -> Path:
+    """``<name>.pt``; a run whose validation score never rose above its
+    starting value wrote no ``best``, so ``best`` falls back to ``last``
+    with a warning."""
+    exp = Path(exp_dir)
+    path = exp / f"{name}.pt"
+    if name == "best" and not path.exists() and (exp / "last.pt").exists():
+        _LOG.warning("no 'best' checkpoint in %s (validation never "
+                     "improved); using 'last'", exp_dir)
+        path = exp / "last.pt"
+    return path
+
+
+def resume_newest(exp_dir: str, trainer) -> Tuple[Optional[int], Optional[str]]:
+    """Restore ``last.pt`` into ``trainer``: ``(step, "last")``, or
+    ``(None, None)`` when there is none.  An unreadable one raises (a
+    resume must not restart from scratch unnoticed).  The mid-epoch
+    ``step_*`` snapshots the JAX package also considers belong to ROADMAP
+    A17."""
+    path = Path(exp_dir) / "last.pt"
+    if not path.exists():
+        return None, None
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        raise RuntimeError(f"resume: {path} could not be read "
+                           f"({type(e).__name__}: {e})") from e
+    trainer.load_state(ckpt)
+    return int(ckpt["step"]), "last"
+
+
+def _write_meta(exp_dir: str, steps: dict) -> None:
+    """Atomic write (temporary file + rename): a torn ckpt_steps.json must
+    not stop a resume."""
+    path = os.path.join(exp_dir, "ckpt_steps.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(steps, f)
+    os.replace(tmp, path)
+
+
+def read_ckpt_steps(exp_dir: str) -> dict:
+    """``ckpt_steps.json``; ``{}`` when it is missing or unreadable."""
+    path = os.path.join(exp_dir, "ckpt_steps.json")
+    if not os.path.exists(path):
+        return {}
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (json.JSONDecodeError, OSError):
+        _LOG.warning("ckpt_steps.json in %s is unreadable; ignoring it",
+                     exp_dir)
+        return {}
+
+
+def write_ckpt_step(exp_dir: str, name: str, step: int, **extra) -> None:
+    """Record a checkpoint's step (and scalars such as the best score) in
+    ``ckpt_steps.json``."""
+    steps = read_ckpt_steps(exp_dir)
+    steps[name] = int(step)
+    steps.update(extra)
+    _write_meta(exp_dir, steps)
+
+
+def remove_checkpoint(exp_dir: str, name: str) -> None:
+    """Delete ``<name>.pt`` and its ``ckpt_steps.json`` entry."""
+    path = Path(exp_dir) / f"{name}.pt"
+    if path.exists():
+        path.unlink()
+    steps = read_ckpt_steps(exp_dir)
+    if name in steps:
+        del steps[name]
+        _write_meta(exp_dir, steps)
+
+
+def criterion_improver(mode: str, initial: Optional[float] = None):
+    """Closure tracking the best value (utils/train_util.py:117-131):
+    ``inner(x)`` says whether x improves on it.  ``initial`` restores the
+    best value on resume; ``inner.best`` exposes it."""
+    if mode not in ("loss", "acc", "score"):
+        raise ValueError(f"improvecriterion must be loss, acc or score, "
+                         f"got {mode!r}")
+    best = (float("inf") if mode == "loss" else 0.0) \
+        if initial is None else float(initial)
+
+    def inner(x: float) -> bool:
+        nonlocal best
+        improved = x < best if mode == "loss" else x > best
+        if improved:
+            best = x
+        inner.best = best
+        return improved
+
+    inner.best = best
+    return inner
 
 
 def load_experiment(exp_dir: str, name: str = "best", device=DEFAULT_DEVICE
                     ) -> Tuple[Dict[str, Any], Vocabulary, torch.nn.Module]:
     """(conf, vocab, model): the model built from ``config.json`` on
-    ``device`` with the weights of ``<name>.pt``; a missing or unexpected
-    key raises."""
+    ``device`` with the weights of ``<name>.pt`` (``best`` falls back to
+    ``last``); a missing or unexpected key raises."""
     exp = Path(exp_dir)
     conf = json.loads((exp / "config.json").read_text())
     vocab = Vocabulary.load(str(exp / "vocab.pkl"))
     model = build_model(conf, len(vocab), int(conf.get("data_dim", 64)),
                         device=device)
-    ckpt = torch.load(exp / f"{name}.pt", map_location=device,
-                      weights_only=True)
+    ckpt = torch.load(_resolve_checkpoint_path(exp_dir, name),
+                      map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
     return conf, vocab, model

@@ -108,9 +108,11 @@ class Trainer:
     """Builds the flagship model, Adam, the LR schedule and the augment from
     ``conf``; :meth:`step` runs one train step.
 
-    ``total_iters`` (iterations per epoch × epochs, as the JAX CLI works it
-    out from the loader) drives the LR decay and the scheduled-sampling
-    decay; no config holds it, so it is a required argument."""
+    ``total_iters`` (``len(train_loader) × epochs``, as the CLI works it
+    out) drives the LR decay and the scheduled-sampling decay; no config
+    holds it, so it is a required argument.  :meth:`state` and
+    :meth:`load_state` carry everything but the step count across a
+    checkpoint."""
 
     def __init__(self, conf: Dict[str, Any], vocab_size: int, data_dim: int,
                  device=DEFAULT_DEVICE, *, total_iters: int):
@@ -147,6 +149,30 @@ class Trainer:
             self.augment = build_augment(conf["augments"],
                                          crop_size=conf.get("crop_size", 992),
                                          **conf.get("augment_args", {}))
+
+    def state(self) -> Dict[str, Any]:
+        """What an exact resume needs besides the step count: the weights,
+        Adam's state, and the states of the trainer's generator (augment
+        and model noise) and of torch's global ones (the dropouts)."""
+        rng = {"generator": self.generator.get_state(),
+               "torch": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"state_dict": {k: v.detach().cpu()
+                               for k, v in self.model.state_dict().items()},
+                "optimizer": self.optimizer.state_dict(), "rng": rng}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state` (tensors on the CPU, as ``torch.load(...,
+        map_location="cpu")`` gives them); a missing or unexpected weight
+        raises."""
+        self.model.load_state_dict(state["state_dict"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        rng = state["rng"]
+        self.generator.set_state(rng["generator"])
+        torch.set_rng_state(rng["torch"])
+        if self.device.type == "cuda" and "cuda" in rng:
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
 
     def ratios(self, iteration: int, epoch: int) -> Dict[str, float]:
         """ss_ratio, dis_ratio and kl_weight for this iteration and epoch

@@ -51,10 +51,22 @@ Phases, each of which exits nonzero on failure:
    peak memory, and 8 ``conv3x3_i8`` + 3 ``avgpool2x2_i8`` launches a batch;
    (b) ``CaptionService(encoder_int8=True)`` behind ``run_server`` over
    HTTP as in phase 7, its launches counted against its batches.
+10. cli: the user's own commands, in process through
+   ``acvae_tpu_torch.cli.main.main``: ``make_synthetic --rich`` (320 clips
+   of 512-992 frames), ``train configs/ac_vae.yaml`` at its full width
+   (vocabulary the corpus's) with ``--augments=[timewarp,timemask,freqmask]``
+   for 2 epochs of 45 iterations, again with ``--epochs=3 --resume=true``
+   (restored step 90, final step 135, the checkpoint files, 3 finite
+   ``metrics.jsonl`` lines), then ``evaluate`` at beam 3 with the bf16 and
+   the int8 v2sym encoder (every score JAX writes, finite).  Launches: one
+   ``time_warp_1d`` a train iteration; 8 ``conv3x3_i8`` and 3
+   ``avgpool2x2_i8`` an int8 eval batch, calibration's reported apart.
+   Prints epoch wall s, iterations/s, the loader's host ms a batch against
+   the step's, validation s, evaluate clips/s and peak memory.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve).  Prints a ``{"kernels": [...]}`` JSON line (``launches`` on each
-kernel's own path, ``launches_by_path`` on all three), then, last, the
+serve, cli).  Prints a ``{"kernels": [...]}`` JSON line (``launches`` on
+each kernel's own path, ``launches_by_path`` on all four), then, last, the
 ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps and one full-width decode batch of each serving path with
 torch.profiler and writes the traces and op tables into DIR.
@@ -62,6 +74,7 @@ torch.profiler and writes the traces and op tables into DIR.
 import argparse
 import concurrent.futures
 import copy
+import functools
 import json
 import math
 import statistics
@@ -96,7 +109,11 @@ CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
                (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
                (128, 8, 256, 512), (128, 8, 512, 512)]
 POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
-PATHS = ("train", "serve", "int8_serve")
+PATHS = ("train", "serve", "int8_serve", "cli")
+# phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
+# train_percent 90, 5 validation batches, 10 eval batches)
+CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
+SMI = ""
 
 
 def kernel_fns():
@@ -135,10 +152,12 @@ def device_phase():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    global SMI
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    SMI = smi.splitlines()[0]
+    print(SMI)
 
 
 def time_ms(fn, flush, reps=30):
@@ -1023,6 +1042,217 @@ def int8_serve_phase(profile_dir=None):
     return counts
 
 
+SCORE_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "ROUGE_L", "CIDEr",
+              "METEOR", "SPICE", "SPIDEr")
+
+
+class CliProbe:
+    """Timers around the CLI's own functions, put in place for phase 10 and
+    taken out after it (``restore``): the validation decode, the eval decode
+    loop (and the decode calls inside it, each ending in a synchronise), the
+    upload to the card, the loader's work in its producer thread (feature
+    reads and collate) and the main thread's wait for each batch, per loader
+    kind (shuffled = train), and the int8 calibration's kernel launches."""
+
+    def __init__(self, cli, loader_cls):
+        self.log = {k: [] for k in ("validate", "decode", "upload", "calib",
+                                    "produce", "wait")}
+        self._undo = []
+        log = self.log
+
+        def validate(real, *a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            log["validate"].append(time.perf_counter() - t0)
+            return out
+
+        def decode_loader(real, decode, *a, **k):
+            spent = []
+
+            def timed(*da, **dk):
+                t0 = time.perf_counter()
+                out = decode(*da, **dk)
+                torch.cuda.synchronize()
+                spent.append(time.perf_counter() - t0)
+                return out
+            t0 = time.perf_counter()
+            out = real(timed, *a, **k)
+            log["decode"].append((time.perf_counter() - t0, sum(spent), out))
+            return out
+
+        def to_device(real, *a, **k):
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            log["upload"].append(time.perf_counter() - t0)
+            return out
+
+        def calib(real, *a, **k):
+            before = read_counts()
+            q = real(*a, **k)
+            log["calib"].append({n: c - before[n] for n, c in read_counts().items()})
+            return q
+
+        def iter_batches(real, self_, skip_batches=0):
+            yield from _each_timed(real(self_, skip_batches), log["produce"],
+                                   self_.shuffle)
+
+        def prefetch(real, self_, *a, **k):
+            yield from _each_timed(real(self_, *a, **k), log["wait"],
+                                   self_.shuffle)
+
+        for owner, name, wrap in ((cli, "_validate", validate),
+                                  (cli, "_decode_loader", decode_loader),
+                                  (cli, "_to_device", to_device),
+                                  (cli, "quant_encoder_for", calib),
+                                  (loader_cls, "_iter_batches", iter_batches),
+                                  (loader_cls, "prefetch", prefetch)):
+            real = getattr(owner, name)
+            self._undo.append((owner, name, real))
+            setattr(owner, name, functools.partial(wrap, real)
+                    if owner is cli else _method(wrap, real))
+
+    def restore(self):
+        for owner, name, real in self._undo:
+            setattr(owner, name, real)
+
+
+def _method(wrap, real):
+    def method(self, *a, **k):
+        return wrap(real, self, *a, **k)
+    return method
+
+
+def _each_timed(it, log, tag):
+    """Yield from ``it``, appending (tag, seconds) for each item's next()."""
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            log.append((tag, time.perf_counter() - t0))
+            yield item
+    finally:
+        it.close()
+
+
+def cli_phase():
+    """Phase 10: make_synthetic, train (2 epochs, then a resume to 3) and
+    evaluate (bf16, int8 v2sym) through ``cli.main.main`` on a temp dir;
+    returns the kernel launches counted over all of it."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.data.dataset import CaptionLoader
+
+    probe = CliProbe(cli, CaptionLoader)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            return cli_path(cli, tmp, probe.log)
+    finally:
+        probe.restore()
+
+
+def _ms(xs):
+    return f"median {statistics.median(xs) * 1e3:.2f} ms (max {max(xs) * 1e3:.2f})"
+
+
+def cli_path(cli, tmp, log):
+    config = str(Path(__file__).resolve().parent / "configs" / "ac_vae.yaml")
+    cli.main(["make_synthetic", tmp, "--rich", f"--num_audios={CLI_AUDIOS}",
+              "--mel_frames=1024"])
+    args = ["train", config, f"--h5_csv={tmp}/mels.csv",
+            f"--caption_file={tmp}/text.json", f"--vocab_file={tmp}/vocab.pkl",
+            f"--outputpath={tmp}", "--augments=[timewarp,timemask,freqmask]"]
+    t0 = time.perf_counter()
+    exp = Path(cli.main(args + ["--epochs=2"]))
+    t1 = time.perf_counter()
+    check(json.loads((exp / "ckpt_steps.json").read_text())["last"]
+          == 2 * CLI_ITERS, "the first train run did not end at step 90")
+    cli.main(args + ["--epochs=3", "--resume=true"])
+    t2 = time.perf_counter()
+    train_peak = torch.cuda.max_memory_allocated()
+    log_text = (exp / "train_caption.log").read_text()
+    check(f"at step {2 * CLI_ITERS} → epoch 3" in log_text,
+          "the resumed run did not restore step 90 and start at epoch 3")
+    last = torch.load(exp / "last.pt", map_location="cpu", weights_only=True)
+    check(last["step"] == 3 * CLI_ITERS,
+          f"the resumed run ended at step {last['step']}, not {3 * CLI_ITERS}")
+    for name in ("best.pt", "last.pt", "ckpt_steps.json", "metrics.jsonl",
+                 "config.json", "vocab.pkl"):
+        check((exp / name).exists(), f"the experiment has no {name}")
+    metrics = [json.loads(line) for line in
+               (exp / "metrics.jsonl").read_text().splitlines()]
+    check(len(metrics) == 3 and all(math.isfinite(v) for m in metrics
+                                    for v in m.values()),
+          f"metrics.jsonl: {metrics}")
+    train_counts = read_counts()
+    iters = 3 * CLI_ITERS
+    check(train_counts["time_warp_1d"] == iters,
+          f"time_warp_1d launched {train_counts['time_warp_1d']} times in "
+          f"{iters} train iterations")
+    for m, v in zip(metrics, log["validate"]):
+        loop = m["epoch_wall_s"] - v
+        print(f"cli train epoch {m['epoch']}: wall {m['epoch_wall_s']:.2f} s, "
+              f"validation {v:.2f} s (5 batches of 32, beam 3), train loop "
+              f"{loop:.2f} s = {CLI_ITERS / loop:.2f} iterations/s, "
+              f"{loop / CLI_ITERS * 1e3:.1f} ms a step; loss "
+              f"{m['train_loss']:.4f}, val CIDEr {m['val_cider']:.4f} ({SMI})")
+    train_produce = [s for shuffled, s in log["produce"] if shuffled]
+    train_wait = [s for shuffled, s in log["wait"] if shuffled]
+    print(f"cli train: the loader's host time a batch (feature reads + "
+          f"collate, producer thread) {_ms(train_produce)}; upload to the card "
+          f"{_ms(log['upload'])}; the train loop waited for its next batch "
+          f"{_ms(train_wait)}, {sum(train_wait):.2f} s in all, over "
+          f"{len(train_wait)} batches; two runs {t1 - t0:.1f} + {t2 - t1:.1f} "
+          f"s; peak device memory {train_peak / 2**30:.3f} GiB ({SMI})")
+
+    for tag, extra in (("bf16", []), ("int8", ["--encoder_int8"])):
+        log["decode"].clear()
+        del log["wait"][:], log["produce"][:]
+        before = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scores = cli.main(["evaluate", str(exp),
+                           f"--eval_caption_file={tmp}/text.json"] + extra)
+        wall = time.perf_counter() - t0
+        counts = {k: v - before[k] for k, v in read_counts().items()}
+        suffix = "_int8" if extra else ""
+        for name in (f"eval_output_beam_3{suffix}.json",
+                     f"scores_beam_3{suffix}.txt"):
+            check((exp / name).exists(), f"evaluate wrote no {name}")
+        lines = dict(line.split(": ", 1) for line in
+                     (exp / f"scores_beam_3{suffix}.txt").read_text().splitlines()
+                     if not line.startswith("#"))
+        check(all(k in lines and math.isfinite(float(lines[k])) for k in SCORE_KEYS),
+              f"scores_beam_3{suffix}.txt: {lines}")
+        (loop_s, dec_s, pairs), = log["decode"]
+        check(len(pairs) == CLI_AUDIOS, f"{len(pairs)} eval captions")
+        calib = log["calib"][-1] if extra else dict.fromkeys(counts, 0)
+        want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra else (0, 0)
+        got = (counts["conv3x3_i8"] - calib["conv3x3_i8"],
+               counts["avgpool2x2_i8"] - calib["avgpool2x2_i8"])
+        check(got == want and counts["time_warp_1d"] == 0,
+              f"evaluate {tag}: launches {counts} (calibration {calib}); "
+              f"expected {want} in {CLI_EVAL_BATCHES} batches")
+        wait = [s for _, s in log["wait"]]
+        print(f"cli evaluate {tag}: {CLI_AUDIOS} clips in {CLI_EVAL_BATCHES} "
+              f"batches of 32, beam 3: decode loop {loop_s:.2f} s = "
+              f"{CLI_AUDIOS / loop_s:.1f} clips/s, of which the decode calls "
+              f"{dec_s:.2f} s and the wait for batches {sum(wait):.2f} s "
+              f"(loader host time a batch {_ms([s for _, s in log['produce']])}); "
+              f"command {wall:.2f} s with load, "
+              + ("calibration, " if extra else "") + "scoring; CIDEr "
+              f"{scores['CIDEr']:.4f}, SPIDEr {scores['SPIDEr']:.4f}; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+              f"GiB; launches {counts}, of which calibration {calib} ({SMI})")
+    counts = read_counts()
+    print(f"cli: launches over the path {counts} ({SMI})")
+    return counts
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -1094,6 +1324,7 @@ def main():
     by_path["serve"] = phase("serve", serve_phase, args.profile)
     phase("int8 decode parity", int8_decode_parity_phase)
     by_path["int8_serve"] = phase("int8 serve", int8_serve_phase, args.profile)
+    by_path["cli"] = phase("cli", cli_phase)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

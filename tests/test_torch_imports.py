@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``acvae_tpu_torch`` and not
-``chip_smoke.py`` imports jax, flax, optax or anything of ``acvae_tpu``."""
+``chip_smoke.py`` imports jax, flax, optax or anything of ``acvae_tpu``; and
+none imports PyYAML, pandas or nltk, which the card's machine lacks (h5py
+only inside the HDF5 feature reader, at its first use)."""
 import ast
 from pathlib import Path
 
@@ -22,6 +24,28 @@ def _imports(path):
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+HOST_ONLY = ("yaml", "pandas", "nltk", "h5py")
+# the one place h5py may be imported: inside the HDF5 reader, lazily
+LAZY_H5PY = ("acvae_tpu_torch/data/dataset.py", "_open_store")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_host_only_packages(path):
+    rel = str(path.relative_to(ROOT))
+    tree = ast.parse(path.read_text(), rel)
+    allowed = set()
+    for fn in ast.walk(tree):
+        if (isinstance(fn, ast.FunctionDef) and (rel, fn.name) == LAZY_H5PY):
+            allowed |= {id(n) for n in ast.walk(fn)}
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module] if isinstance(node, ast.ImportFrom)
+                 and node.level == 0 else [])
+        for m in names:
+            if m.split(".")[0] in HOST_ONLY:
+                assert m == "h5py" and id(node) in allowed, f"{rel} imports {m}"
 
 
 def test_port_imports_without_a_card():
