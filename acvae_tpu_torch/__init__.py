@@ -6,14 +6,18 @@ the JAX package is the frozen reference that the tests hold it against.
 
 * ``acvae_tpu_torch.ops``    — masked reductions, losses, SpecAugment, the
   spline time warp, the log-mel frontend, the int8 encoder's plain
-  arithmetic, and ``ops.cuda`` (hand-written Hopper kernels built from
-  ``csrc/`` at first use).
+  arithmetic, the bf16 decode cast (``amp``), and ``ops.cuda``
+  (hand-written Hopper kernels built from ``csrc/`` at first use).
 * ``acvae_tpu_torch.models`` — the flagship Hybrid AC-VAE (Cnn10 encoder,
   hybrid posterior, AR prior, attention GRU decoder), its train forward
   and its inference forward, and the int8 serving encoder (``quant``).
-* ``acvae_tpu_torch.decoding`` — next-word sampling and the batched beam
-  search.
-* ``acvae_tpu_torch.data`` — the vocabulary.
+* ``acvae_tpu_torch.decoding`` — next-word sampling, the batched beam
+  search, diverse beam search and the probability-averaged ensemble.
+* ``acvae_tpu_torch.data`` — the vocabulary, the corpus and its loader.
+* ``acvae_tpu_torch.evaluation`` — the COCO scorers, the diversity suite
+  and the human (leave-one-out) bounds.
+* ``acvae_tpu_torch.cli`` — ``train``, ``evaluate``, ``predict``,
+  ``diversity``, ``ensemble``, ``human_eval`` and the corpus commands.
 * ``acvae_tpu_torch.train``  — schedules, the train step and the
   experiment dir (config, vocabulary, weights).
 * ``acvae_tpu_torch.serve``  — ``CaptionService`` and the micro-batching

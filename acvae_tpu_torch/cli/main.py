@@ -5,6 +5,10 @@
     python -m acvae_tpu_torch.cli tokenize_caption <text.json> [<out.json>]
     python -m acvae_tpu_torch.cli train <config.yaml> [--key=value ...]
     python -m acvae_tpu_torch.cli evaluate <exp_dir> [--encoder_int8] [...]
+    python -m acvae_tpu_torch.cli predict <exp_dir> <mels.csv> [--output=...]
+    python -m acvae_tpu_torch.cli diversity <eval_output.json> [<text.json>]
+    python -m acvae_tpu_torch.cli ensemble <exp_dir> <exp_dir> [...]
+    python -m acvae_tpu_torch.cli human_eval <text.json>
 
 Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
@@ -17,7 +21,15 @@ with ``train_caption.log`` (the epoch table), ``config.json``,
 (when the validation CIDEr of a beam-3 decode improves), ``last.pt`` (every
 epoch) and ``ckpt_steps.json``; ``--resume=true`` continues from ``last``.
 ``evaluate`` writes ``eval_output_<method>_<beam><suffix>.json`` and
-``scores_<method>_<beam><suffix>.txt`` into the experiment dir.
+``scores_<method>_<beam><suffix>.txt`` into the experiment dir; with
+``--decode_method=dbs`` (``--group_size``, ``--diversity_lambda``,
+``--temperature``, ``--group_nbest``) every output beam is a candidate, and
+``--decode_dtype=bfloat16`` decodes with bf16 parameters (suffix
+``_bfloat16``).  ``predict`` writes the DCASE CSV, ``diversity`` scores an
+``eval_output`` JSON (Div1/Div2/gDiv1, mBLEU, SelfBLEU, Novelty against a
+train corpus), ``ensemble`` decodes with the probability-averaged members
+(``ensemble_scores.txt`` in the first member's dir) and ``human_eval``
+scores the references leave-one-out.
 """
 from __future__ import annotations
 
@@ -43,9 +55,14 @@ from acvae_tpu_torch.data.dataset import (CaptionDataset, CaptionLoader,
                                           refs_of)
 from acvae_tpu_torch.data.vocab import (Vocabulary, build_vocab as _build_vocab,
                                         load_caption_info, tokenize)
+from acvae_tpu_torch.decoding.ensemble import ensemble_decode
 from acvae_tpu_torch.evaluation.coco import CiderScorer, score_captions
+from acvae_tpu_torch.evaluation.diversity import (eval_div_stats, novelty,
+                                                  self_bleu)
+from acvae_tpu_torch.evaluation.human_eval import human_diversity, human_scores
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, int8_decode_fn,
                                           quant_encoder_for, scheme_kwargs)
+from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
 from acvae_tpu_torch.train.checkpoints import (criterion_improver,
                                                load_experiment, read_ckpt_steps,
                                                resume_newest, save_checkpoint,
@@ -65,7 +82,7 @@ DEFAULTS = dict(
 
 # train config keys of later ROADMAP items: setting one raises, naming it
 # (max_inflight_steps, a lever of the TPU's asynchronous dispatch, is read
-# and ignored)
+# and ignored; so is decode_dtype, which no train reads)
 LATER_KEYS = {
     "distributed": "A19", "model_parallel": "A19", "sequence_parallel": "A19",
     "kl_anneal": "A17", "adverse_loss": "A17", "use_aug_prob": "A17",
@@ -74,7 +91,7 @@ LATER_KEYS = {
     "fault_abort_step": "A17", "pretrained": "A17", "pretrained_encoder": "A17",
     "pretrained_decoder": "A17", "pretrained_global": "A17",
     "pretrained_word_embedding": "A17", "freeze_word_embedding": "A17",
-    "profile_dir": "A17/A20", "decode_dtype": "A14",
+    "profile_dir": "A17/A20",
 }
 # the metrics averaged over an epoch into metrics.jsonl
 DIAG_KEYS = ("kl", "active_units", "kl_dim_max", "qp_mse", "grad_norm")
@@ -92,8 +109,16 @@ def _refuse_later_items(conf: Dict[str, Any]) -> None:
             _later(f"config key {key!r}", item)
     if conf.get("scheduler") == "ReduceLROnPlateau":
         _later("scheduler ReduceLROnPlateau", "A17")
-    if str(conf.get("upload_dtype", "float32")) != "float32":
-        _later(f"upload_dtype {conf['upload_dtype']!r}", "A14")
+
+
+def _upload_dtype(conf: Dict[str, Any]) -> Optional[torch.dtype]:
+    """The host dtype of the train batches' mels: None for float32, or
+    bfloat16, which halves the upload (``upload_dtype``)."""
+    up = str(conf.get("upload_dtype", "float32"))
+    if up not in ("float32", "bfloat16"):
+        raise ValueError(f"upload_dtype must be float32 or bfloat16, "
+                         f"got {up!r}")
+    return torch.bfloat16 if up == "bfloat16" else None
 
 
 def _device(device) -> torch.device:
@@ -173,11 +198,16 @@ def _write_scores(scores: Dict[str, Any], score_file) -> None:
             f.write(note + "\n")
 
 
-def _to_device(batch, device: torch.device):
+def _to_device(batch, device: torch.device,
+               feats_dtype: Optional[torch.dtype] = None):
     """The loader's stage hook: the batch's arrays as tensors on
-    ``device``, moved in the producer thread."""
+    ``device``, moved in the producer thread.  ``feats_dtype`` casts the
+    mels on the host before the upload; on the card they are float32 again,
+    the mels rounded to ``feats_dtype``."""
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return dataclasses.replace(batch, feats=put(batch.feats),
+    feats = (put(batch.feats) if feats_dtype is None else
+             torch.from_numpy(batch.feats).to(feats_dtype).to(device).float())
+    return dataclasses.replace(batch, feats=feats,
                                feat_lens=put(batch.feat_lens),
                                caps=put(batch.caps), cap_lens=put(batch.cap_lens))
 
@@ -204,11 +234,12 @@ def _build_dataloaders(conf: Config, vocab: Vocabulary):
 
 
 def _decode_loader(decode: Callable, loader: CaptionLoader, vocab: Vocabulary,
-                   device: torch.device, num_candidates: int = 1
-                   ) -> List[Tuple[str, str]]:
+                   device: torch.device, num_candidates: int = 1,
+                   every_beam: bool = False) -> List[Tuple[str, str]]:
     """(audio_id, caption) for every clip of ``loader`` in order, the top
-    beam for a beam decode; ``num_candidates`` replicas of each clip decode
-    with their own prior noise."""
+    beam of a beam decode (every output beam with ``every_beam``);
+    ``num_candidates`` replicas of each clip decode with their own prior
+    noise."""
     out = []
     for batch in loader.prefetch(stage=partial(_to_device, device=device)):
         feats, lens, ids = batch.feats, batch.feat_lens, batch.audio_ids
@@ -217,7 +248,10 @@ def _decode_loader(decode: Callable, loader: CaptionLoader, vocab: Vocabulary,
             lens = lens.repeat_interleave(num_candidates, dim=0)
             ids = [i for i in ids for _ in range(num_candidates)]
         seqs = decode(feats, lens)["seqs"].cpu().numpy()
-        if seqs.ndim == 3:
+        if seqs.ndim == 3 and every_beam:
+            ids = [i for i in ids for _ in range(seqs.shape[1])]
+            seqs = seqs.reshape(-1, seqs.shape[-1])
+        elif seqs.ndim == 3:
             seqs = seqs[:, 0]
         out += [(aid, " ".join(vocab.decode(s))) for aid, s in zip(ids, seqs)]
     return out
@@ -245,6 +279,7 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     conf = Config(copy.deepcopy(DEFAULTS))
     conf.update(load_config(config, **kwargs))
     _refuse_later_items(conf)
+    feats_dtype = _upload_dtype(conf)
     device = _device(device)
     seed = conf["seed"]
     random.seed(seed)
@@ -285,7 +320,7 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     (outputdir / "config.json").write_text(json.dumps(conf, indent=1))
     improved = criterion_improver(conf["improvecriterion"],
                                   initial=resume_meta.get("best_score"))
-    stage = partial(_to_device, device=device)
+    stage = partial(_to_device, device=device, feats_dtype=feats_dtype)
     logger.info("{:^10}\t{:^10}\t{:^10}".format("Epoch", "Train loss",
                                                  "Val score"))
     with open(outputdir / "metrics.jsonl", "a") as metrics_log:
@@ -346,16 +381,16 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
              distributed: bool = False, decode_dtype: Optional[str] = None,
              tag: str = "", device=DEFAULT_DEVICE, **decode_kwargs):
     """Decode a test set and score it (base_runner.py:199-333): one decode
-    per clip (``num_candidates`` with their own noise), the references from
-    every caption.  ``encoder_int8`` encodes with the int8 encoder of
-    ``int8_scheme``, calibrated on the first eval batch.  ``tag`` suffixes
-    the output files' names.  Returns the scores."""
+    per clip (``num_candidates`` with their own noise; a dbs decode's every
+    output beam instead), the references from every caption, the first
+    candidate scored.  ``encoder_int8`` encodes with the int8 encoder of
+    ``int8_scheme``, calibrated on the first eval batch (its precision is
+    its own: ``decode_dtype`` then only names the files, as in the JAX
+    package).  ``decode_dtype=bfloat16`` decodes with the parameters cast
+    (``ops/amp.py``).  ``tag`` suffixes the output files' names.  Returns
+    the scores."""
     decode_method = _method_alias(decode_kwargs.pop("method", None),
                                   decode_method)
-    if decode_method == "dbs":
-        _later("diverse beam search", "A14")
-    if decode_dtype not in (None, "float32"):
-        _later(f"decode_dtype {decode_dtype!r}", "A14")
     if distributed:
         _later("evaluate --distributed", "A19")
     device = _device(device)
@@ -379,10 +414,13 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
                                   **scheme_kwargs(int8_scheme))
         decode = partial(int8_decode_fn(model, quant, **kw), generator=gen)
     else:
-        decode = partial(model.inference_forward, generator=gen, **kw)
+        decode = partial(_decode_model(model, decode_dtype).inference_forward,
+                         generator=gen, **kw)
+    dbs = decode_method == "dbs"
     key2pred: Dict[str, List[str]] = {}
     for aid, cap in _decode_loader(decode, loader, vocab, device,
-                                   num_candidates):
+                                   1 if dbs else num_candidates,
+                                   every_beam=dbs):
         key2pred.setdefault(aid, []).append(cap)
 
     predictions = [
@@ -395,6 +433,8 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
     suffix = "_int8" if encoder_int8 else ""
     if encoder_int8 and int8_scheme != DEFAULT_INT8_SCHEME:
         suffix += int8_scheme
+    if decode_dtype and decode_dtype != "float32":
+        suffix += f"_{decode_dtype}"
     if tag:
         suffix += f"_{tag}"
     with open(exp / f"eval_output_{decode_method}_{beam_size}{suffix}.json",
@@ -405,6 +445,136 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
                             zh=conf.get("zh", False))
     _write_scores(scores, exp / f"scores_{decode_method}_{beam_size}{suffix}.txt")
     return scores
+
+
+def _decode_model(model, decode_dtype: Optional[str]):
+    """``model``, or its copy with float parameters in ``decode_dtype``."""
+    dt = resolve_decode_dtype(decode_dtype)
+    return model if dt is None else cast_floats_for_decode(model, dt)
+
+
+def predict(experiment_path: str, h5_csv: str, output: str = "predictions.csv",
+            decode_method: Optional[str] = None, beam_size: int = 3,
+            checkpoint: str = "best", seed: int = 1,
+            method: Optional[str] = None, decode_dtype: Optional[str] = None,
+            device=DEFAULT_DEVICE) -> str:
+    """The DCASE CSV (base_runner.py:336-395): ``file_name,
+    caption_predicted`` for every clip of the manifest ``h5_csv``, the top
+    beam, rows sorted.  ``method`` aliases ``decode_method``."""
+    decode_method = _method_alias(method, decode_method)
+    device = _device(device)
+    conf, vocab, model = load_experiment(experiment_path, checkpoint,
+                                         device=device)
+    manifest = _read_manifest(h5_csv)
+    info = [{"audio_id": aid, "captions": [{"tokens": ""}]} for aid in manifest]
+    loader = CaptionLoader(CaptionDataset(manifest, info, vocab),
+                           conf.get("batch_size", 32))
+    gen = torch.Generator(device).manual_seed(seed)
+    decode = partial(_decode_model(model, decode_dtype).inference_forward,
+                     generator=gen, decode_method=decode_method,
+                     beam_size=beam_size)
+    rows = _decode_loader(decode, loader, vocab, device)
+    with open(output, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["file_name", "caption_predicted"])
+        w.writerows(sorted(set(rows)))
+    return output
+
+
+def diversity(eval_output: str, train_corpus: Optional[str] = None,
+              output: Optional[str] = None, zh: bool = False
+              ) -> Dict[str, float]:
+    """The diversity suite over an ``eval_output`` JSON
+    (utils/diverse_mutil.py): with several candidates a clip, Div1/Div2/
+    gDiv1, mBLEU and SelfBLEU (of the first 500 captions), else gDiv1; with
+    ``train_corpus`` (a text.json) the Novelty.  Captions are tokenized on
+    ingest (``--zh``: by CJK character)."""
+    with open(eval_output) as f:
+        data = json.load(f)
+    caps_by_id: Dict[str, List[str]] = {}
+    all_caps: List[str] = []
+    for item in data["predictions"]:
+        caps = item.get("captions")
+        if caps:
+            texts = [(c.get("tokens") or c["caption"])
+                     if isinstance(c, dict) else c for c in caps]
+        else:
+            texts = [item.get("tokens") or item["caption"]]
+        texts = [" ".join(tokenize(t, zh)) for t in texts]
+        caps_by_id[item["filename"]] = texts
+        all_caps.extend(texts)
+    results: Dict[str, Any] = {}
+    if min(len(v) for v in caps_by_id.values()) > 1:
+        results.update(eval_div_stats(caps_by_id))
+        results["SelfBLEU"] = self_bleu(all_caps[: min(len(all_caps), 500)])
+    else:
+        results["gDiv1"] = len(set(w for c in all_caps for w in c.split()))
+    if train_corpus:
+        train_caps = [c["tokens"] for a in load_caption_info(train_corpus, zh)
+                      for c in a["captions"]]
+        results["Novelty"] = novelty(all_caps, train_caps)
+    _print_results(results, output)
+    return results
+
+
+def _print_results(results: Dict[str, Any], output: Optional[str]) -> None:
+    text = "\n".join(f"{k}: {v:.4g}" for k, v in results.items())
+    print(text)
+    if output:
+        with open(output, "w") as f:
+            f.write(text + "\n")
+
+
+def ensemble(*experiment_paths: str, eval_h5_csv: Optional[str] = None,
+             eval_caption_file: Optional[str] = None,
+             decode_method: Optional[str] = None, beam_size: int = 3,
+             max_length: int = 20, checkpoint: str = "best",
+             output: Optional[str] = None, seed: int = 1,
+             method: Optional[str] = None, device=DEFAULT_DEVICE
+             ) -> Dict[str, Any]:
+    """Probability-averaged ensemble decode across experiment dirs
+    (base_runner.py:397-694), scored like ``evaluate``; the data and
+    references are the last member's.  ``output`` defaults to
+    ``ensemble_scores.txt`` in the first member's dir."""
+    decode_method = _method_alias(method, decode_method)
+    device = _device(device)
+    members, zh = [], None
+    for exp_path in experiment_paths:
+        conf, vocab, model = load_experiment(exp_path, checkpoint, device=device)
+        zh = conf.get("zh", False) if zh is None else zh
+        manifest = eval_h5_csv or conf.get("val_h5_csv") or conf["h5_csv"]
+        cap_file = (eval_caption_file or conf.get("val_caption_file")
+                    or conf["caption_file"])
+        info = load_caption_info(cap_file, conf.get("zh", False))
+        loader = CaptionLoader(CaptionDataset(
+            _read_manifest(manifest),
+            [{**a, "captions": a["captions"][:1]} for a in info], vocab),
+            conf.get("batch_size", 32))
+        members.append(model)
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def decode(feats, lens):
+        return ensemble_decode(members, feats, lens, decode_method=decode_method,
+                               beam_size=beam_size, max_length=max_length,
+                               generator=gen)
+    key2pred = {aid: [cap] for aid, cap in
+                _decode_loader(decode, loader, vocab, device)}
+    scores = score_captions(refs_of(info), key2pred, zh=zh)
+    if output is None:
+        output = str(Path(experiment_paths[0]) / "ensemble_scores.txt")
+    _write_scores(scores, output)
+    return scores
+
+
+def human_eval(caption_file: str, output: Optional[str] = None,
+               zh: bool = False) -> Dict[str, float]:
+    """Leave-one-out accuracy and the diversity ceilings of the reference
+    captions (utils/human_eval.py, diverse_mutil_human.py)."""
+    key2refs = {a["audio_id"]: [c["tokens"] for c in a["captions"]]
+                for a in load_caption_info(caption_file, zh)}
+    results = {**human_scores(key2refs), **human_diversity(key2refs)}
+    _print_results(results, output)
+    return results
 
 
 # ---------------------------------------------------------------------- #
@@ -468,9 +638,12 @@ def tokenize_caption(caption_file: str, output: Optional[str] = None,
     return output or caption_file
 
 
-COMMANDS = {"train": train, "evaluate": evaluate,
-            "make_synthetic": make_synthetic, "build_vocab": build_vocab,
-            "tokenize_caption": tokenize_caption}
+COMMANDS = {"train": train, "evaluate": evaluate, "predict": predict,
+            "diversity": diversity, "ensemble": ensemble,
+            "human_eval": human_eval, "make_synthetic": make_synthetic,
+            "build_vocab": build_vocab, "tokenize_caption": tokenize_caption}
+# the commands that compute on the device (the others only check --device)
+ON_DEVICE = ("train", "evaluate", "predict", "ensemble")
 
 
 def main(argv: Optional[List[str]] = None) -> Any:
@@ -494,6 +667,6 @@ def main(argv: Optional[List[str]] = None) -> Any:
                for k, v in overrides.items()}
     device = coerced.pop("device", DEFAULT_DEVICE)
     _device(device)
-    if command in ("train", "evaluate"):
+    if command in ON_DEVICE:
         coerced["device"] = device
     return COMMANDS[command](*positional, **coerced)

@@ -1,1 +1,2 @@
-"""Decoding: next-word sampling and the batched beam search."""
+"""Decoding: next-word sampling, the batched beam search, diverse beam
+search and the probability-averaged ensemble."""

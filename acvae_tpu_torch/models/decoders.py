@@ -36,6 +36,10 @@ class VAERNNBahdanauAttnDecoder(nn.Module):
                    dtype=torch.float32) -> torch.Tensor:
         return torch.zeros((batch, self.hidden_size), dtype=dtype, device=device)
 
+    def state_dtype(self) -> torch.dtype:
+        """The decode state's dtype: the parameters' (``ops/amp.py``)."""
+        return self.model.weight_hh.dtype
+
     def project_enc(self, enc_mem: torch.Tensor) -> torch.Tensor:
         return self.attn.project_enc(enc_mem)
 

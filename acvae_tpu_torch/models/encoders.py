@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from acvae_tpu_torch.ops.amp import promoted_linear
 from acvae_tpu_torch.ops.masked import max_with_lens, mean_with_lens
 
 STEM_LANE_PAD = 2  # the JAX stem conv's input lanes (zero-padded from 1)
@@ -130,7 +131,7 @@ class Cnn10(nn.Module):
         x = x.mean(dim=3).transpose(1, 2)             # [N, T', C]
         pooled = max_with_lens(x, lens) + mean_with_lens(x, lens)
         pooled = F.dropout(pooled.float(), self.head_dropout, train)
-        pooled = F.relu(self.embed_pooled(pooled))
+        pooled = F.relu(promoted_linear(pooled, self.embed_pooled))
         pooled = F.dropout(pooled, self.head_dropout, train)
         return {"audio_embeds": x, "audio_embeds_pooled": pooled,
                 "audio_embeds_lens": lens}

@@ -14,13 +14,17 @@ whatever is missing from ``generator``.  The coins are per *timestep*, as in
 the reference; the carried ``last_z`` is always the prior sample
 (vae_model.py:192).
 
-Inference (counterpart of ``acvae_tpu/models/vae.py:305-395, 436-469``):
+Inference (counterpart of ``acvae_tpu/models/vae.py:305-395, 436-514``):
 ``inference_forward`` encodes and decodes under ``torch.inference_mode``
 with BatchNorm on its running statistics and no dropout.  ``beam_search``
 draws a prior z per beam (eps [T, N·B, E], row ``n·B+b`` is beam ``b`` of
 clip ``n``; the beam gathers reorder the state, never the noise), takes flat
-top-k from step 0 and has no end handling.  ``stepwise_decode`` is the
-greedy / gumbel / sample decode with the reference's finished mask.
+top-k from step 0 and has no end handling.  ``diverse_beam_search`` gives
+each group its own prior noise, indexed by the global step (eps [G, T+G-1,
+N·bdash, E]).  ``stepwise_decode`` is the greedy / gumbel / sample decode
+with the reference's finished mask.  The decode state, the noise and the
+encoder memory take the decoder's parameter dtype (``state_dtype``), so a
+model cast by ``ops/amp.py::cast_floats_for_decode`` decodes in bf16.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch.profiler import record_function
 
 from acvae_tpu_torch import END_IDX, MAX_LENGTH, START_IDX
 from acvae_tpu_torch.decoding.beam import BeamConfig, batched_beam_search
+from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
 from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.common import eps_stack
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
@@ -75,7 +80,9 @@ class VAECaptionModel(nn.Module):
         return self.encoder(feats, feat_lens, train=train)
 
     def _prep_ctx(self, encoded):
-        enc_mem = encoded["audio_embeds"].float()
+        # the memory joins the decode's dtype; a bf16 encoder output upcasts
+        # exactly in the float32 default
+        enc_mem = encoded["audio_embeds"].to(self.decoder.state_dtype())
         enc_mask = length_mask(encoded["audio_embeds_lens"], enc_mem.shape[1])
         return (enc_mem, enc_mask, self.pnet.project_enc(enc_mem),
                 self.decoder.project_enc(enc_mem))
@@ -172,15 +179,15 @@ class VAECaptionModel(nn.Module):
                           max_length: Optional[int] = None, beam_size: int = 3,
                           temp: float = 1.0, eps: Optional[torch.Tensor] = None,
                           gumbel: Optional[torch.Tensor] = None,
-                          generator: Optional[torch.Generator] = None
-                          ) -> Dict[str, Any]:
+                          generator: Optional[torch.Generator] = None,
+                          **dbs_kwargs) -> Dict[str, Any]:
         _check_decode_method("VAECaptionModel", decode_method)
         with record_function("encoder"):
             encoded = self.encode(feats, feat_lens, train=False)
         return self.inference_from_encoded(
             encoded, decode_method=decode_method, max_length=max_length,
             beam_size=beam_size, temp=temp, eps=eps, gumbel=gumbel,
-            generator=generator)
+            generator=generator, **dbs_kwargs)
 
     @torch.inference_mode()
     def inference_from_encoded(self, encoded, decode_method: str = "greedy",
@@ -188,17 +195,22 @@ class VAECaptionModel(nn.Module):
                                beam_size: int = 3, temp: float = 1.0,
                                eps: Optional[torch.Tensor] = None,
                                gumbel: Optional[torch.Tensor] = None,
-                               generator: Optional[torch.Generator] = None
-                               ) -> Dict[str, Any]:
+                               generator: Optional[torch.Generator] = None,
+                               **dbs_kwargs) -> Dict[str, Any]:
         """Decode from a precomputed encoder dict.  ``eps`` is the prior
-        noise ([T, N·B, E] for beam, [T, N, E] otherwise) and ``gumbel``
-        the per-step Gumbel draws [T, N, V] of ``gumbel``/``sample``; what
-        is not given is drawn from ``generator``."""
+        noise ([T, N·B, E] for beam, [G, T+G-1, N·bdash, E] for dbs, [T, N,
+        E] otherwise) and ``gumbel`` the per-step Gumbel draws [T, N, V] of
+        ``gumbel``/``sample``; what is not given is drawn from
+        ``generator``.  ``dbs_kwargs`` (``group_size``,
+        ``diversity_lambda``, ``temperature``, ``group_nbest``) reach the
+        dbs decode; the other methods ignore them, as the JAX package's
+        do."""
         _check_decode_method("VAECaptionModel", decode_method)
         max_length = max_length or self.max_length
         if decode_method == "dbs":
-            raise NotImplementedError("diverse beam search is not ported "
-                                      "(ROADMAP A14)")
+            return self.diverse_beam_search(encoded, max_length, beam_size,
+                                            eps=eps, generator=generator,
+                                            **dbs_kwargs)
         if decode_method == "beam":
             return self.beam_search(encoded, max_length, beam_size, eps=eps,
                                     generator=generator)
@@ -206,9 +218,11 @@ class VAECaptionModel(nn.Module):
                                     eps=eps, gumbel=gumbel, generator=generator)
 
     def _prior_noise(self, eps, steps: int, rows: int, generator, dev):
+        dt = self.decoder.state_dtype()
         if eps is None:
-            eps = eps_stack(steps, rows, self.decoder.embed_size, generator, dev)
-        return eps.to(dev)
+            eps = eps_stack(steps, rows, self.decoder.embed_size, generator,
+                            dev, dt)
+        return eps.to(dev, dt)
 
     def stepwise_decode(self, encoded, method: str, max_length: int,
                         temp: float = 1.0, eps: Optional[torch.Tensor] = None,
@@ -271,6 +285,41 @@ class VAECaptionModel(nn.Module):
             return batched_beam_search(step_fn, self.init_decode_state(N * B, dev),
                                        N, cfg)
 
+    def diverse_beam_search(self, encoded, max_length: int, beam_size: int,
+                            group_size: int = 5, diversity_lambda: float = 0.5,
+                            temperature: float = 1.0, group_nbest: bool = True,
+                            eps: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Dict[str, Any]:
+        """Diverse beam search (word_model.py:297-394 on the VAE's step):
+        group g draws its prior z from ``eps[g]`` at the global step ``t``,
+        so its local step 0 reads ``eps[g, g]``."""
+        enc_mem, enc_mask, p_proj, d_proj = self._prep_ctx(encoded)
+        N, dev = enc_mem.shape[0], enc_mem.device
+        NB = N * dbs_bdash(beam_size, group_size)
+        steps = max_length + group_size - 1
+        eps = (torch.stack([self._prior_noise(None, steps, NB, generator, dev)
+                            for _ in range(group_size)])
+               if eps is None else eps.to(dev, self.decoder.state_dtype()))
+
+        def make_step_fn(g):
+            def step_fn(state, words, t):
+                dec_h, p_state, last_z = state
+                p, d = self._step_pair(words, dec_h, p_state, last_z, eps[g, t],
+                                       lambda p: p["z"], enc_mem, enc_mask,
+                                       p_proj, d_proj)
+                return d["logits"], (d["state"], p["state"], p["z"])
+            return step_fn
+
+        cfg = DBSConfig(beam_size=beam_size, group_size=group_size,
+                        max_length=max_length,
+                        diversity_lambda=diversity_lambda,
+                        temperature=temperature, group_nbest=group_nbest,
+                        start_idx=self.start_idx, end_idx=self.end_idx)
+        with record_function("decode_loop"):
+            return diverse_beam_search(
+                make_step_fn, lambda: self.init_decode_state(NB, dev), N, cfg)
+
     # ------------------------------------------------------------------ #
     # externally driven per-step decode (the ensemble API)
     # ------------------------------------------------------------------ #
@@ -280,10 +329,13 @@ class VAECaptionModel(nn.Module):
         return self._prep_ctx(encoded)
 
     def init_decode_state(self, batch: int, device=None):
-        """(decoder GRU state, prior LSTM (h, c), last_z), all zeros."""
-        return (self.decoder.init_state(batch, device),
-                self.pnet.init_state(batch, device),
-                torch.zeros((batch, self.decoder.embed_size), device=device))
+        """(decoder GRU state, prior LSTM (h, c), last_z), all zeros, in the
+        decoder's parameter dtype."""
+        dt = self.decoder.state_dtype()
+        return (self.decoder.init_state(batch, device, dt),
+                self.pnet.init_state(batch, device, dt),
+                torch.zeros((batch, self.decoder.embed_size), dtype=dt,
+                            device=device))
 
     def decode_step_api(self, ctx, state, words, eps_t):
         """One decode step driven from outside: (logits, new state)."""

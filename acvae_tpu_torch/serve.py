@@ -22,8 +22,18 @@ running statistics on the service's device, for f32 and uint8 batches alike;
 on the card its convs and pools are the hand-written kernels of
 ``ops/cuda/conv_i8_kernel.py``.
 
-Run it as ``python -m acvae_tpu_torch.serve <exp_dir> [--port ...]
-[--encoder_int8 [--int8_scheme v2sym]]``.
+``decode_method="dbs"`` serves the top caption of a diverse beam search
+(``group_size``, ``diversity_lambda``, ``temperature``, ``group_nbest``);
+``decode_dtype="bfloat16"`` decodes with the parameters cast
+(``ops/amp.py``); ``upload_dtype="bfloat16"`` casts an f32 batch on the host
+before its upload.  A comma-separated ``experiment_path`` (or a list)
+serves the probability-averaged ensemble of its experiments
+(``decoding/ensemble.py``; beam or greedy, float32, one vocabulary and mel
+dim).
+
+Run it as ``python -m acvae_tpu_torch.serve <exp_dir>[,<exp_dir>...]
+[--port ...] [--encoder_int8 [--int8_scheme v2sym]] [--decode_method dbs
+--group_size 4 ...] [--decode_dtype bfloat16] [--upload_dtype bfloat16]``.
 """
 from __future__ import annotations
 
@@ -40,17 +50,19 @@ import numpy as np
 import torch
 
 from acvae_tpu_torch import DEFAULT_DEVICE
+from acvae_tpu_torch.decoding.ensemble import ensemble_decode
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, SCHEMES,
                                           int8_decode_fn, quant_encoder_for,
                                           scheme_kwargs)
 from acvae_tpu_torch.models.vae import _check_decode_method
+from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
 from acvae_tpu_torch.train.checkpoints import load_experiment
 
 
 class CaptionService:
     """Fixed-shape batched decoding over an experiment dir."""
 
-    def __init__(self, experiment_path: str, checkpoint: str = "best",
+    def __init__(self, experiment_path, checkpoint: str = "best",
                  decode_method: str = "beam", beam_size: int = 3,
                  max_length: int = 20, batch_size: int = 16,
                  mel_bucket: int = 1024, seed: int = 1,
@@ -58,42 +70,76 @@ class CaptionService:
                  int8_scheme: str = DEFAULT_INT8_SCHEME,
                  exported: Optional[str] = None,
                  upload_dtype: str = "float32",
-                 decode_dtype: Optional[str] = None, temp: float = 1.0):
+                 decode_dtype: Optional[str] = None, **decode_kwargs):
+        """``decode_kwargs``: the decode's extra knobs (dbs: ``group_size``,
+        ``diversity_lambda``, ``temperature``, ``group_nbest``; sampling:
+        ``temp``)."""
+        if upload_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"upload_dtype must be float32 or bfloat16, "
+                             f"got {upload_dtype!r}")
         if decode_dtype and encoder_int8:
             raise ValueError("decode_dtype does not combine with "
                              "encoder_int8 (the int8 path fixes its own "
                              "precision); pick one serving mode")
+        if upload_dtype == "bfloat16" and exported is not None:
+            raise ValueError("upload_dtype does not apply to an exported "
+                             "artifact (its input dtype is baked at export "
+                             "time)")
         scheme = scheme_kwargs(int8_scheme) if encoder_int8 else None
-        if exported is not None:
+        paths = None
+        if isinstance(experiment_path, (list, tuple)):
+            paths = [str(p) for p in experiment_path]
+        elif "," in str(experiment_path):
+            paths = [p for p in str(experiment_path).split(",") if p]
+        self.members = None
+        if paths is not None and len(paths) > 1:
+            if exported is not None or encoder_int8 or decode_dtype:
+                raise ValueError(
+                    "ensemble serving composes with the plain f32 decode "
+                    "only (not --exported / --encoder_int8 / "
+                    "--decode_dtype)")
+            if decode_kwargs:
+                raise ValueError(
+                    f"decode kwargs {sorted(decode_kwargs)} do not apply "
+                    "to ensemble serving (beam/greedy only)")
+            if decode_method not in ("beam", "greedy"):
+                raise ValueError(
+                    "ensemble serving supports decode_method=beam|greedy "
+                    f"(the reference ensemble's surface), got "
+                    f"{decode_method!r}")
+        elif exported is not None:
             raise NotImplementedError("serving an exported artifact is not "
                                       "ported (ROADMAP A18, torch.export)")
-        if decode_dtype is not None or upload_dtype != "float32":
-            raise NotImplementedError("decode_dtype / upload_dtype="
-                                      f"{upload_dtype!r} are not ported "
-                                      "(ROADMAP A14, ops/amp.py)")
-        if "," in str(experiment_path):
-            raise NotImplementedError("ensemble serving is not ported "
-                                      "(ROADMAP A14)")
         _check_decode_method("CaptionService", decode_method)
-        if decode_method == "dbs":
-            raise NotImplementedError("diverse beam search is not ported "
-                                      "(ROADMAP A14)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CaptionService(device='cuda') needs a CUDA "
                                "card; pass device='cpu' to run on the CPU")
-        self.conf, self.vocab, self.model = load_experiment(
-            experiment_path, checkpoint, device=self.device)
+        self._upload_dtype = (torch.bfloat16 if upload_dtype == "bfloat16"
+                              else None)
         self.batch_size = batch_size
         self.bucket = mel_bucket
-        self.data_dim = int(self.conf.get("data_dim", 64))
-        self._decode_kwargs = dict(decode_method=decode_method,
-                                   max_length=max_length, beam_size=beam_size,
-                                   temp=temp)
-        # the int8 serving encoder, calibrated from bn0's running statistics
-        # (no training data at serving time); None serves the f32 encoder
-        self.quant = (quant_encoder_for(self.conf, self.model, **scheme)
-                      if encoder_int8 else None)
+        self.quant = None
+        if paths is not None and len(paths) > 1:
+            self._load_ensemble(paths, checkpoint)
+            self._decode_kwargs = dict(decode_method=decode_method,
+                                       beam_size=beam_size,
+                                       max_length=max_length)
+        else:
+            self.conf, self.vocab, self.model = load_experiment(
+                paths[0] if paths else experiment_path, checkpoint,
+                device=self.device)
+            self.data_dim = int(self.conf.get("data_dim", 64))
+            self._decode_kwargs = dict(decode_method=decode_method,
+                                       max_length=max_length,
+                                       beam_size=beam_size, **decode_kwargs)
+            # the int8 serving encoder, calibrated from bn0's running
+            # statistics (no training data at serving time)
+            if encoder_int8:
+                self.quant = quant_encoder_for(self.conf, self.model, **scheme)
+            dt = resolve_decode_dtype(decode_dtype)
+            if dt is not None:
+                self.model = cast_floats_for_decode(self.model, dt)
         self._gen = torch.Generator(self.device).manual_seed(seed + 2)
         self._lock = threading.Lock()
         # warm both upload paths so the first live batch of either kind
@@ -101,6 +147,25 @@ class CaptionService:
         # build and load, allocator growth)
         self.caption([np.zeros((64, self.data_dim), np.float32)])
         self.caption([(np.zeros((64, self.data_dim), np.uint8), 1.0, 0.0)])
+
+    def _load_ensemble(self, paths: List[str], checkpoint: str) -> None:
+        """The members' experiments: one vocabulary and one mel dim."""
+        self.members = []
+        for p in paths:
+            conf, vocab, model = load_experiment(p, checkpoint,
+                                                 device=self.device)
+            if not self.members:
+                self.conf, self.vocab = conf, vocab
+                self.data_dim = int(conf.get("data_dim", 64))
+            elif vocab.word2idx != self.vocab.word2idx:
+                raise ValueError(
+                    f"ensemble members must share one vocabulary; "
+                    f"{p} differs from {paths[0]}")
+            elif int(conf.get("data_dim", 64)) != self.data_dim:
+                raise ValueError(
+                    f"ensemble members must share the mel dim; {p} has "
+                    f"{conf.get('data_dim')} vs {self.data_dim}")
+            self.members.append(model)
 
     def validate(self, mel) -> np.ndarray:
         """Shape-check one request's mel, per request and before batching,
@@ -178,13 +243,20 @@ class CaptionService:
                 feats[i] = qp.astype(np.float32) * np.float32(s) + np.float32(o)
             else:
                 feats[i], lens[i] = self._prep(mel)
-        return self._decode(torch.from_numpy(feats).to(self.device), lens,
-                            len(mels))
+        feats = torch.from_numpy(feats)
+        if self._upload_dtype is not None:
+            # halve the upload; the encoder computes in float32 again
+            feats = feats.to(self._upload_dtype).to(self.device).float()
+        return self._decode(feats.to(self.device), lens, len(mels))
 
     def _decode(self, feats: torch.Tensor, lens: np.ndarray, n: int) -> List[str]:
         lens = torch.from_numpy(lens).to(self.device)
         with self._lock:
-            if self.quant is not None:
+            if self.members is not None:
+                out = ensemble_decode(self.members, feats, lens,
+                                      generator=self._gen,
+                                      **self._decode_kwargs)
+            elif self.quant is not None:
                 out = int8_decode_fn(self.model, self.quant, **self._decode_kwargs)(
                     feats, lens, generator=self._gen)
             else:
@@ -383,12 +455,14 @@ def run_server(service: CaptionService, host: str = "127.0.0.1",
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve captions over HTTP from a port experiment dir.")
-    ap.add_argument("experiment_path")
+    ap.add_argument("experiment_path",
+                    help="an experiment dir, or several joined by commas "
+                         "(an ensemble)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8976)
     ap.add_argument("--checkpoint", default="best")
     ap.add_argument("--decode_method", default="beam",
-                    choices=("beam", "greedy", "gumbel", "sample"))
+                    choices=("beam", "greedy", "gumbel", "sample", "dbs"))
     ap.add_argument("--beam_size", type=int, default=3)
     ap.add_argument("--max_length", type=int, default=20)
     ap.add_argument("--batch_size", type=int, default=16)
@@ -403,13 +477,29 @@ def main(argv=None):
                     choices=sorted(SCHEMES),
                     help="quantization scheme of --encoder_int8 "
                          f"(default {DEFAULT_INT8_SCHEME})")
+    ap.add_argument("--decode_dtype", default=None,
+                    help="decode with the parameters in this dtype "
+                         "(bfloat16)")
+    ap.add_argument("--upload_dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    knobs = ap.add_argument_group("decode knobs (passed only when given)")
+    for name, typ in (("group_size", int), ("diversity_lambda", float),
+                      ("temperature", float), ("temp", float)):
+        knobs.add_argument(f"--{name}", type=typ, default=None)
+    knobs.add_argument("--group_nbest", default=None,
+                       type=lambda v: v.lower() in ("1", "true", "yes"))
     args = ap.parse_args(argv)
+    decode_kwargs = {k: getattr(args, k) for k in (
+        "group_size", "diversity_lambda", "temperature", "temp",
+        "group_nbest") if getattr(args, k) is not None}
     service = CaptionService(
         args.experiment_path, checkpoint=args.checkpoint,
         decode_method=args.decode_method, beam_size=args.beam_size,
         max_length=args.max_length, batch_size=args.batch_size,
         mel_bucket=args.mel_bucket, seed=args.seed, device=args.device,
-        encoder_int8=args.encoder_int8, int8_scheme=args.int8_scheme)
+        encoder_int8=args.encoder_int8, int8_scheme=args.int8_scheme,
+        decode_dtype=args.decode_dtype, upload_dtype=args.upload_dtype,
+        **decode_kwargs)
     run_server(service, host=args.host, port=args.port,
                max_wait_ms=args.max_wait_ms)
 

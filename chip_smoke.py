@@ -63,13 +63,34 @@ Phases, each of which exits nonzero on failure:
    ``avgpool2x2_i8`` an int8 eval batch, calibration's reported apart.
    Prints epoch wall s, iterations/s, the loader's host ms a batch against
    the step's, validation s, evaluate clips/s and peak memory.
+11. diverse: (a) a small flagship on the card against the CPU, same weights
+   and noise: dbs at (beam 8, group 4, lambda 0.5) and (8, 8) tokens
+   identical, scores within rtol 1e-4; a two-member ensemble beam and
+   greedy decode tokens identical; one bf16 ``decode_step_api`` step within
+   3e-2 of the largest logit.  (b) Full width: the flagship's v2sym int8
+   encoder (bn0 calibration) under dbs at beam 8, 4 groups, lambda 0.5,
+   batch 512, T_mel 1024, max_length 20 (one warm-up, 5 timed): clips/s,
+   candidates/s, p50, the encoder/dbs split, peak memory, 8 ``conv3x3_i8``
+   and 3 ``avgpool2x2_i8`` a batch; then the bf16-parameter beam-3 decode
+   on the bf16 encoder at the same batch, beside phase 7's float32 loop.
+   (c) On phase 10's experiment and corpus, in process: ``evaluate
+   --decode_method=dbs --beam_size=20 --group_size=4`` with the bf16 and
+   the int8 encoder (20 candidates a clip; 8 and 3 launches an int8 eval
+   batch, calibration apart), ``evaluate --decode_dtype=bfloat16``,
+   ``diversity`` of the dbs output against the corpus (every metric
+   finite, the ratios in [0, 1]), ``predict`` (one CSV row a clip),
+   ``ensemble <exp> <exp> --checkpoint=last`` and ``human_eval``.  (d)
+   ``CaptionService`` at dbs b8 g4 (and one HTTP round trip), as a
+   two-member ensemble, with bf16 decode parameters and with bf16 uploads,
+   16 clips each.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli).  Prints a ``{"kernels": [...]}`` JSON line (``launches`` on
-each kernel's own path, ``launches_by_path`` on all four), then, last, the
-``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
-more train steps and one full-width decode batch of each serving path with
-torch.profiler and writes the traces and op tables into DIR.
+serve, cli, diverse).  Prints a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all five),
+then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
+more train steps and one full-width decode batch of each serving path and
+of phase 11's int8 dbs decode with torch.profiler and writes the traces and
+op tables into DIR.
 """
 import argparse
 import concurrent.futures
@@ -109,7 +130,7 @@ CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
                (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
                (128, 8, 256, 512), (128, 8, 512, 512)]
 POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
-PATHS = ("train", "serve", "int8_serve", "cli")
+PATHS = ("train", "serve", "int8_serve", "cli", "diverse")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -711,17 +732,25 @@ def serve_phase(profile_dir=None):
 
 
 BEAM_KW = dict(decode_method="beam", beam_size=BEAM, max_length=MAX_LEN)
+# phase 11: dbs at beam 8 in 4 groups, lambda 0.5, the accuracy-first
+# operating point of the JAX package's results (RESULTS.md:603-605)
+DBS_KW = dict(decode_method="dbs", beam_size=8, group_size=4,
+              diversity_lambda=0.5, max_length=MAX_LEN)
+RATES = {}   # clips/s of each decode_rate tag
 
 
-def decode_rate(tag, decode, encode, model, vocab):
+def decode_rate(tag, decode, encode, model, vocab, kw=BEAM_KW):
     """(a) One warm-up batch, then DEC_TIMED timed batches of ``decode(feats,
     lens, generator)``, each ending in a synchronise; outputs checked after
-    the timing; then one more batch split into ``encode`` and the beam
-    search.  Returns the kernel launches of the 1 + DEC_TIMED batches."""
+    the timing (a dbs decode's beams sorted within each group); then one
+    more batch split into ``encode`` and the search.  Returns the kernel
+    launches of the 1 + DEC_TIMED batches, the clips and their lengths;
+    the clips/s go into RATES[tag]."""
     g = torch.Generator("cuda").manual_seed(11)
     feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
     lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
-    kw = BEAM_KW
+    groups = kw.get("group_size", 1) if kw["decode_method"] == "dbs" else 1
+    rows = groups * (kw["beam_size"] // groups)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -735,16 +764,21 @@ def decode_rate(tag, decode, encode, model, vocab):
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
         seqs, scores = out["seqs"], out["scores"]
-        check(tuple(seqs.shape) == (DEC_BATCH, BEAM, MAX_LEN)
+        check(tuple(seqs.shape) == (DEC_BATCH, rows, MAX_LEN)
               and seqs.dtype == torch.long, f"seqs {seqs.shape} {seqs.dtype}")
         check(bool(((seqs >= 0) & (seqs < VOCAB)).all()), "a token outside the vocab")
         check(bool(torch.isfinite(scores).all()), "a non-finite beam score")
-        check(bool((scores[:, 1:] <= scores[:, :-1]).all()),
+        s = scores.view(DEC_BATCH, groups, -1)
+        check(bool((s[..., 1:] <= s[..., :-1]).all()),
               "beam scores not in descending order")
     timed = ms[1:]
     rate = DEC_BATCH * DEC_TIMED / (sum(timed) / 1e3)
-    print(f"{tag}: batch {DEC_BATCH}, beam {BEAM}, T_mel {T_MEL}, "
-          f"max_length {MAX_LEN}: {rate:.1f} captions/s; batch ms p50 "
+    RATES[tag] = rate
+    knobs = {k: v for k, v in kw.items() if k != "max_length"}
+    what = (f"{rate:.1f} clips/s ({rate * rows:.1f} candidates/s, {rows} a "
+            f"clip)" if groups > 1 else f"{rate:.1f} captions/s")
+    print(f"{tag}: batch {DEC_BATCH}, {knobs}, T_mel {T_MEL}, "
+          f"max_length {MAX_LEN}: {what}; batch ms p50 "
           f"{statistics.median(timed):.1f} (timed {', '.join(f'{t:.1f}' for t in timed)}; "
           f"first {ms[0]:.1f}); peak memory {peak / 2**30:.3f} GiB; launches "
           f"{counts}")
@@ -761,8 +795,9 @@ def decode_rate(tag, decode, encode, model, vocab):
         model.inference_from_encoded(enc, generator=g, **kw)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    print(f"{tag} split: encoder {(t1 - t0) * 1e3:.1f} ms, beam search "
-          f"{(t2 - t1) * 1e3:.1f} ms ({MAX_LEN} steps)")
+    print(f"{tag} split: encoder {(t1 - t0) * 1e3:.1f} ms, "
+          f"{kw['decode_method']} search {(t2 - t1) * 1e3:.1f} ms ({MAX_LEN} "
+          f"steps{f', {groups} groups' if groups > 1 else ''})")
     return counts, feats, lens
 
 
@@ -1137,20 +1172,20 @@ def _each_timed(it, log, tag):
         it.close()
 
 
-def cli_phase():
+def cli_phase(tmp):
     """Phase 10: make_synthetic, train (2 epochs, then a resume to 3) and
-    evaluate (bf16, int8 v2sym) through ``cli.main.main`` on a temp dir;
-    returns the kernel launches counted over all of it."""
+    evaluate (bf16, int8 v2sym) through ``cli.main.main`` in ``tmp``;
+    returns the kernel launches counted over all of it and the experiment
+    dir."""
     from acvae_tpu_torch.cli import main as cli
     from acvae_tpu_torch.data.dataset import CaptionLoader
 
     probe = CliProbe(cli, CaptionLoader)
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            return cli_path(cli, tmp, probe.log)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        return cli_path(cli, tmp, probe.log)
     finally:
         probe.restore()
 
@@ -1250,7 +1285,290 @@ def cli_path(cli, tmp, log):
               f"GiB; launches {counts}, of which calibration {calib} ({SMI})")
     counts = read_counts()
     print(f"cli: launches over the path {counts} ({SMI})")
+    return counts, exp
+
+
+def diverse_phase(tmp, exp, profile_dir=None):
+    """Phase 11, the diverse path: (a) a small flagship on the card against
+    the CPU (dbs, the two-member ensemble engines, one bf16 step); (b) the
+    int8 dbs decode at full width, and the bf16 decode beside it; (c) the
+    user's commands on phase 10's experiment and corpus; (d) the services.
+    Returns the kernel launches over (b)-(d)."""
+    diverse_parity()
+    total = dict.fromkeys(kernel_fns(), 0)
+    for counts in (diverse_full_width(profile_dir), diverse_cli(tmp, exp),
+                   diverse_services(exp)):
+        for k, v in counts.items():
+            total[k] += v
+    print(f"diverse: launches over the path {total} ({SMI})")
+    return total
+
+
+def diverse_parity():
+    """(a) Same weights, same noise, card and CPU: dbs at (beam 8, group 4,
+    lambda 0.5) and (8, 8) token-identical with scores within rtol 1e-4; a
+    two-member ensemble_beam and ensemble_greedy token-identical; one bf16
+    decode_step_api step within 3e-2 of the largest logit (the CPU test's
+    tolerance against JAX)."""
+    from acvae_tpu_torch.decoding.ensemble import ensemble_decode
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.ops.amp import cast_floats_for_decode
+
+    conf = small_conf()
+    V, N, T, F, E = 25, 3, 8, 16, 16
+    torch.manual_seed(21)
+    gpus = [build_model(conf, V, F, device="cuda") for _ in range(2)]
+    cpus = [build_model(conf, V, F, device="cpu") for _ in range(2)]
+    for c, g in zip(cpus, gpus):
+        c.load_state_dict({k: v.cpu() for k, v in g.state_dict().items()})
+    rng = np.random.default_rng(21)
+    feats = torch.tensor(rng.normal(size=(N, 64, F)).astype(np.float32))
+    lens = torch.tensor([64, 48, 33])
+    gen = torch.Generator().manual_seed(21)
+    sides = (("cuda", gpus), ("cpu", cpus))
+    for beam, group in ((8, 4), (8, 8)):
+        eps = torch.randn((group, T + group - 1, N * (beam // group), E),
+                          generator=gen)
+        outs = [ms[0].inference_forward(
+            feats.to(d), lens.to(d), decode_method="dbs", beam_size=beam,
+            group_size=group, diversity_lambda=0.5, max_length=T,
+            eps=eps.to(d)) for d, ms in sides]
+        a, b = (o["scores"].cpu() for o in outs)
+        err = ((a - b).abs() / b.abs().clamp_min(1e-6)).max().item()
+        same = torch.equal(outs[0]["seqs"].cpu(), outs[1]["seqs"])
+        print(f"diverse parity dbs b{beam} g{group}: seqs "
+              f"{tuple(outs[0]['seqs'].shape)} identical {same}, scores max "
+              f"rel err {err:.2e}")
+        check(same, f"dbs b{beam} g{group} tokens differ between the card "
+                    f"and the CPU")
+        check(torch.allclose(a, b, rtol=1e-4, atol=0),
+              f"dbs b{beam} g{group} scores differ beyond rtol 1e-4: {err}")
+    for method in ("beam", "greedy"):
+        NB = N * (BEAM if method == "beam" else 1)
+        eps = [torch.randn((T, NB, E), generator=gen) for _ in range(2)]
+        outs = [ensemble_decode(ms, feats.to(d), lens.to(d),
+                                decode_method=method, beam_size=BEAM,
+                                max_length=T, eps=[e.to(d) for e in eps])
+                for d, ms in sides]
+        same = torch.equal(outs[0]["seqs"].cpu(), outs[1]["seqs"])
+        print(f"diverse parity ensemble {method} (2 members): tokens "
+              f"identical {same}")
+        check(same, f"ensemble {method} tokens differ between the card and "
+                    f"the CPU")
+    state = [torch.randn((N, E), generator=gen) for _ in range(4)]
+    words, eps_t = torch.tensor([1, 7, 12]), torch.randn((N, E), generator=gen)
+    logits = []
+    for d, ms in sides:
+        m = cast_floats_for_decode(ms[0], torch.bfloat16)
+        s16 = [x.to(d, torch.bfloat16) for x in state]
+        with torch.inference_mode():
+            ctx = m.decode_ctx(m.encode(feats.to(d), lens.to(d)))
+            out, _ = m.decode_step_api(ctx, (s16[0], (s16[1], s16[2]), s16[3]),
+                                       words.to(d),
+                                       eps_t.to(d, torch.bfloat16))
+        check(out.dtype == torch.bfloat16, f"bf16 step logits in {out.dtype}")
+        logits.append(out.float().cpu())
+    err = (logits[0] - logits[1]).abs().max().item()
+    top = logits[1].abs().max().item()
+    print(f"diverse parity bf16 decode_step_api: max |dlogit| {err:.3e} "
+          f"against max |logit| {top:.3e}")
+    check(err <= 3e-2 * top, f"bf16 step differs between the card and the "
+                             f"CPU: {err} > 3e-2 * {top}")
+
+
+def diverse_full_width(profile_dir=None):
+    """(b) The flagship through save_experiment/load_experiment, its v2sym
+    int8 encoder calibrated from bn0's statistics: dbs (beam 8, 4 groups,
+    lambda 0.5) over batches of 512, 8 conv3x3_i8 and 3 avgpool2x2_i8 a
+    batch; then the bf16 decode (beam 3, bf16 parameters) at the same batch
+    beside phase 7's float32 loop.  Returns the launches of the dbs
+    batches."""
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+    from acvae_tpu_torch.ops.amp import cast_floats_for_decode
+    from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
+
+    torch.manual_seed(7)
+    with tempfile.TemporaryDirectory() as d:
+        conf = copy.deepcopy(FLAGSHIP_CONF)
+        save_experiment(d, build_model(conf, VOCAB, DATA_DIM, device="cuda"),
+                        conf, flagship_vocab())
+        _, vocab, model = load_experiment(d, device="cuda")
+    quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
+    int8 = int8_decode_fn(model, quant, **DBS_KW)
+
+    def decode(feats, lens, g):
+        return int8(feats, lens, generator=g)
+    counts, _, _ = decode_rate("diverse int8 dbs decode", decode, quant, model,
+                               vocab, DBS_KW)
+    batches = 1 + DEC_TIMED
+    check(counts["conv3x3_i8"] == 8 * batches
+          and counts["avgpool2x2_i8"] == 3 * batches
+          and counts["time_warp_1d"] == 0,
+          f"int8 dbs: launches {counts} in {batches} batches (expected 8 "
+          f"conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+    if profile_dir:
+        profile_decode(decode, profile_dir, "int8_dbs_decode")
+    del int8, quant, decode
+    bf16 = cast_floats_for_decode(model, torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+
+    def decode16(feats, lens, g):
+        return bf16.inference_forward(feats, lens, generator=g, **BEAM_KW)
+    decode_rate("diverse bf16 decode", decode16, bf16.encode, bf16, vocab)
+    print(f"bf16 decode (bf16 parameters, bf16 encoder, beam {BEAM}): "
+          f"{RATES['diverse bf16 decode']:.1f} captions/s against phase 7's "
+          f"float32 loop {RATES.get('serve decode', float('nan')):.1f} "
+          f"captions/s in this call ({SMI})")
+    del bf16, decode16
+    torch.cuda.empty_cache()
     return counts
+
+
+DIV_KEYS = ("Div1", "Div2", "gDiv1", "mBLeu_1", "mBLeu_2", "mBLeu_3",
+            "mBLeu_4", "SelfBLEU", "Novelty")
+
+
+def diverse_cli(tmp, exp):
+    """(c) On phase 10's experiment and corpus, in process: evaluate at dbs
+    (beam 20, 4 groups) with the bf16 encoder and with --encoder_int8, and
+    with --decode_dtype=bfloat16; diversity of the dbs output against the
+    corpus; predict; ensemble of the experiment with itself; human_eval.
+    Returns the launches (the int8 calibration's included, and reported
+    apart)."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.data.dataset import CaptionLoader
+
+    probe = CliProbe(cli, CaptionLoader)
+    log = probe.log
+    text = f"--eval_caption_file={tmp}/text.json"
+    reset_counts()
+    try:
+        runs = (("dbs bf16", ["--decode_method=dbs", "--beam_size=20",
+                              "--group_size=4"], "dbs_20", 20),
+                ("dbs int8", ["--decode_method=dbs", "--beam_size=20",
+                              "--group_size=4", "--encoder_int8"],
+                 "dbs_20_int8", 20),
+                ("bf16 decode", ["--decode_dtype=bfloat16"], "beam_3_bfloat16",
+                 1))
+        for tag, extra, name, per_clip in runs:
+            log["decode"].clear()
+            del log["wait"][:], log["produce"][:]
+            before = read_counts()
+            t0 = time.perf_counter()
+            scores = cli.main(["evaluate", str(exp), text] + extra)
+            wall = time.perf_counter() - t0
+            counts = {k: v - before[k] for k, v in read_counts().items()}
+            for f in (f"eval_output_{name}.json", f"scores_{name}.txt"):
+                check((exp / f).exists(), f"evaluate {tag} wrote no {f}")
+            check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+                  f"evaluate {tag}: scores {scores}")
+            preds = json.loads((exp / f"eval_output_{name}.json").read_text())
+            n_caps = [len(p.get("captions", [p.get("caption")]))
+                      for p in preds["predictions"]]
+            check(len(n_caps) == CLI_AUDIOS and set(n_caps) == {per_clip},
+                  f"evaluate {tag}: {len(n_caps)} clips, candidates "
+                  f"{sorted(set(n_caps))}")
+            (loop_s, dec_s, pairs), = log["decode"]
+            int8 = "--encoder_int8" in extra
+            calib = log["calib"][-1] if int8 else dict.fromkeys(counts, 0)
+            want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if int8 else (0, 0)
+            got = (counts["conv3x3_i8"] - calib["conv3x3_i8"],
+                   counts["avgpool2x2_i8"] - calib["avgpool2x2_i8"])
+            check(got == want and counts["time_warp_1d"] == 0,
+                  f"evaluate {tag}: launches {counts} (calibration {calib}); "
+                  f"expected {want} in {CLI_EVAL_BATCHES} batches")
+            print(f"cli evaluate {tag}: {CLI_AUDIOS} clips x {per_clip} "
+                  f"candidates in {CLI_EVAL_BATCHES} batches of 32: decode "
+                  f"loop {loop_s:.2f} s = {CLI_AUDIOS / loop_s:.1f} clips/s, "
+                  f"{CLI_AUDIOS * per_clip / loop_s:.1f} candidates/s (decode "
+                  f"calls {dec_s:.2f} s); command {wall:.2f} s; CIDEr "
+                  f"{scores['CIDEr']:.4f}; launches {counts}, of which "
+                  f"calibration {calib} ({SMI})")
+    finally:
+        probe.restore()
+    t0 = time.perf_counter()
+    div = cli.main(["diversity", str(exp / "eval_output_dbs_20.json"),
+                    f"{tmp}/text.json"])
+    div_s = time.perf_counter() - t0
+    check(set(DIV_KEYS) <= set(div)
+          and all(math.isfinite(div[k]) for k in DIV_KEYS)
+          and all(0.0 <= div[k] <= 1.0 for k in DIV_KEYS if k != "gDiv1"),
+          f"diversity: {div}")
+    print(f"cli diversity of the dbs output: {json.dumps(div)} in "
+          f"{div_s:.2f} s")
+    t0 = time.perf_counter()
+    csv_path = cli.main(["predict", str(exp), f"{tmp}/mels.csv",
+                         f"--output={tmp}/predictions.csv"])
+    rows = Path(csv_path).read_text().splitlines()
+    check(rows[0] == "file_name,caption_predicted" and len(rows) == CLI_AUDIOS + 1,
+          f"predict wrote {len(rows)} lines")
+    print(f"cli predict: {len(rows) - 1} rows in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    ens = cli.main(["ensemble", str(exp), str(exp), "--checkpoint=last", text])
+    check((exp / "ensemble_scores.txt").exists()
+          and all(math.isfinite(ens[k]) for k in SCORE_KEYS),
+          f"ensemble: {ens}")
+    print(f"cli ensemble <exp> <exp> --checkpoint=last: CIDEr "
+          f"{ens['CIDEr']:.4f} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    human = cli.main(["human_eval", f"{tmp}/text.json"])
+    check(all(math.isfinite(v) for v in human.values()), f"human_eval: {human}")
+    print(f"cli human_eval: CIDEr {human['CIDEr']:.4f}, Div1 "
+          f"{human['Div1']:.4f} in {time.perf_counter() - t0:.2f} s")
+    return read_counts()
+
+
+def diverse_services(exp):
+    """(d) CaptionService on phase 10's experiment at dbs (beam 8, 4
+    groups), as a two-member ensemble, with bf16 decode parameters and with
+    bf16 uploads: each captions 16 clips; the dbs service answers one HTTP
+    request.  Returns their launches."""
+    from acvae_tpu_torch.serve import CaptionService, run_server
+
+    reset_counts()
+    rng = np.random.default_rng(31)
+    mels = [rng.normal(size=(T_MEL, DATA_DIM)).astype(np.float32)
+            for _ in range(16)]
+    dbs = {k: v for k, v in DBS_KW.items() if k != "max_length"}
+    for tag, path, kw in (("dbs b8 g4", str(exp), dbs),
+                          ("ensemble of 2", f"{exp},{exp}", {}),
+                          ("bf16 decode", str(exp), {"decode_dtype": "bfloat16"}),
+                          ("bf16 upload", str(exp), {"upload_dtype": "bfloat16"})):
+        t0 = time.perf_counter()
+        svc = CaptionService(path, **kw)
+        ready = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        caps = svc.caption(mels)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(len(caps) == 16 and all(isinstance(c, str) for c in caps),
+              f"service {tag}: {caps}")
+        print(f"diverse service {tag}: ready in {ready:.1f} s, 16 clips in "
+              f"{ms:.1f} ms: {caps[0][:60]!r}")
+        if tag.startswith("dbs"):
+            server = run_server(svc, port=0, block=False)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                t0 = time.perf_counter()
+                code, reply = _http(
+                    f"http://127.0.0.1:{server.server_address[1]}/caption",
+                    json.dumps({"mel": mels[0].tolist()}).encode(),
+                    {"Content-Type": "application/json"})
+                check(code == 200 and isinstance(reply.get("caption"), str),
+                      f"dbs service over HTTP: {code} {reply}")
+                print(f"diverse service {tag}: HTTP 200 in "
+                      f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            finally:
+                server._acvae_stop()
+                thread.join(timeout=30)
+                server.server_close()
+            check(not thread.is_alive(), "the dbs HTTP server did not stop")
+        del svc
+    return read_counts()
 
 
 def build_phase():
@@ -1307,7 +1625,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="trace two more train steps and one full-width "
-                         "decode batch into DIR")
+                         "decode batch of each serving path and of the int8 "
+                         "dbs decode into DIR")
     args = ap.parse_args()
 
     device_phase()
@@ -1324,7 +1643,10 @@ def main():
     by_path["serve"] = phase("serve", serve_phase, args.profile)
     phase("int8 decode parity", int8_decode_parity_phase)
     by_path["int8_serve"] = phase("int8 serve", int8_serve_phase, args.profile)
-    by_path["cli"] = phase("cli", cli_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["cli"], exp = phase("cli", cli_phase, tmp)
+        by_path["diverse"] = phase("diverse", diverse_phase, tmp, exp,
+                                   args.profile)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

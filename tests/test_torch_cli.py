@@ -1,14 +1,18 @@
 """Port parity: the experiment CLI of ``acvae_tpu_torch`` (``train``,
-``evaluate``, ``make_synthetic``, ``build_vocab``, ``tokenize_caption``, the
-checkpoints and ``experiment_from_flax``) against ``acvae_tpu.cli``.
+``evaluate``, ``predict``, ``diversity``, ``ensemble``, ``human_eval``,
+``make_synthetic``, ``build_vocab``, ``tokenize_caption``, the checkpoints
+and ``experiment_from_flax``) against ``acvae_tpu.cli``.
 
 Small widths (Cnn10 channels 4-8-8-16, embed/hidden 16) on a rich synthetic
-corpus of 16 clips, on the CPU.  The evaluate comparison patches both
-packages' prior noise to one numpy slab (``tests/test_torch_decode.py``):
-identical caption strings and identical scores files are required, for the
+corpus of 16 clips, on the CPU.  The beam comparisons patch both packages'
+prior noise to one numpy slab (``tests/test_torch_decode.py``); the dbs and
+ensemble ones hand the port the JAX runner's own draws (its key split once
+a batch; see ``tests/test_torch_dbs.py`` and ``test_torch_ensemble.py``).
+Identical caption strings and identical scores files are required, for the
 f32 encoder and the int8 v2sym one (the JAX side compiled, as it serves).
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -30,6 +34,7 @@ from acvae_tpu.train import checkpoints as jckpt
 from acvae_tpu.train.schedules import exponential_decay_schedule
 from acvae_tpu.train.trainer import (TrainState, dis_ratio_for_epoch,
                                      kl_weight_schedule, ss_ratio_at)
+import acvae_tpu_torch.models.vae as tvae
 from acvae_tpu_torch.cli import main as cli
 from acvae_tpu_torch.configs import flagship_conf
 from acvae_tpu_torch.convert import experiment_from_flax, quant_from_flax
@@ -37,7 +42,9 @@ from acvae_tpu_torch.core.config import load_config
 from acvae_tpu_torch.data.vocab import Vocabulary
 from acvae_tpu_torch.train import checkpoints as tckpt
 from acvae_tpu_torch.train.trainer import Trainer
+from tests.test_torch_dbs import jax_dbs_eps
 from tests.test_torch_decode import SMALL, fixed_eps  # noqa: F401
+from tests.test_torch_ensemble import member_eps
 from tests.test_torch_quant import _flipped_codes, jax_baked
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -250,25 +257,87 @@ LATER = [("distributed", "true", "A19"), ("model_parallel", "2", "A19"),
          ("use_aug_prob", "0.5", "A17"), ("pretrained_encoder", "x.pth", "A17"),
          ("checkpoint_every_steps", "10", "A17"),
          ("fault_abort_step", "3", "A17"), ("embedding_path", "e", "A17"),
-         ("profile_dir", "p", "A17/A20"), ("decode_dtype", "bfloat16", "A14"),
-         ("upload_dtype", "bfloat16", "A14"),
+         ("profile_dir", "p", "A17/A20"),
+         # no train of the JAX package reads decode_dtype: accepted, ignored
+         ("decode_dtype", "bfloat16", None),
+         ("upload_dtype", "float16",
+          (ValueError, "upload_dtype must be float32 or bfloat16, got 'float16'")),
          ("scheduler", "ReduceLROnPlateau", "A17")]
 
 
 @pytest.mark.parametrize("key,value,item", LATER, ids=[k for k, _, _ in LATER])
 def test_train_refuses_later_items(ws, key, value, item):
-    with pytest.raises(NotImplementedError, match=item):
+    if item is None:
+        conf = load_config(str(ws / "port.yaml"), **{key: value})
+        cli._refuse_later_items(conf)
+        assert cli._upload_dtype(conf) is None
+        return
+    exc, match = (NotImplementedError, item) if isinstance(item, str) else item
+    with pytest.raises(exc, match=match):
         cli.main(["train", str(ws / "port.yaml"), "--device=cpu",
                   f"--{key}={value}", "--outputpath=/nonexistent/never"])
+    assert not Path("/nonexistent/never").exists()
+
+
+def test_train_uploads_bf16_rounded_mels(ws, tmp_path, monkeypatch):
+    """``upload_dtype: bfloat16``: every train batch reaches the step as the
+    mels rounded to bf16 (cast on the host), float32 on the device."""
+    seen = []
+    real_stage, real_step = cli._to_device, Trainer.step
+
+    def stage(batch, *a, **k):
+        out = real_stage(batch, *a, **k)
+        seen.append((batch.feats, k.get("feats_dtype"), out.feats))
+        return out
+    fed = []
+
+    def step(self, batch, *a, **k):
+        fed.append(batch["feats"])
+        return real_step(self, batch, *a, **k)
+    monkeypatch.setattr(cli, "_to_device", stage)
+    monkeypatch.setattr(Trainer, "step", step)
+    cli.main(["train", str(ws / "port.yaml"), "--device=cpu", "--epochs=1",
+              "--upload_dtype=bfloat16", f"--outputpath={tmp_path}"])
+    train = [(raw, out) for raw, dt, out in seen if dt == torch.bfloat16]
+    assert len(train) == len(fed) == 4
+    for (raw, out), got in zip(train, fed):
+        want = torch.from_numpy(raw).to(torch.bfloat16).float()
+        assert out.dtype == torch.float32 and torch.equal(out, want)
+        assert got is out
+    assert any(not torch.equal(out, torch.from_numpy(raw)) for raw, out in train)
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"decode_method": "dbs"}, "A14"), ({"method": "dbs"}, "A14"),
-    ({"decode_dtype": "bfloat16"}, "A14"), ({"distributed": True}, "A19")],
+    ({"decode_method": "dbs", "beam_size": 2, "group_size": 4},
+     (ValueError, "beam_size >= group_size")),
+    ({"method": "dbs", "beam_size": 2, "group_size": 4},
+     (ValueError, "beam_size >= group_size")),
+    ({"decode_dtype": "bfloat16"}, None),
+    ({"distributed": True}, (NotImplementedError, "A19"))],
     ids=["dbs", "dbs_alias", "decode_dtype", "distributed"])
-def test_evaluate_refuses_later_items(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.evaluate("/nonexistent", device="cpu", **kwargs)
+def test_evaluate_refuses_later_items(ws, experiments, kwargs, item):
+    """What JAX refuses, the port refuses with the same error; a bf16
+    decode runs and names its files as JAX names them."""
+    jax_exp, port_exp = experiments
+    kw = dict(eval_h5_csv=str(ws / "h5.csv"),
+              eval_caption_file=str(ws / "text.json"), **kwargs)
+    if item is None:
+        before = {p: set(os.listdir(p)) for p in (jax_exp, port_exp)}
+        Runner().evaluate(str(jax_exp), **kw)
+        scores = cli.evaluate(str(port_exp), device="cpu", **kw)
+        new = {p: set(os.listdir(p)) - before[p] for p in before}
+        assert new[port_exp] == new[jax_exp] == {
+            "eval_output_beam_3_bfloat16.json", "scores_beam_3_bfloat16.txt"}
+        assert math.isfinite(scores["CIDEr"])
+        return
+    if kwargs.get("distributed"):
+        with pytest.raises(item[0], match=item[1]):
+            cli.evaluate("/nonexistent", device="cpu", **kwargs)
+        return
+    for run in (lambda: Runner().evaluate(str(jax_exp), **kw),
+                lambda: cli.evaluate(str(port_exp), device="cpu", **kw)):
+        with pytest.raises(item[0], match=item[1]):
+            run()
 
 
 def test_method_alias_and_no_card(ws):
@@ -419,6 +488,147 @@ def test_evaluate_int8_matches_jax(ws, experiments, fixed_eps, monkeypatch):
 
 
 # --------------------------------------------------------------------- #
+# diverse captioning: evaluate --decode_method=dbs, diversity, predict,
+# ensemble, human_eval
+# --------------------------------------------------------------------- #
+DBS_KW = dict(decode_method="dbs", beam_size=8, group_size=4)
+
+
+def _jax_model(jax_exp):
+    """The JAX flagship of an experiment dir and its variables."""
+    conf = load_config(str(jax_exp / "config.yaml"))
+    V = len(JVocabulary.load(str(jax_exp / "vocab.pkl")))
+    tree = jckpt.load_raw_checkpoint(str(jax_exp), "best",
+                                     subset=("params", "batch_stats"))
+    return j_build_model(conf, V, 64), tree
+
+
+def _feed_jax_dbs_noise(monkeypatch, jax_exp, batch_sizes, seed=1, T=20):
+    """The port's dbs draws replaced by the JAX runner's: its key split once
+    a batch, each group's slab drawn as the JAX model draws it."""
+    model, tree = _jax_model(jax_exp)
+    G, bdash = DBS_KW["group_size"], DBS_KW["beam_size"] // DBS_KW["group_size"]
+    key, slabs = jax.random.key(seed), []
+    for n in batch_sizes:
+        key, sub = jax.random.split(key)
+        slabs += list(jax_dbs_eps(model, tree, sub, G, T + G - 1, n * bdash))
+    assert not np.array_equal(slabs[0], slabs[1])
+
+    def eps_stack(steps, rows, dim, generator=None, device=None, dtype=None):
+        e = slabs.pop(0)
+        assert e.shape == (steps, rows, dim)
+        return torch.tensor(e, device=device)
+    monkeypatch.setattr(tvae, "eps_stack", eps_stack)
+    return slabs
+
+
+def _carry_jax_bake(monkeypatch):
+    """JAX's int8 encoder records itself; the port's is JAX's, carried
+    across (the two calibrations' conv sums are ordered differently)."""
+    baked = {}
+    make_j = jquant.quant_encoder_for
+    monkeypatch.setattr(jquant, "quant_encoder_for", lambda *a, **k:
+                        baked.setdefault("jq", make_j(*a, **k)))
+    monkeypatch.setattr(cli, "quant_encoder_for", lambda *a, **k:
+                        quant_from_flax(jax_baked(baked["jq"]), device="cpu"))
+
+
+def _dbs_files(exp, suffix=""):
+    out = json.loads((exp / f"eval_output_dbs_8{suffix}.json").read_text())
+    return out["predictions"], (exp / f"scores_dbs_8{suffix}.txt").read_text()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["f32", "int8"])
+def test_evaluate_dbs_matches_jax(ws, experiments, monkeypatch, int8):
+    """Every output beam a candidate (8 a clip), identical files; the first
+    candidate scored.  ``--num_candidates`` is ignored for dbs."""
+    jax_exp, port_exp = experiments
+    kw = dict(eval_h5_csv=str(ws / "h5.csv"),
+              eval_caption_file=str(ws / "text.json"), encoder_int8=int8,
+              num_candidates=3, **DBS_KW)
+    if int8:
+        _carry_jax_bake(monkeypatch)
+    ref = Runner().evaluate(str(jax_exp), **kw)
+    left = _feed_jax_dbs_noise(monkeypatch, jax_exp, [16])
+    ours = cli.evaluate(str(port_exp), device="cpu", **kw)
+    assert left == []
+    assert ours == ref
+    suffix = "_int8" if int8 else ""
+    preds, scores = _dbs_files(port_exp, suffix)
+    assert (preds, scores) == _dbs_files(jax_exp, suffix)
+    assert len(preds) == 16 and all(len(p["captions"]) == 8 for p in preds)
+
+
+def test_diversity_matches_jax(ws, experiments, tmp_path, monkeypatch):
+    """On the dbs eval output (several candidates a clip) with the train
+    corpus, and on a beam output (one a clip): identical results and
+    files."""
+    jax_exp, port_exp = experiments
+    dbs = port_exp / "eval_output_dbs_8.json"
+    if not dbs.exists():
+        kw = dict(eval_h5_csv=str(ws / "mels.csv"),
+                  eval_caption_file=str(ws / "text.json"), **DBS_KW)
+        cli.evaluate(str(port_exp), device="cpu", **kw)
+    beam = tmp_path / "beam.json"
+    beam.write_text(json.dumps({"predictions": [
+        {"filename": f"a{i}", "caption": c, "tokens": c}
+        for i, c in enumerate(["A dog, barking!", "a dog barks", "rain"])]}))
+    for src, corpus in ((dbs, str(ws / "text.json")), (beam, None)):
+        ref = Runner().diversity(str(src), corpus, output=str(tmp_path / "j.txt"))
+        ours = cli.diversity(str(src), corpus, output=str(tmp_path / "p.txt"))
+        assert ours == ref
+        assert (tmp_path / "p.txt").read_text() == (tmp_path / "j.txt").read_text()
+    assert {"Div1", "Div2", "gDiv1", "mBLeu_4", "SelfBLEU", "Novelty"} <= set(
+        cli.diversity(str(dbs), str(ws / "text.json")))
+
+
+def test_predict_matches_jax(ws, experiments, fixed_eps, tmp_path):
+    jax_exp, port_exp = experiments
+    for method in ("beam", "dbs"):
+        kw = dict(decode_method=method, beam_size=8 if method == "dbs" else 3)
+        ref = Runner().predict(str(jax_exp), str(ws / "h5.csv"),
+                               output=str(tmp_path / "j.csv"), **kw)
+        ours = cli.predict(str(port_exp), str(ws / "h5.csv"), device="cpu",
+                           output=str(tmp_path / "p.csv"), **kw)
+        assert (Path(ours).read_bytes() == Path(ref).read_bytes()), method
+    rows = (tmp_path / "p.csv").read_text().splitlines()
+    assert rows[0] == "file_name,caption_predicted" and len(rows) == 17
+
+
+def test_ensemble_matches_jax(ws, experiments, monkeypatch):
+    """``ensemble <exp> <exp> --checkpoint=best``: the JAX runner's draws
+    (key split once a batch, member m's from fold_in(key, m)); the scores
+    file lands in the first member's dir."""
+    jax_exp, port_exp = experiments
+    kw = dict(eval_h5_csv=str(ws / "h5.csv"),
+              eval_caption_file=str(ws / "text.json"), checkpoint="best")
+    ref = Runner().ensemble(str(jax_exp), str(jax_exp), **kw)
+    key = {"k": jax.random.key(1)}
+    real = cli.ensemble_decode
+
+    def fed(members, feats, lens, generator=None, **k):
+        key["k"], sub = jax.random.split(key["k"])
+        eps = member_eps(sub, len(members), k["max_length"],
+                         feats.shape[0] * k["beam_size"])
+        return real(members, feats, lens, eps=[torch.tensor(e) for e in eps], **k)
+    monkeypatch.setattr(cli, "ensemble_decode", fed)
+    ours = cli.main(["ensemble", str(port_exp), str(port_exp), "--device=cpu",
+                     f"--eval_h5_csv={ws / 'h5.csv'}",
+                     f"--eval_caption_file={ws / 'text.json'}",
+                     "--checkpoint=best"])
+    assert ours == ref
+    assert ((port_exp / "ensemble_scores.txt").read_text()
+            == (jax_exp / "ensemble_scores.txt").read_text())
+
+
+def test_human_eval_matches_jax(ws, tmp_path):
+    ref = Runner().human_eval(str(ws / "text.json"), output=str(tmp_path / "j.txt"))
+    ours = cli.human_eval(str(ws / "text.json"), output=str(tmp_path / "p.txt"))
+    assert ours == ref and set(ours) >= {"Bleu_4", "CIDEr", "Div1", "mBLeu_4"}
+    assert (tmp_path / "p.txt").read_text() == (tmp_path / "j.txt").read_text()
+
+
+# --------------------------------------------------------------------- #
 # the card's installation: no PyYAML, h5py, pandas or nltk
 # --------------------------------------------------------------------- #
 BLOCKED_RUN = """
@@ -434,6 +644,12 @@ open(d + "/c.yaml", "w").write(open(sys.argv[2]).read().replace(
 exp = main(["train", d + "/c.yaml", "--device=cpu", "--epochs=1"])
 main(["evaluate", exp, "--device=cpu", "--checkpoint=last"])
 main(["evaluate", exp, "--device=cpu", "--checkpoint=last", "--encoder_int8"])
+main(["evaluate", exp, "--device=cpu", "--checkpoint=last",
+      "--decode_method=dbs", "--beam_size=4", "--group_size=2"])
+main(["diversity", exp + "/eval_output_dbs_4.json", d + "/text.json",
+      "--device=cpu", "--output=" + d + "/div.txt"])
+main(["predict", exp, d + "/mels.csv", "--device=cpu", "--checkpoint=last",
+      "--output=" + d + "/pred.csv"])
 bad = [m for m in ("yaml", "h5py", "pandas", "nltk", "jax", "acvae_tpu")
        if sys.modules.get(m) is not None]
 assert not bad, bad
@@ -451,6 +667,8 @@ def test_cli_runs_without_yaml_h5py_pandas_nltk(ws, tmp_path):
     exp = _exp(tmp_path / "port_out")
     assert (exp / "scores_beam_3.txt").exists()
     assert (exp / "scores_beam_3_int8.txt").exists()
+    assert "SelfBLEU: " in (tmp_path / "div.txt").read_text()
+    assert len((tmp_path / "pred.csv").read_text().splitlines()) == 9
 
 
 def test_python_dash_m_runs(ws, tmp_path):

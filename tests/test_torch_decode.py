@@ -307,8 +307,13 @@ def test_decode_method_checks(small_models):
     feats, lens = (torch.tensor(a) for a in mels(1))
     with pytest.raises(ValueError, match="does not support"):
         port.inference_forward(feats, lens, decode_method="nucleus")
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.inference_forward(feats, lens, decode_method="dbs")
+    # dbs: JAX's check of the group size, then the decode runs
+    with pytest.raises(ValueError, match="beam_size >= group_size"):
+        port.inference_forward(feats, lens, decode_method="dbs", beam_size=3,
+                               group_size=5)
+    out = port.inference_forward(feats, lens, decode_method="dbs", beam_size=4,
+                                 group_size=2, max_length=3)
+    assert out["seqs"].shape == (1, 4, 3)
     # the arity dispatch: without captions, forward is the inference forward
     out = port(feats, lens, decode_method="beam", beam_size=2, max_length=3)
     assert out["seqs"].shape == (1, 2, 3) and not out["seqs"].requires_grad

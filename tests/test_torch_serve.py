@@ -225,21 +225,90 @@ LEFT_OUT = (NotImplementedError, "ROADMAP")
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    # the int8 encoder is ported: what JAX refuses with it, the port refuses
+    # what JAX refuses, the port refuses with the same error
     ({"encoder_int8": True, "decode_dtype": "bfloat16"},
      (ValueError, "decode_dtype")),
     ({"encoder_int8": True, "int8_scheme": "v9"}, (ValueError, "int8_scheme")),
     ({"exported": "artifact"}, LEFT_OUT),
-    ({"decode_dtype": "bfloat16"}, LEFT_OUT), ({"upload_dtype": "bfloat16"}, LEFT_OUT),
-    ({"decode_method": "dbs"}, LEFT_OUT), ({"experiment_path": "a,b"}, LEFT_OUT)],
+    ({"decode_dtype": "bfloat16"}, None),
+    ({"upload_dtype": "float16"}, (ValueError, "upload_dtype must be")),
+    ({"decode_method": "dbs", "beam_size": 2, "group_size": 4},
+     (ValueError, "beam_size >= group_size")),
+    ({"experiment_path": "PAIR", "decode_method": "sample"},
+     (ValueError, "beam\\|greedy"))],
     ids=["int8", "int8_scheme", "exported", "decode_dtype", "upload_dtype",
          "dbs", "ensemble"])
 def test_left_out_options_raise(experiments, kwargs, error):
-    kw = dict(experiment_path=experiments[1], device="cpu", batch_size=2,
-              mel_bucket=BUCKET, max_length=MAXLEN)
-    kw.update(kwargs)
+    """The ValueErrors match JAX's service on the same input; a bf16
+    decode_dtype runs (its decode state in bf16)."""
+    from acvae_tpu.serve import CaptionService as JCaptionService
+
+    jax_exp, port_exp, _ = experiments
+    kw = dict(device="cpu", batch_size=2, mel_bucket=BUCKET, max_length=MAXLEN,
+              **kwargs)
+    kw.setdefault("experiment_path", port_exp)
+    pair = kw["experiment_path"] == "PAIR"
+    if pair:
+        kw["experiment_path"] = f"{port_exp},{port_exp}"
+    if error is None:
+        svc = CaptionService(**kw)
+        assert svc.model.decoder.state_dtype() == torch.bfloat16
+        caps = svc.caption(_request_mels()[:2])
+        assert len(caps) == 2 and all(isinstance(c, str) for c in caps)
+        return
     with pytest.raises(error[0], match=error[1]):
         CaptionService(**kw)
+    if error[0] is ValueError:
+        jkw = {k: v for k, v in kw.items() if k != "device"}
+        jkw["experiment_path"] = f"{jax_exp},{jax_exp}" if pair else jax_exp
+        with pytest.raises(ValueError, match=error[1]):
+            JCaptionService(**jkw)
+
+
+def test_dbs_caption_service_matches_jax(experiments, monkeypatch):
+    """DBS serving (b8 g4): the port fed the JAX service's draws (its key
+    split once a caption call, warm-ups included)."""
+    from acvae_tpu.serve import CaptionService as JCaptionService
+    import acvae_tpu_torch.models.vae as tvae
+    from tests.test_torch_dbs import jax_dbs_eps
+
+    jax_exp, port_exp, conf = experiments
+    kw = dict(decode_method="dbs", beam_size=8, group_size=4, batch_size=BATCH,
+              mel_bucket=BUCKET, max_length=MAXLEN)
+    jsvc = JCaptionService(jax_exp, **kw)
+    _, model, variables = small_jax_model(seed=3)
+    state = {"key": jax.random.key(3), "slabs": []}
+
+    def eps_stack(steps, rows, dim, generator=None, device=None, dtype=None):
+        if not state["slabs"]:
+            state["key"], sub = jax.random.split(state["key"])
+            state["slabs"] = list(jax_dbs_eps(model, variables, sub, 4, steps,
+                                              rows))
+        return torch.tensor(state["slabs"].pop(0), device=device)
+    monkeypatch.setattr(tvae, "eps_stack", eps_stack)
+    psvc = CaptionService(port_exp, device="cpu", **kw)
+    mels = _request_mels()
+    assert psvc.caption(mels) == jsvc.caption(mels)
+    q8 = [_quantize(m) for m in mels]
+    assert psvc.caption(q8) == jsvc.caption(q8)
+
+
+def test_upload_bf16_service_matches_jax(experiments, fixed_eps):
+    """upload_dtype=bfloat16: the f32 batches are cast on the host; the
+    captions equal JAX's, and equal those of an f32 service given the
+    bf16-rounded mels."""
+    from acvae_tpu.serve import CaptionService as JCaptionService
+
+    jax_exp, port_exp, _ = experiments
+    kw = dict(batch_size=BATCH, mel_bucket=BUCKET, max_length=MAXLEN)
+    jsvc = JCaptionService(jax_exp, upload_dtype="bfloat16", **kw)
+    psvc = CaptionService(port_exp, device="cpu", upload_dtype="bfloat16", **kw)
+    mels = _request_mels()
+    ours = psvc.caption(mels)
+    assert ours == jsvc.caption(mels)
+    plain = CaptionService(port_exp, device="cpu", **kw)
+    rounded = [torch.tensor(m).to(torch.bfloat16).float().numpy() for m in mels]
+    assert plain.caption(rounded) == ours
 
 
 def test_other_model_families_and_no_card_raise(experiments, tmp_path):
@@ -345,6 +414,32 @@ def test_batcher_drops_abandoned_requests(experiments):
         # serve_forever never ran: stop the batcher and close the socket
         server._acvae_queue.put(None)
         server.server_close()
+
+
+def test_main_parses_the_diverse_flags(experiments, monkeypatch):
+    """--decode_method dbs with its knobs, --decode_dtype, --upload_dtype
+    and a comma-separated ensemble reach the service."""
+    import acvae_tpu_torch.serve as serve_mod
+
+    got = {}
+    monkeypatch.setattr(serve_mod, "run_server",
+                        lambda svc, **kw: got.update(svc=svc))
+    port_exp = experiments[1]
+    base = ["--device", "cpu", "--batch_size", "2", "--mel_bucket", str(BUCKET),
+            "--max_length", "4"]
+    main([port_exp] + base + ["--decode_method", "dbs", "--beam_size", "4",
+                              "--group_size", "2", "--diversity_lambda", "0.3",
+                              "--group_nbest", "false", "--upload_dtype",
+                              "bfloat16"])
+    svc = got["svc"]
+    assert svc._decode_kwargs == dict(decode_method="dbs", max_length=4,
+                                      beam_size=4, group_size=2,
+                                      diversity_lambda=0.3, group_nbest=False)
+    assert svc._upload_dtype == torch.bfloat16
+    main([port_exp] + base + ["--decode_dtype", "bfloat16"])
+    assert got["svc"].model.decoder.state_dtype() == torch.bfloat16
+    main([f"{port_exp},{port_exp}"] + base)
+    assert len(got["svc"].members) == 2
 
 
 def test_main_parses_the_serve_flags(experiments, monkeypatch):
