@@ -9,8 +9,11 @@ the JAX package is the frozen reference that the tests hold it against.
   arithmetic, the bf16 decode cast (``amp``), and ``ops.cuda``
   (hand-written Hopper kernels built from ``csrc/`` at first use).
 * ``acvae_tpu_torch.models`` — the flagship Hybrid AC-VAE (Cnn10 encoder,
-  hybrid posterior, AR prior, attention GRU decoder), its train forward
-  and its inference forward, and the int8 serving encoder (``quant``).
+  hybrid posterior, AR prior, attention GRU decoder) and the other families
+  of ``configs/`` (``VAEModel`` with a Normal or GMM prior,
+  ``SimpleVAEModel``, ``TransVAEModel``, ``Seq2SeqAttnModel``,
+  ``TransformerModel``), their train and inference forwards, and the int8
+  serving encoder (``quant``).
 * ``acvae_tpu_torch.decoding`` — next-word sampling, the batched beam
   search, diverse beam search and the probability-averaged ensemble.
 * ``acvae_tpu_torch.data`` — the vocabulary, the corpus and its loader.

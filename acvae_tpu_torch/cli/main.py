@@ -67,17 +67,16 @@ from acvae_tpu_torch.train.checkpoints import (criterion_improver,
                                                load_experiment, read_ckpt_steps,
                                                resume_newest, save_checkpoint,
                                                write_ckpt_step)
-from acvae_tpu_torch.train.trainer import Trainer
+from acvae_tpu_torch.train.trainer import RATIO_DEFAULTS, Trainer, check_free_bits
 
 DEFAULTS = dict(
     seed=1, remark="tpu", epochs=25, batch_size=32, label_smoothing=True,
-    smoothing=0.1, max_grad_norm=1.0, improvecriterion="score", beta=0.5,
+    smoothing=0.1, max_grad_norm=1.0, improvecriterion="score",
     train_percent=90.0, optimizer="Adam", optimizer_args={"lr": 5e-4},
     scheduler="ExponentialDecayScheduler",
     scheduler_args={"final_lr": 5e-7, "warmup_iters": 3000},
-    ss_args={"ss_mode": "exponential", "ss_ratio": 1.0, "final_ss_ratio": 0.7},
-    dis_ration={"freeze_epoch": 10, "final_ratio": 0.3},
     zh=False, outputpath="experiments", kl_mask="valid",
+    **RATIO_DEFAULTS,   # beta, ss_args, dis_ration
 )
 
 # train config keys of later ROADMAP items: setting one raises, naming it
@@ -102,6 +101,7 @@ def _later(what: str, item: str):
 
 
 def _refuse_later_items(conf: Dict[str, Any]) -> None:
+    check_free_bits(conf)
     for key, item in LATER_KEYS.items():
         value = conf.get(key)
         if value not in (None, False, 0, "", {}, []) and not (

@@ -1,7 +1,7 @@
 """Flax variables -> a port ``state_dict``.
 
 ``from_flax(variables)`` takes the JAX package's ``{"params": ...,
-"batch_stats": ...}`` tree (numpy or array leaves) of the flagship model and
+"batch_stats": ...}`` tree (numpy or array leaves) of any model family and
 returns the tensors under the port's (the reference's torch) names:
 
 * Dense kernels [in, out] and RNN ``wi``/``wh`` transpose to torch's
@@ -12,7 +12,15 @@ returns the tensors under the port's (the reference's torch) names:
   ``weight``/``bias`` and ``running_mean``/``running_var``;
 * a BiGRU's ``fwd``/``bwd`` cells become ``*_l0`` / ``*_l0_reverse``;
 * an attention's ``dec_proj``/``enc_proj`` kernels join into one
-  ``h2attn`` Linear over [h_dec; h_enc].
+  ``h2attn`` Linear over [h_dec; h_enc];
+* a transformer layer ``layer<i>`` becomes ``model.layers.<i>`` and its
+  ``cross_attn`` ``multihead_attn``; a ``MultiHeadDotProductAttention``'s
+  ``query``/``key``/``value`` kernels [in, heads, head_dim] join (head-major)
+  into ``in_proj_weight`` [3E, E] and ``in_proj_bias``, its ``out`` kernel
+  [heads, head_dim, out] becomes ``out_proj``; LayerNorm ``scale`` becomes
+  ``weight``;
+* everything else (``ln``, ``mixture_logits``, the Linear heads) keeps its
+  name.
 
 ``quant_from_flax(baked)`` carries a baked JAX int8 encoder across (no new
 calibration).  ``experiment_from_flax`` writes a JAX experiment's weights,
@@ -30,6 +38,7 @@ import torch
 from acvae_tpu_torch import DEFAULT_DEVICE
 
 _RNN = {"wi": "weight_ih", "wh": "weight_hh", "bi": "bias_ih", "bh": "bias_hh"}
+_MHA = ("query", "key", "value", "out")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -48,8 +57,13 @@ def _module_path(mods) -> Tuple[str, str]:
         blk = re.fullmatch(r"block(\d+)_\d+", m)
         if m == "_MelBatchNorm_0":
             continue
+        layer = re.fullmatch(r"layer(\d+)", m)
         if blk:
             out.append(f"conv_block{int(blk.group(1)) + 1}")
+        elif layer:
+            out.append(f"model.layers.{layer.group(1)}")
+        elif m == "cross_attn":
+            out.append("multihead_attn")
         elif m == "cell":
             out.append("model")
         elif m in ("fwd", "bwd"):
@@ -62,11 +76,16 @@ def _module_path(mods) -> Tuple[str, str]:
 def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     attn: Dict[str, Dict[str, np.ndarray]] = {}
+    mha: Dict[str, Dict[str, np.ndarray]] = {}
     for coll in ("params", "batch_stats"):
         for path, a in _flatten(variables.get(coll, {})):
             *mods, leaf = path
             if mods and mods[-1] in ("dec_proj", "enc_proj"):
                 attn.setdefault(_module_path(mods[:-1])[0], {})[
+                    f"{mods[-1]}.{leaf}"] = a
+                continue
+            if len(mods) > 1 and mods[-1] in _MHA and mods[-2].endswith("_attn"):
+                mha.setdefault(_module_path(mods[:-1])[0], {})[
                     f"{mods[-1]}.{leaf}"] = a
                 continue
             prefix, suffix = _module_path(mods)
@@ -92,13 +111,22 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[key + "h2attn.weight"] = np.concatenate(
             [parts["dec_proj.kernel"].T, parts["enc_proj.kernel"].T], axis=1)
         sd[key + "h2attn.bias"] = parts["enc_proj.bias"]
-    return {k: torch.tensor(v) for k, v in sd.items()}
+    for prefix, parts in mha.items():
+        key = prefix + "." if prefix else ""
+        E = parts["out.kernel"].shape[-1]
+        sd[key + "in_proj_weight"] = np.concatenate(
+            [parts[f"{p}.kernel"].reshape(-1, E).T for p in _MHA[:3]], axis=0)
+        sd[key + "in_proj_bias"] = np.concatenate(
+            [parts[f"{p}.bias"].reshape(E) for p in _MHA[:3]])
+        sd[key + "out_proj.weight"] = parts["out.kernel"].reshape(E, -1).T
+        sd[key + "out_proj.bias"] = parts["out.bias"]
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def experiment_from_flax(tree: Dict[str, Any], conf: Dict[str, Any], vocab,
                          out_dir: str, name: str = "best"):
     """A port experiment dir (``config.json``, ``vocab.pkl``,
-    ``<name>.pt``) from a JAX experiment: ``tree`` is the numpy tree with
+    ``<name>.pt``) from a JAX experiment of any ported family: ``tree`` is the numpy tree with
     ``params`` and ``batch_stats`` that
     ``acvae_tpu.train.checkpoints.load_raw_checkpoint(exp, name,
     subset=("params", "batch_stats"))`` returns (the orbax read stays on the

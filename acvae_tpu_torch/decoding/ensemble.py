@@ -66,6 +66,20 @@ def ensemble_beam(step_fns: List[StepFn], init_states: List[Any],
                                batch_size, cfg)
 
 
+STEP_API = ("encode", "decode_ctx", "init_decode_state", "decode_step_api")
+
+
+def check_step_api(members: Sequence[Any]) -> None:
+    """Every member must have the step-decode API (the JAX service's guard,
+    ``acvae_tpu/serve.py:241-246``)."""
+    for model in members:
+        for api in STEP_API:
+            if not hasattr(model, api):
+                raise ValueError(
+                    f"ensemble decoding needs the step-decode API ({api}); "
+                    f"{type(model).__name__} lacks it")
+
+
 def ensemble_decode(members: List[Any], feats: torch.Tensor,
                     feat_lens: torch.Tensor, decode_method: str = "beam",
                     beam_size: int = 3, max_length: int = 20,
@@ -77,6 +91,7 @@ def ensemble_decode(members: List[Any], feats: torch.Tensor,
     ``decode_step_api``).  Each member encodes on its own and draws its own
     prior noise: ``eps[m]`` [T, N·B, E], drawn from ``generator`` where not
     given."""
+    check_step_api(members)
     N, dev = feats.shape[0], feats.device
     B = beam_size if decode_method == "beam" else 1
     NB = N * B

@@ -483,13 +483,15 @@ def quant_encoder_for(conf: Dict[str, Any], model: Any,
 
 def int8_decode_fn(model: Any, quant: QuantPannEncoder, **decode_kwargs):
     """Decode closure: the int8 encoder in front of the model's decode
-    (``inference_from_encoded``; the flagship has no encoder->decoder
-    adapter).  Call it as ``decode(feats, feat_lens, generator=..., eps=...)``."""
+    (``inference_from_encoded`` with the encoder->decoder adapter, where the
+    model has one).  Call it as ``decode(feats, feat_lens, generator=...,
+    eps=...)``."""
     from torch.profiler import record_function
 
     def decode(feats, feat_lens, **kw):
         with torch.inference_mode():
             with record_function("encoder"):
                 encoded = quant(feats, feat_lens)
-            return model.inference_from_encoded(encoded, **decode_kwargs, **kw)
+            return model.inference_from_encoded(encoded, apply_ln=True,
+                                                **decode_kwargs, **kw)
     return decode

@@ -1,12 +1,15 @@
-"""The Hybrid AC-VAE caption model (counterpart of
-``acvae_tpu/models/vae.py:61-113, 115-169, 216-300``).
+"""The AC-VAE caption models (counterpart of
+``acvae_tpu/models/vae.py:61-514`` and ``:517-734``).
 
-``VAECaptionModel(global_constraint=True)`` is the reference's
-``Hybrid_VAEModel`` (vae_model.py:674-1048): a per-timestep latent-word VAE
-with an autoregressive prior and the utterance-level global head.  The
+``VAECaptionModel`` is the reference's ``VAEModel`` (vae_model.py:12-364)
+and, with ``global_constraint=True``, its ``Hybrid_VAEModel``
+(vae_model.py:674-1048): a per-timestep latent-word VAE with an
+autoregressive prior (``PriorRNN``, or the mixture ``GMMPriorRNN``).  The
 teacher-forced pass is a Python loop over T = L-1 steps; each step is one
 prior step and one decoder step (:meth:`_step_pair`, the plain branch of the
-JAX package).
+JAX package).  With a GMM prior the per-step moments are [K, N, E]; the
+train forward lays them out [K, N, T, E] and returns ``p_mixture_logits``,
+and every decode samples z from the selected component.
 
 Noise: ``train_forward`` takes its draws in ``noise`` — ``q_eps`` [N,T,E],
 ``p_eps`` [T,N,E], ``ss_coins`` [T] and ``dis_coins`` [T] (bool) — and draws
@@ -14,7 +17,7 @@ whatever is missing from ``generator``.  The coins are per *timestep*, as in
 the reference; the carried ``last_z`` is always the prior sample
 (vae_model.py:192).
 
-Inference (counterpart of ``acvae_tpu/models/vae.py:305-395, 436-514``):
+Inference (counterpart of ``acvae_tpu/models/vae.py:305-514``):
 ``inference_forward`` encodes and decodes under ``torch.inference_mode``
 with BatchNorm on its running statistics and no dropout.  ``beam_search``
 draws a prior z per beam (eps [T, N·B, E], row ``n·B+b`` is beam ``b`` of
@@ -22,9 +25,16 @@ clip ``n``; the beam gathers reorder the state, never the noise), takes flat
 top-k from step 0 and has no end handling.  ``diverse_beam_search`` gives
 each group its own prior noise, indexed by the global step (eps [G, T+G-1,
 N·bdash, E]).  ``stepwise_decode`` is the greedy / gumbel / sample decode
-with the reference's finished mask.  The decode state, the noise and the
-encoder memory take the decoder's parameter dtype (``state_dtype``), so a
-model cast by ``ops/amp.py::cast_floats_for_decode`` decodes in bf16.
+with the reference's finished mask; ``forced_decode`` scores given words
+with the same prior noise.  The decode state, the noise and the encoder
+memory take the decoder's parameter dtype (``state_dtype``), so a model
+cast by ``ops/amp.py::cast_floats_for_decode`` decodes in bf16.
+
+``SimpleVAECaptionModel`` is the ``SimpleVAEModel`` ablation: one global z
+a caption, the posterior's at train with the prior fixed at ``p_logs =
+0.5``, and at eval ``z = eps·e^{0.5}`` from standard normal draws ``eps``:
+[N, E] for greedy and sample, [N·B, E] for beam, [G, N·bdash, E] for dbs
+(each group its own z a beam slot, held over the steps).
 """
 from __future__ import annotations
 
@@ -34,40 +44,28 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from acvae_tpu_torch import END_IDX, MAX_LENGTH, START_IDX
+from acvae_tpu_torch import MAX_LENGTH, START_IDX
 from acvae_tpu_torch.decoding.beam import BeamConfig, batched_beam_search
 from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
 from acvae_tpu_torch.decoding.sampling import sample_next_word
-from acvae_tpu_torch.models.common import eps_stack
+from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
+                                           eps_stack, forced_logprob,
+                                           stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
 
-_DECODE_METHODS = ("greedy", "gumbel", "sample", "beam", "dbs")
+# the eval prior's scale, e^{0.5·1} (vae_model.py:593-595), in float32
+EVAL_Z_SCALE = float(torch.exp(torch.tensor(0.5)))
 
 
-def _check_decode_method(family: str, method: str) -> None:
-    """Fail fast, naming the caller, on an unknown decode method."""
-    if method not in _DECODE_METHODS:
-        raise ValueError(
-            f"{family} does not support decode_method={method!r}; "
-            f"supported: {', '.join(_DECODE_METHODS)}")
-
-
-class VAECaptionModel(nn.Module):
-    start_idx = START_IDX
-    end_idx = END_IDX
-
+class VAECaptionModel(CaptionModel):
     def __init__(self, encoder: nn.Module, decoder: nn.Module, qnet: nn.Module,
                  pnet: nn.Module, global_constraint: bool = True,
                  max_length: int = MAX_LENGTH, device=None):
-        super().__init__()
-        self.max_length = max_length
-        if encoder.embed_size != decoder.embed_size:
-            raise NotImplementedError("the encoder->decoder `ln` adapter is not "
-                                      "ported: encoder and decoder embed sizes "
-                                      "must match")
-        self.encoder, self.decoder, self.qnet, self.pnet = (encoder, decoder,
-                                                            qnet, pnet)
+        super().__init__(encoder, decoder, max_length, device)
+        self.qnet, self.pnet = qnet, pnet
         self.global_constraint = global_constraint
+        # the bf16 decode covers the Normal prior (the JAX package's tests)
+        self.bf16_decode = not hasattr(pnet, "gmm_kernel")
         if global_constraint:
             # Hybrid_VAEModel.mean_log_out (vae_model.py:693) over the
             # mean+max pooled decoder hiddens
@@ -75,9 +73,6 @@ class VAECaptionModel(nn.Module):
                                           2 * decoder.embed_size, device=device)
             nn.init.xavier_uniform_(self.mean_log_out.weight)
             nn.init.zeros_(self.mean_log_out.bias)
-
-    def encode(self, feats, feat_lens, train: bool = False):
-        return self.encoder(feats, feat_lens, train=train)
 
     def _prep_ctx(self, encoded):
         # the memory joins the decode's dtype; a bf16 encoder output upcasts
@@ -96,13 +91,6 @@ class VAECaptionModel(nn.Module):
         d = self.decoder.step(word, dec_h, enc_mem, d_proj, enc_mask, z_fn(p),
                               train=train)
         return p, d
-
-    def forward(self, feats, feat_lens, caps=None, cap_lens=None, **kwargs):
-        """The reference's arity dispatch (vae_model.py:57-86): with captions
-        the train forward, without them the inference forward."""
-        if caps is not None:
-            return self.train_forward(feats, feat_lens, caps, cap_lens, **kwargs)
-        return self.inference_forward(feats, feat_lens, **kwargs)
 
     def train_forward(self, feats, feat_lens, caps, cap_lens,
                       ss_ratio: float = 1.0, dis_ratio: float = 0.0,
@@ -160,9 +148,15 @@ class VAECaptionModel(nn.Module):
                              ("p_means", p["mean"]), ("p_logs", p["log"]),
                              ("p_z", p["z"]), ("seqs", w_t)):
                     ys[k].append(v)
-        output = {k: torch.stack(v, dim=1) for k, v in ys.items()}
+        output = stack_steps(ys)
+        if output["p_means"].ndim == 4:
+            # GMM prior: [K, T, N, E] -> the reference buffer layout
+            # [K, N, T, E] (vae_model.py:100-101), with the mixture logits
+            output["p_means"] = output["p_means"].transpose(1, 2)
+            output["p_logs"] = output["p_logs"].transpose(1, 2)
+            output["p_mixture_logits"] = self.pnet.mixture_logits
         output.update(qnetout)
-        output["audio_embeds"] = enc_mem
+        output["audio_embeds"] = encoded.get("audio_embeds_raw", enc_mem)
         output["audio_embeds_lens"] = encoded["audio_embeds_lens"]
         if self.global_constraint:
             # Hybrid_VAEModel.stepwise_forward tail (vae_model.py:722-730)
@@ -181,7 +175,7 @@ class VAECaptionModel(nn.Module):
                           gumbel: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None,
                           **dbs_kwargs) -> Dict[str, Any]:
-        _check_decode_method("VAECaptionModel", decode_method)
+        check_decode_method("VAECaptionModel", decode_method)
         with record_function("encoder"):
             encoded = self.encode(feats, feat_lens, train=False)
         return self.inference_from_encoded(
@@ -196,8 +190,11 @@ class VAECaptionModel(nn.Module):
                                eps: Optional[torch.Tensor] = None,
                                gumbel: Optional[torch.Tensor] = None,
                                generator: Optional[torch.Generator] = None,
+                               apply_ln: bool = False,
                                **dbs_kwargs) -> Dict[str, Any]:
-        """Decode from a precomputed encoder dict.  ``eps`` is the prior
+        """Decode from a precomputed encoder dict (``apply_ln`` runs the
+        encoder->decoder adapter on a raw encoding, such as the int8
+        encoder's).  ``eps`` is the prior
         noise ([T, N·B, E] for beam, [G, T+G-1, N·bdash, E] for dbs, [T, N,
         E] otherwise) and ``gumbel`` the per-step Gumbel draws [T, N, V] of
         ``gumbel``/``sample``; what is not given is drawn from
@@ -205,8 +202,10 @@ class VAECaptionModel(nn.Module):
         ``diversity_lambda``, ``temperature``, ``group_nbest``) reach the
         dbs decode; the other methods ignore them, as the JAX package's
         do."""
-        _check_decode_method("VAECaptionModel", decode_method)
+        check_decode_method("VAECaptionModel", decode_method)
         max_length = max_length or self.max_length
+        if apply_ln:
+            encoded = self.apply_ln(encoded)
         if decode_method == "dbs":
             return self.diverse_beam_search(encoded, max_length, beam_size,
                                             eps=eps, generator=generator,
@@ -257,7 +256,32 @@ class VAECaptionModel(nn.Module):
                              ("p_z", p["z"]), ("seqs", w_t),
                              ("sampled_logprobs", lp_t)):
                     ys[k].append(v)
-        return {k: torch.stack(v, dim=1) for k, v in ys.items()}
+        return stack_steps(ys)
+
+    @torch.inference_mode()
+    def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor,
+                      eps: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+        """Feed ``given_seqs`` [N, T] as the words and return their
+        log-probabilities, with the prior noise ``eps`` [T, N, E] of the
+        stepwise decode they replay (vae.py:397-434)."""
+        encoded = self.encode(feats, feat_lens, train=False)
+        enc_mem, enc_mask, p_proj, d_proj = self._prep_ctx(encoded)
+        N, T = given_seqs.shape
+        dev = enc_mem.device
+        eps = self._prior_noise(eps, T, N, generator, dev)
+        dec_h, p_state, last_z = self.init_decode_state(N, dev)
+        word = torch.full((N,), self.start_idx, dtype=torch.long, device=dev)
+        lps = []
+        for t in range(T):
+            p, d = self._step_pair(word, dec_h, p_state, last_z, eps[t],
+                                   lambda p: p["z"], enc_mem, enc_mask,
+                                   p_proj, d_proj)
+            word = given_seqs[:, t].to(dev).long()
+            lps.append(forced_logprob(d["logits"], word))
+            dec_h, p_state, last_z = d["state"], p["state"], p["z"]
+        return {"sampled_logprobs": torch.stack(lps, dim=1), "seqs": given_seqs}
 
     def beam_search(self, encoded, max_length: int, beam_size: int,
                     eps: Optional[torch.Tensor] = None,
@@ -345,3 +369,163 @@ class VAECaptionModel(nn.Module):
                                lambda p: p["z"], enc_mem, enc_mask, p_proj,
                                d_proj)
         return d["logits"], (d["state"], p["state"], p["z"])
+
+
+class SimpleVAECaptionModel(CaptionModel):
+    """SimpleVAEModel (vae_model.py:366-672): one global latent a caption,
+    the same z at every decoder step."""
+    bf16_decode = False
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module, qnet: nn.Module,
+                 max_length: int = MAX_LENGTH, device=None):
+        super().__init__(encoder, decoder, max_length, device)
+        self.qnet = qnet
+
+    def _ctx(self, encoded):
+        enc_mem = encoded["audio_embeds"].to(self.decoder.state_dtype())
+        enc_mask = length_mask(encoded["audio_embeds_lens"], enc_mem.shape[1])
+        return enc_mem, enc_mask, self.decoder.project_enc(enc_mem)
+
+    def _decode_with_z(self, ctx, z, T: int, method: str = "greedy",
+                       temp: float = 1.0, caps=None, ss_coins=None,
+                       gumbel=None, generator=None, train: bool = False):
+        """The decoder over T steps with z [N, E] at each; with ``caps`` the
+        teacher word wherever ``ss_coins`` [T] holds, else the finished
+        mask of the inference decode."""
+        enc_mem, enc_mask, d_proj = ctx
+        N, dev = enc_mem.shape[0], enc_mem.device
+        z = z.to(self.decoder.state_dtype())
+        h = self.decoder.init_state(N, dev, self.decoder.state_dtype())
+        word = torch.full((N,), self.start_idx, dtype=torch.long, device=dev)
+        finished = torch.zeros((N,), dtype=torch.bool, device=dev)
+        ys = {k: [] for k in ("logits", "output", "seqs", "sampled_logprobs")}
+        with record_function("decode_loop"):
+            for t in range(T):
+                if caps is not None:
+                    word = torch.where(ss_coins[t], caps[:, t].long(), word)
+                d = self.decoder.step(word, h, enc_mem, d_proj, enc_mask, z,
+                                      train=train)
+                w_t, lp_t = sample_next_word(
+                    d["logits"], method, temp,
+                    gumbel=None if gumbel is None else gumbel[t],
+                    generator=generator)
+                if caps is None:
+                    w_t = torch.where(finished, self.end_idx, w_t)
+                    finished = finished | (w_t == self.end_idx)
+                h, word = d["state"], w_t
+                for k, v in (("logits", d["logits"]), ("output", d["output"]),
+                             ("seqs", w_t), ("sampled_logprobs", lp_t)):
+                    ys[k].append(v)
+        return stack_steps(ys)
+
+    def train_forward(self, feats, feat_lens, caps, cap_lens,
+                      ss_ratio: float = 1.0, dis_ratio: float = 0.0,
+                      train: bool = True, noise: Optional[Dict] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+        """The posterior z at every step (vae_model.py:458-459); ``noise``:
+        ``q_eps`` [N, E], ``p_eps`` [N, E], ``ss_coins`` [T]."""
+        N, L = caps.shape
+        E, dev = self.decoder.embed_size, caps.device
+        noise = noise or {}
+        draw = lambda k, shape: (noise[k] if k in noise else torch.randn(  # noqa: E731
+            shape, generator=generator, device=dev)).to(dev)
+        with record_function("encoder"):
+            encoded = self.encode(feats, feat_lens, train)
+        with record_function("posterior"):
+            qnetout = self.qnet(caps, cap_lens, draw("q_eps", (N, E)))
+        ss_coins = noise.get("ss_coins")
+        if ss_coins is None:
+            ss_coins = torch.rand((L - 1,), generator=generator, device=dev) < ss_ratio
+        out = self._decode_with_z(self._ctx(encoded), qnetout["q_z"], L - 1,
+                                  caps=caps, ss_coins=ss_coins.to(dev),
+                                  train=train)
+        out.update(qnetout)
+        # the fixed train prior (vae_model.py:491-494)
+        out["p_means"] = torch.zeros((N, E), device=dev)
+        out["p_logs"] = torch.full((N, E), 0.5, device=dev)
+        out["p_z"] = draw("p_eps", (N, E)) * torch.exp(out["p_logs"] * 0.5)
+        return out
+
+    @torch.inference_mode()
+    def inference_forward(self, feats, feat_lens, decode_method: str = "greedy",
+                          max_length: Optional[int] = None, beam_size: int = 3,
+                          temp: float = 1.0, eps: Optional[torch.Tensor] = None,
+                          gumbel: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          **dbs_kwargs) -> Dict[str, Any]:
+        check_decode_method("SimpleVAECaptionModel", decode_method)
+        with record_function("encoder"):
+            encoded = self.encode(feats, feat_lens, train=False)
+        return self._decode(encoded, decode_method, max_length, beam_size,
+                            temp, eps, gumbel, generator, **dbs_kwargs)
+
+    def _z(self, eps, shape, generator, dev):
+        """The eval prior's z from standard normal draws ``eps``."""
+        if eps is None:
+            eps = torch.randn(shape, generator=generator, device=dev)
+        return eps.to(dev).float() * EVAL_Z_SCALE
+
+    def _decode(self, encoded, decode_method, max_length=None, beam_size=3,
+                temp=1.0, eps=None, gumbel=None, generator=None,
+                **dbs_kwargs):
+        max_length = max_length or self.max_length
+        ctx = self._ctx(encoded)
+        enc_mem, enc_mask, d_proj = ctx
+        N, E, dev = enc_mem.shape[0], self.decoder.embed_size, enc_mem.device
+        dt = self.decoder.state_dtype()
+        if decode_method == "beam":
+            z = self._z(eps, (N * beam_size, E), generator, dev).to(dt)
+
+            def step_fn(state, words, t):
+                d = self.decoder.step(words, state, enc_mem, d_proj, enc_mask, z)
+                return d["logits"], d["state"]
+            cfg = BeamConfig(beam_size=beam_size, max_length=max_length,
+                             start_idx=self.start_idx, end_idx=self.end_idx)
+            with record_function("decode_loop"):
+                return batched_beam_search(
+                    step_fn, self.decoder.init_state(N * beam_size, dev, dt),
+                    N, cfg)
+        if decode_method == "dbs":
+            dbs_kwargs.setdefault("group_size", 5)
+            cfg = DBSConfig(beam_size=beam_size, max_length=max_length,
+                            start_idx=self.start_idx, end_idx=self.end_idx,
+                            **dbs_kwargs)
+            NB = N * dbs_bdash(beam_size, cfg.group_size)
+            zg = self._z(eps, (cfg.group_size, NB, E), generator, dev).to(dt)
+
+            def make_step_fn(g):
+                def step_fn(state, words, t):
+                    d = self.decoder.step(words, state, enc_mem, d_proj,
+                                          enc_mask, zg[g])
+                    return d["logits"], d["state"]
+                return step_fn
+            with record_function("decode_loop"):
+                return diverse_beam_search(
+                    make_step_fn, lambda: self.decoder.init_state(NB, dev, dt),
+                    N, cfg)
+        return self._decode_with_z(ctx, self._z(eps, (N, E), generator, dev),
+                                   max_length, decode_method, temp,
+                                   gumbel=gumbel, generator=generator)
+
+    @torch.inference_mode()
+    def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor,
+                      eps: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Dict[str, Any]:
+        """Score ``given_seqs`` [N, T] under the global z of the eval prior
+        from ``eps`` [N, E] (the rollout's draw)."""
+        enc_mem, enc_mask, d_proj = self._ctx(self.encode(feats, feat_lens))
+        N, T = given_seqs.shape
+        dev = enc_mem.device
+        z = self._z(eps, (N, self.decoder.embed_size), generator, dev).to(
+            self.decoder.state_dtype())
+        h = self.decoder.init_state(N, dev, self.decoder.state_dtype())
+        word = torch.full((N,), self.start_idx, dtype=torch.long, device=dev)
+        lps = []
+        for t in range(T):
+            d = self.decoder.step(word, h, enc_mem, d_proj, enc_mask, z)
+            word = given_seqs[:, t].to(dev).long()
+            lps.append(forced_logprob(d["logits"], word))
+            h = d["state"]
+        return {"sampled_logprobs": torch.stack(lps, dim=1), "seqs": given_seqs}

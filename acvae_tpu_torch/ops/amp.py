@@ -24,7 +24,15 @@ import torch.nn as nn
 
 def cast_floats_for_decode(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """A copy of ``model`` with every float parameter cast to ``dtype`` and
-    every buffer left as it is."""
+    every buffer left as it is.  A family whose ``bf16_decode`` is false
+    (the JAX package's bf16 tests leave it out: the GMM prior, SimpleVAE)
+    raises."""
+    if not model.bf16_decode:
+        raise ValueError(f"decode_dtype={dtype} is not supported for this "
+                         f"{type(model).__name__} (the bf16 decode covers the "
+                         f"Normal-prior VAEs, TransVAEModel, Seq2SeqAttnModel "
+                         f"and TransformerModel; not a GMM prior or "
+                         f"SimpleVAEModel)")
     out = copy.deepcopy(model)
     for p in out.parameters():
         if p.is_floating_point():

@@ -1,4 +1,4 @@
-"""Caption losses (counterpart of ``acvae_tpu/ops/losses.py:29-99``).
+"""Caption losses (counterpart of ``acvae_tpu/ops/losses.py:29-118``).
 
 Masked means divide by ``max(Σmask, 1)``; ``mask=None`` averages over every
 position, like the reference call site (pytorch_runner_vae.py:315).
@@ -71,3 +71,19 @@ def normal_kl_per_dim(mu_q: torch.Tensor, logvar_q: torch.Tensor,
     m = mask.to(kl.dtype)[..., None]
     flat_kl = (kl * m).reshape(-1, kl.shape[-1])
     return torch.sum(flat_kl, dim=0) / torch.clamp_min(torch.sum(m), 1.0)
+
+
+def gmm_kl_loss(mu_q: torch.Tensor, logvar_q: torch.Tensor,
+                logits_c_q: torch.Tensor, mu_p: torch.Tensor,
+                logvar_p: torch.Tensor, logits_c_p: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mixture-of-Gaussians KL upper bound (utils/train_util.py:273-291):
+    ``KL(c_q‖c_p) + masked mean of Σ_k c_q[k]·KL(q‖p_k)``.  mu/logvar:
+    [K, ..., E] (the posterior's broadcast over K); logits_c: [K]."""
+    c_q = torch.softmax(logits_c_q, dim=0)
+    c_p = torch.softmax(logits_c_p, dim=0)
+    kl_i = _normal_kl(mu_q, logvar_q, mu_p, logvar_p)
+    kl_c = torch.sum(c_q * (torch.log(c_q) - torch.log(c_p)))
+    c = c_q.reshape((c_q.shape[0],) + (1,) * (kl_i.ndim - 1))
+    kl = torch.sum(torch.sum(c * kl_i, dim=0), dim=-1)
+    return kl_c + _masked_mean(kl, mask)

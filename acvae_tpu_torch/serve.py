@@ -50,11 +50,11 @@ import numpy as np
 import torch
 
 from acvae_tpu_torch import DEFAULT_DEVICE
-from acvae_tpu_torch.decoding.ensemble import ensemble_decode
+from acvae_tpu_torch.decoding.ensemble import check_step_api, ensemble_decode
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, SCHEMES,
                                           int8_decode_fn, quant_encoder_for,
                                           scheme_kwargs)
-from acvae_tpu_torch.models.vae import _check_decode_method
+from acvae_tpu_torch.models.common import check_decode_method
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
 from acvae_tpu_torch.train.checkpoints import load_experiment
 
@@ -110,7 +110,7 @@ class CaptionService:
         elif exported is not None:
             raise NotImplementedError("serving an exported artifact is not "
                                       "ported (ROADMAP A18, torch.export)")
-        _check_decode_method("CaptionService", decode_method)
+        check_decode_method("CaptionService", decode_method)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CaptionService(device='cuda') needs a CUDA "
@@ -166,6 +166,7 @@ class CaptionService:
                     f"ensemble members must share the mel dim; {p} has "
                     f"{conf.get('data_dim')} vs {self.data_dim}")
             self.members.append(model)
+        check_step_api(self.members)
 
     def validate(self, mel) -> np.ndarray:
         """Shape-check one request's mel, per request and before batching,

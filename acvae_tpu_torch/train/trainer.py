@@ -1,11 +1,14 @@
-"""The flagship train step (counterpart of ``acvae_tpu/train/trainer.py:127-181,
+"""The train step (counterpart of ``acvae_tpu/train/trainer.py:127-181,
 184-384`` and the per-iteration bookkeeping of ``acvae_tpu/cli/main.py:523-553``).
 
 One step: on-device SpecAugment (the time warp runs the CUDA kernel) ->
-teacher-forced forward -> label-smoothed CE over valid tokens
-+ kl_weight · masked Normal KL + α · MSE global constraint -> global-norm
-clip -> Adam at the scheduled learning rate.  BatchNorm statistics update
-during the forward, flax-style.  Each phase is a ``record_function`` range
+teacher-forced forward -> label-smoothed CE over valid tokens, then by
+family: nothing more for the plain captioners; + kl_weight · the mixture
+bound (``gmm_kl_loss``) for a GMM prior; + kl_weight · the Normal KL
+otherwise (masked to valid tokens, unmasked for SimpleVAE's one latent a
+clip); + α · MSE global constraint where the model returns
+``p_means_utt`` -> global-norm clip -> Adam at the scheduled learning rate.
+BatchNorm statistics update during the forward, flax-style.  Each phase is a ``record_function`` range
 (augment / forward / backward / optimizer) that a torch.profiler trace
 reads; the ranges cost nothing when no profiler runs.  The augment runs before the loss and
 gradients are taken with respect to parameters only, so the warp needs no
@@ -23,8 +26,9 @@ from torch.profiler import record_function
 
 from acvae_tpu_torch import DEFAULT_DEVICE
 from acvae_tpu_torch.models.build import build_model
-from acvae_tpu_torch.ops.losses import (label_smoothing_loss, normal_kl_loss,
-                                        normal_kl_per_dim, cross_entropy)
+from acvae_tpu_torch.ops.losses import (cross_entropy, gmm_kl_loss,
+                                        label_smoothing_loss, normal_kl_loss,
+                                        normal_kl_per_dim)
 from acvae_tpu_torch.ops.masked import length_mask
 from acvae_tpu_torch.ops.specaug import build_augment
 from acvae_tpu_torch.train.schedules import (build_schedule,
@@ -36,6 +40,24 @@ from acvae_tpu_torch.train.schedules import (build_schedule,
 UNPORTED_KEYS = ("adverse_loss", "embedding_loss", "free_bits", "use_aug_prob",
                  "kl_anneal", "accum_steps", "distributed", "pretrained_encoder",
                  "pretrained_word_embedding", "freeze_word_embedding")
+# the schedule keys a recipe may leave out, at the JAX CLI's defaults
+# (acvae_tpu/cli/main.py:45-55)
+RATIO_DEFAULTS = {
+    "beta": 0.5,
+    "ss_args": {"ss_mode": "exponential", "ss_ratio": 1.0, "final_ss_ratio": 0.7},
+    "dis_ration": {"freeze_epoch": 10, "final_ratio": 0.3},
+}
+
+
+def check_free_bits(conf: Dict[str, Any]) -> None:
+    """``free_bits`` with a GMM prior raises the JAX package's ValueError
+    (trainer.py:268-272), ahead of the NotImplementedError of the key
+    itself (ROADMAP A17)."""
+    if (conf.get("free_bits") is not None
+            and conf.get("model_args", {}).get("prior_model") == "GMMPriorRNN"):
+        raise ValueError(
+            "free_bits requires a Normal prior (per-dim KL decomposition); the "
+            "GMM mixture bound has none — unset free_bits for GMM-prior configs")
 
 
 def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
@@ -43,10 +65,12 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
                  smoothing: Optional[float] = 0.1, kl_mask: str = "valid",
                  noise: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None):
-    """Forward + the flagship loss mix; returns (loss, metrics).
+    """Forward + the family's loss mix; returns (loss, metrics).
 
     ``smoothing=None`` uses plain CE.  ``kl_mask`` is "valid" (mask the KL
-    to real tokens) or "reference" (mean over padded positions too)."""
+    to real tokens) or "reference" (mean over padded positions too).  The
+    posterior-collapse diagnostics (``active_units``, ``kl_dim_max``,
+    ``qp_mse``) come with the Normal KL only."""
     caps, cap_lens = batch["caps"], batch["cap_lens"]
     out = model.train_forward(batch["feats"], batch["feat_lens"], caps,
                               cap_lens, ss_ratio=ss_ratio, dis_ratio=dis_ratio,
@@ -57,22 +81,35 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
         ce = cross_entropy(out["logits"], targets, mask)
     else:
         ce = label_smoothing_loss(out["logits"], targets, smoothing, mask)
-    km = mask if kl_mask == "valid" else None
-    q_m, q_l, p_m, p_l = (out["q_means"], out["q_logs"], out["p_means"],
-                          out["p_logs"])
-    kl = normal_kl_loss(q_m, q_l, p_m, p_l, km)
-    with torch.no_grad():
-        kl_d = normal_kl_per_dim(q_m, q_l, p_m, p_l, km)
-        qp_sq = torch.mean((q_m - p_m) ** 2, dim=-1)
-        if km is None:
-            qp_mse = qp_sq.mean()
+    metrics = {"ce": ce}
+    loss = ce
+    if "q_means" in out:
+        km = mask if kl_mask == "valid" else None
+        q_m, q_l, p_m, p_l = (out["q_means"], out["q_logs"], out["p_means"],
+                              out["p_logs"])
+        if q_m.ndim < 3:      # SimpleVAE: one latent a clip, unmasked
+            km = None
+        if p_m.ndim == q_m.ndim + 1:
+            # GMM prior: the mixture upper bound with the prior's logits as
+            # both weights, so the categorical term is zero
+            c_p = out["p_mixture_logits"]
+            kl = gmm_kl_loss(q_m, q_l, c_p, p_m, p_l, c_p, km)
         else:
-            kmf = km.to(qp_sq.dtype)
-            qp_mse = torch.sum(qp_sq * kmf) / torch.clamp_min(kmf.sum(), 1.0)
-    loss = ce + kl_weight * kl
-    metrics = {"ce": ce, "kl": kl, "active_units": (kl_d > 0.01).float().sum(),
-               "kl_dim_max": kl_d.max(), "qp_mse": qp_mse}
-    if alpha is not None:
+            kl = normal_kl_loss(q_m, q_l, p_m, p_l, km)
+            with torch.no_grad():
+                kl_d = normal_kl_per_dim(q_m, q_l, p_m, p_l, km)
+                qp_sq = torch.mean((q_m - p_m) ** 2, dim=-1)
+                if km is None:
+                    qp_mse = qp_sq.mean()
+                else:
+                    kmf = km.to(qp_sq.dtype)
+                    qp_mse = torch.sum(qp_sq * kmf) / torch.clamp_min(kmf.sum(),
+                                                                      1.0)
+            metrics.update(active_units=(kl_d > 0.01).float().sum(),
+                           kl_dim_max=kl_d.max(), qp_mse=qp_mse)
+        loss = loss + kl_weight * kl
+        metrics["kl"] = kl
+    if alpha is not None and "p_means_utt" in out:
         g = torch.mean((out["q_means_utt"] - out["p_means_utt"]) ** 2)
         loss = loss + alpha * g
         metrics["global"] = g
@@ -105,7 +142,7 @@ def apply_gradients(optimizer: torch.optim.Optimizer, lr: float,
 
 
 class Trainer:
-    """Builds the flagship model, Adam, the LR schedule and the augment from
+    """Builds the model, Adam, the LR schedule and the augment from
     ``conf``; :meth:`step` runs one train step.
 
     ``total_iters`` (``len(train_loader) × epochs``, as the CLI works it
@@ -116,6 +153,7 @@ class Trainer:
 
     def __init__(self, conf: Dict[str, Any], vocab_size: int, data_dim: int,
                  device=DEFAULT_DEVICE, *, total_iters: int):
+        check_free_bits(conf)
         for key in UNPORTED_KEYS:
             if conf.get(key):
                 raise NotImplementedError(f"config key {key!r} is not ported")
@@ -177,15 +215,14 @@ class Trainer:
     def ratios(self, iteration: int, epoch: int) -> Dict[str, float]:
         """ss_ratio, dis_ratio and kl_weight for this iteration and epoch
         (cli/main.py:523-553, reference KL annealing)."""
-        c = self.conf
-        ss = c["ss_args"]
+        c = dict(RATIO_DEFAULTS, **self.conf)
+        ss, dis = c["ss_args"], c["dis_ration"]
         return {
             "ss_ratio": ss_ratio_at(iteration, ss["ss_ratio"], ss["ss_mode"],
                                     self.total_iters,
                                     ss.get("final_ss_ratio", 0.7)),
             "dis_ratio": dis_ratio_for_epoch(
-                epoch, c["epochs"], c["dis_ration"]["freeze_epoch"],
-                c["dis_ration"]["final_ratio"]),
+                epoch, c["epochs"], dis["freeze_epoch"], dis["final_ratio"]),
             "kl_weight": kl_weight_for_epoch(epoch, c["epochs"], c["beta"]),
         }
 

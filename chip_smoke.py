@@ -84,9 +84,28 @@ Phases, each of which exits nonzero on failure:
    two-member ensemble, with bf16 decode parameters and with bf16 uploads,
    16 clips each.
 
+12. families: the six other recipes of ``configs/`` (``vae``, ``gmm_vae``,
+   ``simple_vae``, ``trans_vae``, ``attn_rnn_xe``, ``xe_baseline``).  (a)
+   Each at a small size on the card against the CPU, same weights and
+   noise: greedy and beam-3 tokens identical, dbs (beam 4, 2 groups) tokens
+   identical, ``forced_decode`` log-probs within 1e-4.  (b) Each at its
+   recipe's full width (Cnn10 64->512, embed 512; the transformers 2 layers,
+   4 heads, FFN 2048; vocab 4981): 3 ``Trainer`` steps at batch 32, T_mel
+   1024 ragged, with ``augments: [timewarp, timemask, freqmask]`` (3
+   ``time_warp_1d`` launches a family; the median ms of steps 2-3), then one
+   warm-up and one timed beam-3 batch of 512 clips at T_mel 1024, max_length
+   20: captions/s and the encoder / loop split.  (c) The int8 v2sym encoder
+   of ``vae`` and ``gmm_vae`` (bn0 calibration on the card) at batch 512:
+   one warm-up and one timed beam-3 batch, 8 ``conv3x3_i8`` and 3
+   ``avgpool2x2_i8`` a batch, and the card's codes at every quantize point
+   against the CPU's on 2 clips.  (d) The CLI on phase 10's corpus: 1 epoch
+   of ``train`` for ``vae.yaml``, ``trans_vae.yaml`` and
+   ``xe_baseline.yaml`` with the time warp, then ``evaluate`` at beam 3
+   (and ``--encoder_int8`` for ``vae.yaml``).
+
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse).  Prints a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all five),
+serve, cli, diverse, families).  Prints a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all six),
 then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
@@ -130,7 +149,7 @@ CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
                (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
                (128, 8, 256, 512), (128, 8, 512, 512)]
 POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
-PATHS = ("train", "serve", "int8_serve", "cli", "diverse")
+PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -1571,6 +1590,281 @@ def diverse_services(exp):
     return read_counts()
 
 
+# ---------------------------------------------------------------------- #
+# phase 12: the other model families
+# ---------------------------------------------------------------------- #
+FAMILIES = ("vae", "gmm_vae", "simple_vae", "trans_vae", "attn_rnn_xe",
+            "xe_baseline")
+FAM_STEPS = 3
+CONFIGS = Path(__file__).resolve().parent / "configs"
+
+
+def recipe_conf(recipe, small=False):
+    """``configs/<recipe>.yaml`` with the time warp on; ``small`` cuts it to
+    Cnn10 4-8-8-16, embed 16 and no dropout (the card-vs-CPU checks)."""
+    from acvae_tpu_torch.core.config import load_config
+    conf = json.loads(json.dumps(load_config(str(CONFIGS / f"{recipe}.yaml"))))
+    conf.update(augments=["timewarp", "timemask", "freqmask"], data_dim=DATA_DIM)
+    if small:
+        conf["encoder_args"] = {"embed_size": 16, "channels": [4, 8, 8, 16],
+                                "conv_dropout": 0.0, "head_dropout": 0.0}
+        dec = dict(conf["decoder_args"], embed_size=16, dropout=0.0)
+        dec.update(dict(nhead=2, hidden_size=32) if "nhead" in dec
+                   else dict(hidden_size=16))
+        conf["decoder_args"] = dec
+        for key in ("posterior_args", "prior_args"):
+            if key in conf.get("model_args", {}):
+                conf["model_args"][key]["hidden_size"] = 12
+    return conf
+
+
+def family_noise(model, recipe, method, N, T, g, beam=3, groups=2):
+    """The prior draws a decode of ``recipe`` takes, on the CPU (None for
+    the plain captioners)."""
+    E = model.decoder.embed_size
+    if recipe in ("attn_rnn_xe", "xe_baseline"):
+        return None
+    rows = {"beam": N * beam, "dbs": N * (beam // groups)}.get(method, N)
+    if recipe == "simple_vae":
+        return torch.randn((groups, rows, E) if method == "dbs" else (rows, E),
+                           generator=g)
+    if method == "dbs":
+        return torch.randn((groups, T + groups - 1, rows, E), generator=g)
+    return torch.randn((T, rows, E), generator=g)
+
+
+def families_parity():
+    """(a) Card against CPU at a small size, same weights and noise."""
+    from acvae_tpu_torch.models.build import build_model
+
+    V, N, F, T = 25, 3, 16, 8
+    rng = np.random.default_rng(41)
+    feats = torch.tensor(rng.normal(size=(N, 64, F)).astype(np.float32))
+    lens = torch.tensor([64, 48, 33])
+    for recipe in FAMILIES:
+        conf = recipe_conf(recipe, small=True)
+        torch.manual_seed(41)
+        cpu = build_model(conf, V, F, device="cpu")
+        gpu = build_model(conf, V, F, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        g = torch.Generator().manual_seed(41)
+        report = []
+        for method, kw in (("greedy", {}), ("beam", {"beam_size": 3}),
+                           ("dbs", {"beam_size": 4, "group_size": 2,
+                                    "diversity_lambda": 0.5})):
+            eps = family_noise(cpu, recipe, method, N, T, g,
+                               beam=kw.get("beam_size", 3))
+            outs = [m.inference_forward(
+                feats.to(d), lens.to(d), decode_method=method, max_length=T,
+                eps=None if eps is None else eps.to(d), **kw)
+                for m, d in ((gpu, "cuda"), (cpu, "cpu"))]
+            same = torch.equal(outs[0]["seqs"].cpu(), outs[1]["seqs"])
+            report.append(f"{method} identical {same}")
+            check(same, f"families {recipe}: {method} tokens differ between "
+                        f"the card and the CPU")
+            if method == "greedy":
+                seqs, g_eps = outs[1]["seqs"], eps
+        forced = [m.forced_decode(feats.to(d), lens.to(d), seqs.to(d),
+                                  eps=None if g_eps is None else g_eps.to(d))
+                  ["sampled_logprobs"].cpu() for m, d in ((gpu, "cuda"),
+                                                          (cpu, "cpu"))]
+        err = (forced[0] - forced[1]).abs().max().item()
+        print(f"families parity {recipe} ({type(cpu).__name__}): "
+              f"{', '.join(report)}; forced_decode max |dlogprob| {err:.2e}")
+        check(err <= 1e-4, f"families {recipe}: forced_decode log-probs "
+                           f"differ by {err} between the card and the CPU")
+
+
+def family_rate(recipe, model, vocab):
+    """(b) One warm-up and one timed beam-3 batch of DEC_BATCH clips; then
+    one more split into the encoder and the search.  Returns captions/s."""
+    g = torch.Generator("cuda").manual_seed(11)
+    feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
+    lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = model.inference_forward(feats, lens, generator=g, **BEAM_KW)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    seqs, scores = out["seqs"], out["scores"]
+    check(tuple(seqs.shape) == (DEC_BATCH, BEAM, MAX_LEN)
+          and bool(((seqs >= 0) & (seqs < VOCAB)).all())
+          and bool(torch.isfinite(scores).all()),
+          f"{recipe}: beam output {tuple(seqs.shape)}")
+    decode = (getattr(model, "inference_from_encoded", None) or model._decode)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = model.encode(feats, lens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode(enc, generator=g, **BEAM_KW)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    rate = DEC_BATCH / (ms[1] / 1e3)
+    print(f"families {recipe} beam 3, batch {DEC_BATCH}: {rate:.1f} captions/s "
+          f"(timed batch {ms[1]:.1f} ms, warm-up {ms[0]:.1f}); split encoder "
+          f"{(t1 - t0) * 1e3:.1f} ms / loop {(t2 - t1) * 1e3:.1f} ms "
+          f"({(t2 - t1) / (t2 - t0):.2f} of the batch); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; first caption "
+          f"{' '.join(vocab.decode(seqs[0, 0].cpu().numpy()))!r} ({SMI})")
+    return rate
+
+
+def family_int8(recipe, conf, model):
+    """(c) The v2sym int8 encoder in front of the family's beam-3 decode at
+    batch 512 (8 + 3 launches a batch), and its codes card vs CPU."""
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+    quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
+    q_cpu = copy.deepcopy(quant).to("cpu")
+    rng = np.random.default_rng(43)
+    x = torch.tensor(rng.normal(size=(2, 256, DATA_DIM)).astype(np.float32))
+    xl = torch.tensor([256, 200])
+    codes_gpu, codes_cpu = [], []
+    with torch.inference_mode():
+        quant(x.to("cuda"), xl.to("cuda"), codes=codes_gpu)
+        q_cpu(x, xl, codes=codes_cpu)
+    flipped = [int((a.cpu() != b).sum()) for a, b in zip(codes_gpu, codes_cpu)]
+    check(len(flipped) == 8 and sum(flipped) == 0,
+          f"families {recipe} int8: codes differ card vs CPU {flipped}")
+    int8 = int8_decode_fn(model, quant, **BEAM_KW)
+    g = torch.Generator("cuda").manual_seed(11)
+    feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
+    lens = torch.full((DEC_BATCH,), T_MEL, device="cuda")
+    reset_counts()
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = int8(feats, lens, generator=g)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    check(counts["conv3x3_i8"] == 16 and counts["avgpool2x2_i8"] == 6
+          and counts["time_warp_1d"] == 0,
+          f"families {recipe} int8: launches {counts} in 2 batches (expected "
+          f"8 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+    check(bool(((out["seqs"] >= 0) & (out["seqs"] < VOCAB)).all()),
+          f"families {recipe} int8: a token outside the vocab")
+    print(f"families {recipe} int8 v2sym beam 3, batch {DEC_BATCH}: "
+          f"{DEC_BATCH / (ms[1] / 1e3):.1f} captions/s (timed batch "
+          f"{ms[1]:.1f} ms); codes card vs CPU differ at {flipped}; launches "
+          f"{counts} ({SMI})")
+    return counts
+
+
+def families_full_width():
+    """(b), (c): train steps, the beam-3 rate and, for the two int8
+    families, the int8 decode; returns the launches."""
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    vocab = flagship_vocab()
+    total = dict.fromkeys(kernel_fns(), 0)
+    epoch = 12
+    it0 = ITERS_PER_EPOCH * (epoch - 1)
+    for recipe in FAMILIES:
+        conf = recipe_conf(recipe)
+        torch.manual_seed(7)
+        trainer = Trainer(conf, VOCAB, DATA_DIM, device="cuda",
+                          total_iters=ITERS_PER_EPOCH * EPOCHS)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        rng = np.random.default_rng(1)
+        reset_counts()
+        step_ms = []
+        for i in range(FAM_STEPS):
+            batch = make_batch(rng)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.step(batch, it0 + 1 + i, epoch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            vals = {k: float(v) for k, v in m.items()}
+            check(all(math.isfinite(v) for v in vals.values()),
+                  f"families {recipe}: non-finite metric at step {i + 1}: {vals}")
+        counts = read_counts()
+        check(counts["time_warp_1d"] == FAM_STEPS,
+              f"families {recipe}: time_warp_1d launched "
+              f"{counts['time_warp_1d']} times in {FAM_STEPS} steps")
+        total["time_warp_1d"] += counts["time_warp_1d"]
+        print(f"families {recipe} ({type(trainer.model).__name__}, {n_params} "
+              f"params) train: step ms {', '.join(f'{t:.1f}' for t in step_ms)}"
+              f"; median of steps 2-{FAM_STEPS} "
+              f"{statistics.median(step_ms[1:]):.1f}; loss {vals['loss']:.4f}; "
+              + ", ".join(f"{k} {vals[k]:.4f}" for k in ("ce", "kl")
+                          if k in vals) + f"; launches {counts} ({SMI})")
+        model = trainer.model.eval()
+        del trainer
+        family_rate(recipe, model, vocab)
+        if hasattr(model, "inference_from_encoded"):
+            for k, v in family_int8(recipe, conf, model).items():
+                total[k] += v
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def families_cli(tmp):
+    """(d) train (1 epoch) and evaluate through the CLI on phase 10's
+    corpus for three recipes; returns the launches."""
+    from acvae_tpu_torch.cli import main as cli
+
+    total = dict.fromkeys(kernel_fns(), 0)
+    for recipe in ("vae", "trans_vae", "xe_baseline"):
+        reset_counts()
+        t0 = time.perf_counter()
+        exp = Path(cli.main([
+            "train", str(CONFIGS / f"{recipe}.yaml"), f"--h5_csv={tmp}/mels.csv",
+            f"--caption_file={tmp}/text.json", f"--vocab_file={tmp}/vocab.pkl",
+            f"--outputpath={tmp}/families", "--epochs=1",
+            "--augments=[timewarp,timemask,freqmask]"]))
+        train_s = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts["time_warp_1d"] == CLI_ITERS,
+              f"families cli {recipe}: time_warp_1d launched "
+              f"{counts['time_warp_1d']} times in {CLI_ITERS} iterations")
+        m = json.loads((exp / "metrics.jsonl").read_text().splitlines()[-1])
+        check(math.isfinite(m["train_loss"]), f"families cli {recipe}: {m}")
+        line = (f"families cli {recipe}: train 1 epoch ({CLI_ITERS} iterations)"
+                f" {train_s:.1f} s, epoch wall {m['epoch_wall_s']:.2f} s, loss "
+                f"{m['train_loss']:.4f}, val CIDEr {m['val_cider']:.4f}")
+        for extra in ([], ["--encoder_int8"]) if recipe == "vae" else ([],):
+            before = read_counts()
+            t0 = time.perf_counter()
+            scores = cli.main(["evaluate", str(exp),
+                               f"--eval_caption_file={tmp}/text.json"] + extra)
+            wall = time.perf_counter() - t0
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+                  f"families cli {recipe} evaluate {extra}: {scores}")
+            want = ((8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra
+                    else (0, 0))
+            check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want,
+                  f"families cli {recipe} evaluate {extra}: launches {got}, "
+                  f"expected {want} (the calibration launches none)")
+            line += (f"; evaluate{' int8' if extra else ''} {wall:.2f} s "
+                     f"({CLI_AUDIOS / wall:.1f} clips/s with load and scoring), "
+                     f"CIDEr {scores['CIDEr']:.4f}")
+        print(line + f" ({SMI})")
+        for k, v in read_counts().items():
+            total[k] += v
+    return total
+
+
+def families_phase(tmp):
+    """Phase 12; returns the kernel launches of (b)-(d)."""
+    families_parity()
+    total = dict.fromkeys(kernel_fns(), 0)
+    for counts in (families_full_width(), families_cli(tmp)):
+        for k, v in counts.items():
+            total[k] += v
+    print(f"families: launches over the path {total} ({SMI})")
+    return total
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -1647,6 +1941,7 @@ def main():
         by_path["cli"], exp = phase("cli", cli_phase, tmp)
         by_path["diverse"] = phase("diverse", diverse_phase, tmp, exp,
                                    args.profile)
+        by_path["families"] = phase("families", families_phase, tmp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

@@ -314,7 +314,8 @@ def test_upload_bf16_service_matches_jax(experiments, fixed_eps):
 def test_other_model_families_and_no_card_raise(experiments, tmp_path):
     _, port_exp, conf = experiments
     _, vocab, model = load_experiment(port_exp, device="cpu")
-    save_experiment(str(tmp_path), model, dict(conf, model="VAEModel"), vocab)
+    save_experiment(str(tmp_path), model, dict(conf, model="GlobalVAEModel"),
+                    vocab)
     with pytest.raises(NotImplementedError):
         CaptionService(str(tmp_path), device="cpu")
     if torch.cuda.is_available():

@@ -248,7 +248,7 @@ def test_weights_round_trip():
 @pytest.mark.parametrize("key,value", [
     ("free_bits", 0.1), ("adverse_loss", {"discriminator": "d"}),
     ("embedding_loss", "MSE"), ("use_aug_prob", 0.5),
-    ("optimizer", "SGD"), ("global_loss", "kl"), ("model", "VAEModel"),
+    ("optimizer", "SGD"), ("global_loss", "kl"), ("model", "GlobalVAEModel"),
     ("encodermodel", "Cnn14")])
 def test_unported_branches_raise(key, value):
     """Branches outside the slice raise instead of being silently ignored."""
