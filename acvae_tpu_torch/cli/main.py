@@ -9,6 +9,9 @@
     python -m acvae_tpu_torch.cli diversity <eval_output.json> [<text.json>]
     python -m acvae_tpu_torch.cli ensemble <exp_dir> <exp_dir> [...]
     python -m acvae_tpu_torch.cli human_eval <text.json>
+    python -m acvae_tpu_torch.cli scst <exp_dir> [--sample_n=N] [--epochs=E]
+    python -m acvae_tpu_torch.cli average_checkpoints <exp_dir> [--names=best,last]
+    python -m acvae_tpu_torch.cli diagnose <exp_dir> [--batches=6]
 
 Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
@@ -19,7 +22,14 @@ nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
 with ``train_caption.log`` (the epoch table), ``config.json``,
 ``metrics.jsonl`` (one line an epoch, the JAX package's keys), ``best.pt``
 (when the validation CIDEr of a beam-3 decode improves), ``last.pt`` (every
-epoch) and ``ckpt_steps.json``; ``--resume=true`` continues from ``last``.
+epoch) and ``ckpt_steps.json``; ``--checkpoint_every_steps=k`` adds
+mid-epoch snapshots (``step_0.pt``/``step_1.pt``), and ``--resume=true``
+continues from the newest readable one.  The train keys of the JAX CLI work
+as there: ``kl_anneal``, ``free_bits``, ``global_loss``, the five
+optimizers with their ``optimizer_args``, ``freeze_word_embedding``,
+``model_args.freeze_encoder``, ``accum_steps``, ``ReduceLROnPlateau``, the
+``pretrained*`` warm starts, ``fault_abort_step`` and ``profile_dir`` (a
+torch.profiler trace of the run's first 15 steps).
 ``evaluate`` writes ``eval_output_<method>_<beam><suffix>.json`` and
 ``scores_<method>_<beam><suffix>.txt`` into the experiment dir; with
 ``--decode_method=dbs`` (``--group_size``, ``--diversity_lambda``,
@@ -29,7 +39,10 @@ epoch) and ``ckpt_steps.json``; ``--resume=true`` continues from ``last``.
 ``eval_output`` JSON (Div1/Div2/gDiv1, mBLEU, SelfBLEU, Novelty against a
 train corpus), ``ensemble`` decodes with the probability-averaged members
 (``ensemble_scores.txt`` in the first member's dir) and ``human_eval``
-scores the references leave-one-out.
+scores the references leave-one-out.  ``scst`` fine-tunes an experiment
+with self-critical sequence training into ``<exp>/scst_n<N>/``,
+``average_checkpoints`` writes ``<output_name>.pt`` (the mean of the named
+checkpoints) and ``diagnose`` prints the posterior-collapse diagnostics.
 """
 from __future__ import annotations
 
@@ -63,10 +76,13 @@ from acvae_tpu_torch.evaluation.human_eval import human_diversity, human_scores
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, int8_decode_fn,
                                           quant_encoder_for, scheme_kwargs)
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
-from acvae_tpu_torch.train.checkpoints import (criterion_improver,
-                                               load_experiment, read_ckpt_steps,
-                                               resume_newest, save_checkpoint,
-                                               write_ckpt_step)
+from acvae_tpu_torch.train.checkpoints import (
+    average_checkpoints as _average_checkpoints, criterion_improver,
+    load_experiment, read_ckpt_steps, remove_checkpoint, resume_newest,
+    save_checkpoint, write_ckpt_step)
+from acvae_tpu_torch.train.optim import ReduceLROnPlateau
+from acvae_tpu_torch.train.pretrained import apply_pretrained
+from acvae_tpu_torch.train.profiling import Trace
 from acvae_tpu_torch.train.trainer import RATIO_DEFAULTS, Trainer, check_free_bits
 
 DEFAULTS = dict(
@@ -84,16 +100,14 @@ DEFAULTS = dict(
 # and ignored; so is decode_dtype, which no train reads)
 LATER_KEYS = {
     "distributed": "A19", "model_parallel": "A19", "sequence_parallel": "A19",
-    "kl_anneal": "A17", "adverse_loss": "A17", "use_aug_prob": "A17",
-    "embedding_loss": "A17", "embedding_path": "A17", "free_bits": "A17",
-    "accum_steps": "A17", "checkpoint_every_steps": "A17",
-    "fault_abort_step": "A17", "pretrained": "A17", "pretrained_encoder": "A17",
-    "pretrained_decoder": "A17", "pretrained_global": "A17",
-    "pretrained_word_embedding": "A17", "freeze_word_embedding": "A17",
-    "profile_dir": "A17/A20",
+    "adverse_loss": "A17 part 2", "use_aug_prob": "A17 part 2",
+    "embedding_loss": "A17 part 2", "embedding_path": "A17 part 2",
 }
 # the metrics averaged over an epoch into metrics.jsonl
-DIAG_KEYS = ("kl", "active_units", "kl_dim_max", "qp_mse", "grad_norm")
+DIAG_KEYS = ("kl", "kl_raw", "active_units", "kl_dim_max", "qp_mse",
+             "grad_norm")
+# a profile_dir trace covers this many steps (or the first epoch if shorter)
+PROFILE_STEPS = 15
 
 
 def _later(what: str, item: str):
@@ -105,10 +119,8 @@ def _refuse_later_items(conf: Dict[str, Any]) -> None:
     for key, item in LATER_KEYS.items():
         value = conf.get(key)
         if value not in (None, False, 0, "", {}, []) and not (
-                key in ("accum_steps", "model_parallel") and value == 1):
+                key == "model_parallel" and value == 1):
             _later(f"config key {key!r}", item)
-    if conf.get("scheduler") == "ReduceLROnPlateau":
-        _later("scheduler ReduceLROnPlateau", "A17")
 
 
 def _upload_dtype(conf: Dict[str, Any]) -> Optional[torch.dtype]:
@@ -302,15 +314,26 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     conf["total_iters"] = total_iters
     val_key2refs = val_loader.refs()
     trainer = Trainer(conf, len(vocab), train_ds.data_dim, device=device,
-                      total_iters=total_iters)
+                      total_iters=total_iters, vocab=vocab)
+    apply_pretrained(conf, trainer.model, logger.info)
+    plateau = None
+    if conf.get("scheduler") == "ReduceLROnPlateau":
+        # the epoch scheduler, stepped with the val score
+        plateau = ReduceLROnPlateau(
+            **{k: v for k, v in conf.get("scheduler_args", {}).items()
+               if k in ("mode", "factor", "patience", "threshold")})
 
     start_epoch, skip_batches, resume_meta, iteration = 1, 0, {}, 0
     if conf.get("resume"):
+        # the newest of `last` and the mid-epoch snapshots, by restored step;
+        # a mid-epoch resume skips the epoch's consumed batches
         step, name = resume_newest(str(outputdir), trainer)
         if name is not None:
             resume_meta = read_ckpt_steps(str(outputdir))
             nb = max(len(train_loader), 1)
             iteration, start_epoch, skip_batches = step, step // nb + 1, step % nb
+            if plateau is not None:
+                plateau.load(resume_meta)
             logger.info(f"resumed from {outputdir}/{name} at step {step} → "
                         f"epoch {start_epoch}" + (
                             f" (skipping {skip_batches} consumed batches)"
@@ -321,54 +344,95 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     improved = criterion_improver(conf["improvecriterion"],
                                   initial=resume_meta.get("best_score"))
     stage = partial(_to_device, device=device, feats_dtype=feats_dtype)
+    ckpt_every = int(conf.get("checkpoint_every_steps", 0) or 0)
+    fault_step = int(conf.get("fault_abort_step", 0) or 0)
+    profile_dir, profile_start, prof = conf.get("profile_dir"), None, None
     logger.info("{:^10}\t{:^10}\t{:^10}".format("Epoch", "Train loss",
                                                  "Val score"))
-    with open(outputdir / "metrics.jsonl", "a") as metrics_log:
-        for epoch in range(start_epoch, conf["epochs"] + 1):
-            epoch_t0 = time.perf_counter()
-            train_loader.set_epoch(epoch)
-            losses, ntokens, diags = [], [], {}
-            # the step's metrics stay on the device; fetched once an epoch
-            for batch in train_loader.prefetch(
-                    skip_batches=skip_batches if epoch == start_epoch else 0,
-                    stage=stage):
-                iteration += 1
-                m = trainer.step(batch.arrays(), iteration, epoch)
-                losses.append(m["loss"])
-                ntokens.append(m["ntokens"])
-                for k in DIAG_KEYS:
-                    if k in m:
-                        diags.setdefault(k, []).append(m[k])
-            ratios = trainer.ratios(iteration, epoch)
-            loss_vals = (torch.stack(losses).double().cpu().numpy()
-                         if losses else np.zeros(0))
-            ntok = (torch.stack(ntokens).double().cpu().numpy()
-                    if ntokens else np.zeros(0))
-            score = _validate(trainer.model, val_loader, vocab, val_key2refs,
-                              device, seed, epoch)
-            train_loss = float(np.sum(loss_vals * ntok) / max(np.sum(ntok), 1))
-            logger.info(f"{epoch:^10}\t{train_loss:^10.3g}\t{score:^10.3g}")
-            diag_means = {k: float(np.mean(torch.stack(v).float().cpu().numpy()))
-                          for k, v in diags.items()}
-            metrics_log.write(json.dumps(
-                {"epoch": epoch, "train_loss": train_loss, "val_cider": score,
-                 "ss_ratio": ratios["ss_ratio"],
-                 "kl_weight": ratios["kl_weight"],
-                 "dis_ratio": ratios["dis_ratio"],
-                 **{k: round(v, 5) for k, v in diag_means.items()},
-                 # the train loop and the validation decode; the checkpoint
-                 # saves come after
-                 "epoch_wall_s": round(time.perf_counter() - epoch_t0, 2)})
-                + "\n")
-            metrics_log.flush()
-            if improved(score):
-                save_checkpoint(str(outputdir), "best", trainer, iteration,
-                                vocab, conf)
-            save_checkpoint(str(outputdir), "last", trainer, iteration, vocab,
-                            conf)
-            write_ckpt_step(str(outputdir), "last", iteration,
-                            best_score=improved.best)
+    try:
+        with open(outputdir / "metrics.jsonl", "a") as metrics_log:
+            for epoch in range(start_epoch, conf["epochs"] + 1):
+                epoch_t0 = time.perf_counter()
+                train_loader.set_epoch(epoch)
+                losses, ntokens, diags = [], [], {}
+                # the step's metrics stay on the device; fetched once an epoch
+                for batch in train_loader.prefetch(
+                        skip_batches=skip_batches if epoch == start_epoch else 0,
+                        stage=stage):
+                    iteration += 1
+                    if profile_dir and profile_start is None:
+                        # this run's first step (a resume starts mid-count)
+                        profile_start, prof = iteration, Trace(profile_dir)
+                    m = trainer.step(batch.arrays(), iteration, epoch)
+                    if prof is not None and iteration >= (profile_start
+                                                          + PROFILE_STEPS - 1):
+                        prof = _stop_trace(prof, device)
+                    losses.append(m["loss"])
+                    ntokens.append(m["ntokens"])
+                    for k in DIAG_KEYS:
+                        if k in m:
+                            diags.setdefault(k, []).append(m[k])
+                    if ckpt_every and iteration % ckpt_every == 0:
+                        # two alternating slots: the save in progress never
+                        # destroys the only snapshot
+                        slot = f"step_{(iteration // ckpt_every) % 2}"
+                        save_checkpoint(str(outputdir), slot, trainer, iteration)
+                        write_ckpt_step(str(outputdir), slot, iteration)
+                    if fault_step and iteration >= fault_step:
+                        raise SystemExit(f"fault_abort_step: injected failure "
+                                         f"at step {iteration}")
+                if prof is not None:   # a first epoch shorter than the window
+                    prof = _stop_trace(prof, device)
+                ratios = trainer.ratios(iteration, epoch)
+                loss_vals = (torch.stack(losses).double().cpu().numpy()
+                             if losses else np.zeros(0))
+                ntok = (torch.stack(ntokens).double().cpu().numpy()
+                        if ntokens else np.zeros(0))
+                score = _validate(trainer.model, val_loader, vocab, val_key2refs,
+                                  device, seed, epoch)
+                if plateau is not None:
+                    before = plateau.scale
+                    trainer.optimizer.lr_scale = plateau.step(score)
+                    if plateau.scale != before:
+                        logger.info(f"ReduceLROnPlateau: lr scale -> "
+                                    f"{plateau.scale:.3g}")
+                train_loss = float(np.sum(loss_vals * ntok) / max(np.sum(ntok), 1))
+                logger.info(f"{epoch:^10}\t{train_loss:^10.3g}\t{score:^10.3g}")
+                diag_means = {k: float(np.mean(torch.stack(v).float().cpu().numpy()))
+                              for k, v in diags.items()}
+                metrics_log.write(json.dumps(
+                    {"epoch": epoch, "train_loss": train_loss, "val_cider": score,
+                     "ss_ratio": ratios["ss_ratio"],
+                     "kl_weight": ratios["kl_weight"],
+                     "dis_ratio": ratios["dis_ratio"],
+                     **{k: round(v, 5) for k, v in diag_means.items()},
+                     # the train loop and the validation decode; the
+                     # checkpoint saves come after
+                     "epoch_wall_s": round(time.perf_counter() - epoch_t0, 2)})
+                    + "\n")
+                metrics_log.flush()
+                if improved(score):
+                    save_checkpoint(str(outputdir), "best", trainer, iteration,
+                                    vocab, conf)
+                save_checkpoint(str(outputdir), "last", trainer, iteration, vocab,
+                                conf)
+                extra = {"best_score": improved.best}
+                if plateau is not None:
+                    extra.update(plateau.state())
+                write_ckpt_step(str(outputdir), "last", iteration, **extra)
+                for stale in ("step_0", "step_1", "step"):  # superseded by last
+                    remove_checkpoint(str(outputdir), stale)
+    finally:
+        if prof is not None:
+            _stop_trace(prof, device)
     return str(outputdir)
+
+
+def _stop_trace(prof: Trace, device: torch.device) -> None:
+    """Let the traced steps' kernels finish, then write the trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
 
 
 # ---------------------------------------------------------------------- #
@@ -578,6 +642,93 @@ def human_eval(caption_file: str, output: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------- #
+def scst(experiment_path: str, epochs: int = 10, sample_n: int = 1,
+         lr: float = 5e-5, max_length: int = 20, checkpoint: str = "best",
+         seed: int = 1, device=DEFAULT_DEVICE, **kwargs) -> str:
+    """SCST (``sample_n`` 1, a greedy baseline) or N-SCST (``sample_n`` > 1,
+    the leave-one-out baseline) fine-tuning of a trained experiment
+    (acvae_tpu/cli/main.py:1452-1506): the weights of ``checkpoint``, a
+    fresh optimizer of the recipe's kind at ``lr`` with a constant
+    schedule; ``kwargs`` override the recipe.  Writes ``scst_n<N>/``
+    (``best.pt`` when the validation CIDEr improves, ``last.pt`` every
+    epoch, ``scst.log``), an experiment dir that ``evaluate`` reads."""
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.train.checkpoints import load_weights, save_experiment
+    from acvae_tpu_torch.train.scst import make_rollout, scst_train_step
+    from acvae_tpu_torch.train.trainer import build_optimizer
+
+    device = _device(device)
+    exp = Path(experiment_path)
+    conf = Config(copy.deepcopy(DEFAULTS))
+    conf.update(json.loads((exp / "config.json").read_text()))
+    for k, v in kwargs.items():
+        conf.set_path(k, v)
+    vocab = Vocabulary.load(str(exp / "vocab.pkl"))
+    train_ds, _, train_loader, val_loader = _build_dataloaders(conf, vocab)
+    conf.update(optimizer_args={"lr": lr}, scheduler="constant",
+                scheduler_args={})
+    model = build_model(conf, len(vocab), train_ds.data_dim, device=device)
+    load_weights(model, str(exp), checkpoint)
+    optimizer = build_optimizer(conf, model.named_parameters(), 1)
+    rollout = make_rollout(model, sample_n=int(sample_n),
+                           max_length=int(max_length))
+    gen = torch.Generator(device).manual_seed(int(seed))
+    key2refs, val_key2refs = train_loader.refs(), val_loader.refs()
+    outputdir = exp / f"scst_n{sample_n}"
+    outputdir.mkdir(exist_ok=True)
+    logger = _setup_logger(str(outputdir / "scst.log"))
+    improved = criterion_improver("score")
+    for epoch in range(1, int(epochs) + 1):
+        train_loader.set_epoch(epoch)
+        scores = []
+        for batch in train_loader.prefetch(stage=partial(_to_device,
+                                                         device=device)):
+            m = scst_train_step(model, optimizer, rollout, batch.feats,
+                                batch.feat_lens, batch.audio_ids, key2refs,
+                                vocab, gen, sample_n=int(sample_n))
+            scores.append(m["score"])
+        score = _validate(model, val_loader, vocab, val_key2refs, device,
+                          int(seed), epoch)
+        logger.info(f"epoch {epoch}: train CIDEr {float(np.mean(scores)):.3f} "
+                    f"val CIDEr {score:.3f}")
+        if improved(score):
+            save_experiment(str(outputdir), model, conf, vocab, "best")
+        save_experiment(str(outputdir), model, conf, vocab, "last")
+    return str(outputdir)
+
+
+def average_checkpoints(experiment_path: str, names: str = "best,last",
+                        output_name: str = "avg") -> str:
+    """Elementwise weight averaging of same-layout checkpoints of an
+    experiment (acvae_tpu/cli/main.py:1349-1389), saved as
+    ``<output_name>.pt`` for ``evaluate --checkpoint=<output_name>``."""
+    path = _average_checkpoints(experiment_path, names, output_name)
+    print(f"averaged {names} -> {path}")
+    return str(path)
+
+
+def diagnose(experiment_path: str, eval_h5_csv: Optional[str] = None,
+             eval_caption_file: Optional[str] = None, batches: int = 6,
+             batch_size: int = 32, checkpoint: str = "best", seed: int = 0,
+             output: Optional[str] = None, device=DEFAULT_DEVICE
+             ) -> Dict[str, Any]:
+    """Posterior/latent diagnostics of a trained experiment
+    (``train/diagnose.py``): the per-dim KL spectrum, active units,
+    prior↔posterior agreement, and the teacher-forced CE under the
+    posterior and the prior z.  Prints the JSON (and writes ``output``)."""
+    from acvae_tpu_torch.train.diagnose import diagnose_experiment
+
+    res = diagnose_experiment(experiment_path, eval_h5_csv, eval_caption_file,
+                              batches=int(batches), batch_size=int(batch_size),
+                              checkpoint=checkpoint, seed=int(seed),
+                              device=_device(device))
+    print(json.dumps(res, indent=1))
+    if output:
+        Path(output).write_text(json.dumps(res, indent=1))
+    return res
+
+
+# ---------------------------------------------------------------------- #
 def make_synthetic(output_dir: str, num_audios: int = 3000,
                    captions_per_audio: int = 5, mel_frames: int = 1024,
                    rich: bool = False, seed: int = 0) -> str:
@@ -640,10 +791,12 @@ def tokenize_caption(caption_file: str, output: Optional[str] = None,
 
 COMMANDS = {"train": train, "evaluate": evaluate, "predict": predict,
             "diversity": diversity, "ensemble": ensemble,
-            "human_eval": human_eval, "make_synthetic": make_synthetic,
-            "build_vocab": build_vocab, "tokenize_caption": tokenize_caption}
+            "human_eval": human_eval, "scst": scst,
+            "average_checkpoints": average_checkpoints, "diagnose": diagnose,
+            "make_synthetic": make_synthetic, "build_vocab": build_vocab,
+            "tokenize_caption": tokenize_caption}
 # the commands that compute on the device (the others only check --device)
-ON_DEVICE = ("train", "evaluate", "predict", "ensemble")
+ON_DEVICE = ("train", "evaluate", "predict", "ensemble", "scst", "diagnose")
 
 
 def main(argv: Optional[List[str]] = None) -> Any:

@@ -30,6 +30,7 @@ from acvae_tpu_torch.decoding.beam import BeamConfig, batched_beam_search
 from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
 from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
+                                           grad_optional,
                                            forced_logprob, stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask
 
@@ -141,7 +142,7 @@ class AttnCaptionModel(_PlainCaptioner):
                 ys[k].append(v)
         return stack_steps(ys)
 
-    @torch.inference_mode()
+    @grad_optional
     def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor, **_
                       ) -> Dict[str, Any]:
         """The log-probabilities of ``given_seqs`` [N, T] fed as the words."""
@@ -225,7 +226,7 @@ class TransformerCaptionModel(_PlainCaptioner):
         out = self.decoder(words_buf, *mem, pad, at=t)
         return out["logits"], out["output"]
 
-    @torch.inference_mode()
+    @grad_optional
     def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor, **_
                       ) -> Dict[str, Any]:
         """One causal pass over [<start>, given[:-1]] scoring ``given_seqs``

@@ -4,6 +4,7 @@
 check, the encoder->decoder ``ln`` adapter and the arity dispatch)."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -13,6 +14,17 @@ from acvae_tpu_torch import END_IDX, MAX_LENGTH, START_IDX
 from acvae_tpu_torch.ops.amp import promoted_linear
 
 DECODE_METHODS = ("greedy", "gumbel", "sample", "beam", "dbs")
+
+
+def grad_optional(fn):
+    """Run ``fn`` without autograd unless it is called with ``grad=True``:
+    ``forced_decode`` scores given words for inspection, and the SCST replay
+    differentiates the same log-probabilities."""
+    @functools.wraps(fn)
+    def wrapper(*args, grad: bool = False, **kwargs):
+        with torch.set_grad_enabled(grad):
+            return fn(*args, **kwargs)
+    return wrapper
 
 
 def check_decode_method(family: str, method: str) -> None:

@@ -30,6 +30,7 @@ from acvae_tpu_torch.decoding.beam import BeamConfig, batched_beam_search
 from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
 from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
+                                           grad_optional,
                                            eps_stack, forced_logprob,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask
@@ -208,7 +209,7 @@ class TransVAECaptionModel(CaptionModel):
             return w_t, {"seqs": w_t, "sampled_logprobs": lp_t}
         return self._rollout(encoded, max_length, eps, pick)
 
-    @torch.inference_mode()
+    @grad_optional
     def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None

@@ -49,6 +49,7 @@ from acvae_tpu_torch.decoding.beam import BeamConfig, batched_beam_search
 from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
 from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
+                                           grad_optional,
                                            eps_stack, forced_logprob,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
@@ -258,7 +259,7 @@ class VAECaptionModel(CaptionModel):
                     ys[k].append(v)
         return stack_steps(ys)
 
-    @torch.inference_mode()
+    @grad_optional
     def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None
@@ -508,7 +509,7 @@ class SimpleVAECaptionModel(CaptionModel):
                                    max_length, decode_method, temp,
                                    gumbel=gumbel, generator=generator)
 
-    @torch.inference_mode()
+    @grad_optional
     def forced_decode(self, feats, feat_lens, given_seqs: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None

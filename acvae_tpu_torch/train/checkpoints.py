@@ -7,7 +7,11 @@ format) and ``<name>.pt``: a ``torch.save`` of ``{"state_dict": ...}``,
 which training extends with ``optimizer``, ``step`` and ``rng`` (the
 generators' states) so that ``--resume`` continues exactly.  ``best.pt``
 is written when the validation score improves and ``last.pt`` every epoch;
-``ckpt_steps.json`` records each checkpoint's step and the best score.
+``checkpoint_every_steps`` adds mid-epoch snapshots in two alternating
+slots, ``step_0.pt`` and ``step_1.pt``, removed once ``last`` supersedes
+them.  ``ckpt_steps.json`` records each checkpoint's step and the best
+score.  :func:`resume_newest` restores the newest readable candidate;
+:func:`average_checkpoints` writes the elementwise mean of several.
 """
 from __future__ import annotations
 
@@ -82,22 +86,80 @@ def _resolve_checkpoint_path(exp_dir: str, name: str) -> Path:
     return path
 
 
+# resume candidates: the epoch-end ``last``, the two alternating mid-epoch
+# slots, and the JAX package's legacy single ``step`` slot
+RESUME_CANDIDATES = ("last", "step_0", "step_1", "step")
+
+
 def resume_newest(exp_dir: str, trainer) -> Tuple[Optional[int], Optional[str]]:
-    """Restore ``last.pt`` into ``trainer``: ``(step, "last")``, or
-    ``(None, None)`` when there is none.  An unreadable one raises (a
-    resume must not restart from scratch unnoticed).  The mid-epoch
-    ``step_*`` snapshots the JAX package also considers belong to ROADMAP
-    A17."""
-    path = Path(exp_dir) / "last.pt"
-    if not path.exists():
+    """Restore the newest readable checkpoint into ``trainer``: ``(step,
+    name)``, or ``(None, None)`` when there is none
+    (acvae_tpu/train/checkpoints.py:103-140).
+
+    The candidates are tried in the order of their recorded step, ``last``
+    first on a tie; one that cannot be read or restored is skipped with a
+    warning, and the largest *restored* step wins: ``ckpt_steps.json`` can
+    be stale either way after a crash between a save and its entry.  If no
+    candidate can be read, it raises (a resume must not restart from
+    scratch unnoticed)."""
+    exp = Path(exp_dir)
+    meta = read_ckpt_steps(exp_dir)
+    avail = [n for n in RESUME_CANDIDATES if (exp / f"{n}.pt").exists()]
+    if not avail:
         return None, None
-    try:
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    except Exception as e:
-        raise RuntimeError(f"resume: {path} could not be read "
-                           f"({type(e).__name__}: {e})") from e
-    trainer.load_state(ckpt)
-    return int(ckpt["step"]), "last"
+    avail.sort(key=lambda n: (meta.get(n, -1), n == "last"), reverse=True)
+    best, best_name, loaded = None, None, None
+    for n in avail:
+        try:
+            ckpt = torch.load(exp / f"{n}.pt", map_location="cpu",
+                              weights_only=True)
+            trainer.load_state(ckpt)
+            step = int(ckpt["step"])
+        except Exception as e:  # a torn snapshot: try the older ones
+            _LOG.warning("checkpoint %s/%s unrestorable (%s); trying older "
+                         "ones", exp_dir, n, type(e).__name__)
+            continue
+        loaded = n
+        if best is None or step > int(best["step"]):
+            best, best_name = ckpt, n
+    if best is None:
+        raise RuntimeError(f"resume: the checkpoints {avail} in {exp_dir} "
+                           f"could not be read")
+    if loaded != best_name:
+        trainer.load_state(best)
+    return int(best["step"]), best_name
+
+
+def average_checkpoints(exp_dir: str, names, output_name: str = "avg") -> Path:
+    """``<output_name>.pt``: the elementwise mean of the weights and
+    BatchNorm statistics of the named checkpoints (at least 2 distinct
+    names; a missing one raises FileNotFoundError, with no best→last
+    fallback).  Integer tensors are the newest checkpoint's; the step is
+    the largest; the optimizer state is dropped (acvae_tpu/cli/main.py:
+    1349-1389)."""
+    exp = Path(exp_dir)
+    name_list = [n.strip() for n in (names.split(",") if isinstance(names, str)
+                                     else names) if n.strip()]
+    if len(set(name_list)) < 2:
+        raise ValueError(f"need >= 2 distinct checkpoint names, got "
+                         f"{name_list}")
+    missing = [n for n in name_list if not (exp / f"{n}.pt").exists()]
+    if missing:
+        # averaging `last` with itself would be a bogus artifact
+        raise FileNotFoundError(f"checkpoint(s) {missing} not found in "
+                                f"{exp_dir}")
+    ckpts = [torch.load(exp / f"{n}.pt", map_location="cpu", weights_only=True)
+             for n in name_list]
+    steps = [int(c.get("step", 0)) for c in ckpts]
+    newest = ckpts[steps.index(max(steps))]["state_dict"]
+    avg = {}
+    for k, v in newest.items():
+        xs = [c["state_dict"][k] for c in ckpts]
+        avg[k] = (sum(xs[1:], xs[0]) / len(xs) if v.is_floating_point()
+                  else v.clone())
+    path = exp / f"{output_name}.pt"
+    _save({"state_dict": avg, "step": max(steps)}, path)
+    return path
 
 
 def _write_meta(exp_dir: str, steps: dict) -> None:
@@ -176,7 +238,13 @@ def load_experiment(exp_dir: str, name: str = "best", device=DEFAULT_DEVICE
     vocab = Vocabulary.load(str(exp / "vocab.pkl"))
     model = build_model(conf, len(vocab), int(conf.get("data_dim", 64)),
                         device=device)
+    load_weights(model, exp_dir, name)
+    return conf, vocab, model
+
+
+def load_weights(model: torch.nn.Module, exp_dir: str, name: str = "best") -> None:
+    """Load the weights of ``<exp_dir>/<name>.pt`` (``best`` falls back to
+    ``last``) into ``model``; a missing or unexpected key raises."""
     ckpt = torch.load(_resolve_checkpoint_path(exp_dir, name),
                       map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
-    return conf, vocab, model

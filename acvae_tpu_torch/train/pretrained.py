@@ -1,0 +1,223 @@
+"""Warm starts: shape-filtered merges of pretrained weights and pretrained
+word embeddings (counterpart of ``acvae_tpu/train/pretrained.py:36-75,
+345-349``, ``acvae_tpu/cli/main.py:727-805`` and
+``acvae_tpu/data/embeddings.py:66-95``).
+
+The port's parameter names are the reference's torch names, so a
+reference AC-VAE state dict merges as it is; there is no conversion.  A
+tensor loads where its name and shape match the model's (each skip logged
+with both shapes), and each config key logs ``"{key}[params]: loaded N/M
+tensors"`` (and ``[batch_stats]`` for the buffers).  ``pretrained`` and
+``pretrained_global`` merge into the whole model, ``pretrained_encoder``
+and ``pretrained_decoder`` into that submodule (the source's names are
+then the submodule's own).
+
+Sources: the port's own ``.pt`` and a reference ``.pth``/``.pt`` (its
+``{"model": ...}`` wrapper unwrapped).  PANN and espnet state dicts wait
+for ROADMAP A16; an orbax directory or a pickled flax tree reaches the port
+through the JAX side (``acvae_tpu_torch/convert.py::experiment_from_flax``).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+# (config key, the submodule it loads into, None for the whole model)
+PRETRAINED_KEYS = (("pretrained", None), ("pretrained_encoder", "encoder"),
+                   ("pretrained_decoder", "decoder"), ("pretrained_global", None))
+
+
+def merge_pretrained(target: Dict[str, torch.Tensor],
+                     pretrained: Dict[str, Any], log: Callable = print
+                     ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """(merged, n_loaded, n_total): ``target`` with every tensor of
+    ``pretrained`` whose name is in it and whose shape matches."""
+    merged, loaded = dict(target), 0
+    for name, leaf in target.items():
+        if name not in pretrained:
+            continue
+        cand = torch.as_tensor(np.asarray(pretrained[name])
+                               if not torch.is_tensor(pretrained[name])
+                               else pretrained[name])
+        if tuple(cand.shape) == tuple(leaf.shape):
+            merged[name] = cand.to(leaf.dtype)
+            loaded += 1
+        else:
+            log(f"skip {name}: shape {tuple(cand.shape)} != {tuple(leaf.shape)}")
+    return merged, loaded, len(target)
+
+
+def load_subtree(target: Dict[str, torch.Tensor], pretrained: Dict[str, Any],
+                 subtree: str, log: Callable = print
+                 ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """:func:`merge_pretrained` into the tensors under ``<subtree>.``, the
+    source's names relative to that submodule."""
+    prefix = subtree + "."
+    sub = {k[len(prefix):]: v for k, v in target.items() if k.startswith(prefix)}
+    if not sub:
+        log(f"no submodule {subtree!r} in target params")
+        return dict(target), 0, 0
+    merged, n, total = merge_pretrained(sub, pretrained, log)
+    out = dict(target)
+    out.update({prefix + k: v for k, v in merged.items()})
+    return out, n, total
+
+
+def unwrap_torch_state_dict(obj):
+    """A loaded checkpoint as a flat state dict: the reference's
+    ``{"model": ...}`` save and the port's ``{"state_dict": ...}``
+    unwrapped, a module's ``state_dict()`` taken."""
+    if isinstance(obj, dict) and "model" in obj:
+        obj = obj["model"]
+    elif isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
+        obj = obj["state_dict"]
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return obj
+
+
+def _looks_like_acvae(state_dict: Dict[str, Any]) -> bool:
+    """A whole reference (or port) model: submodule-prefixed keys."""
+    return any(k.startswith(("decoder.", "qnet.", "pnet.")) for k in state_dict)
+
+
+def _looks_like_pann(state_dict: Dict[str, Any]) -> bool:
+    return any(k.startswith("conv_block") or k.startswith("resnet.")
+               for k in state_dict)
+
+
+def _looks_like_espnet(state_dict: Dict[str, Any]) -> bool:
+    return any(k.endswith("conv1_1.weight") for k in state_dict) and \
+        any(".birnn0." in k or ".bt0." in k or k.startswith(("birnn0", "bt0"))
+            for k in state_dict)
+
+
+def load_state_source(path: str) -> Dict[str, Any]:
+    """The flat state dict a ``pretrained*`` key names.  A missing file
+    raises FileNotFoundError; PANN and espnet dicts NotImplementedError
+    (ROADMAP A16); a directory or a non-torch file ValueError naming the
+    JAX-side route."""
+    p = Path(path)
+    route = ("convert it on the JAX side: load_raw_checkpoint, then "
+             "acvae_tpu_torch/convert.py::experiment_from_flax")
+    if p.is_dir():
+        raise ValueError(f"{path}: an orbax checkpoint directory; {route}")
+    if p.suffix not in (".pth", ".pt"):
+        raise ValueError(f"{path}: not a torch checkpoint (.pth/.pt); a "
+                         f"pickled flax tree is the JAX package's; {route}")
+    # the reference's checkpoints pickle their vocabulary beside the
+    # weights, so this reads them as the reference and the JAX package do
+    sd = unwrap_torch_state_dict(torch.load(p, map_location="cpu",
+                                            weights_only=False))
+    # a DistributedDataParallel save prefixes every name
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in sd.items()}
+    if _looks_like_acvae(sd):
+        return sd
+    if _looks_like_espnet(sd):
+        raise NotImplementedError(f"{path}: espnet encoder checkpoints are not "
+                                  f"ported (ROADMAP A16)")
+    if _looks_like_pann(sd):
+        raise NotImplementedError(f"{path}: PANN checkpoints are not ported "
+                                  f"(ROADMAP A16)")
+    raise ValueError(f"{path}: torch checkpoint is neither a full AC-VAE "
+                     f"model, an espnet encoder, nor a PANN backbone")
+
+
+def apply_pretrained(conf: Dict[str, Any], model: torch.nn.Module,
+                     log: Callable = print) -> None:
+    """Merge every ``pretrained*`` key of ``conf`` into ``model`` in
+    place, in the JAX CLI's order."""
+    params = {n for n, _ in model.named_parameters()}
+    for key, subtree in PRETRAINED_KEYS:
+        if key not in conf:
+            continue
+        src = load_state_source(conf[key])
+        state = model.state_dict()
+        cols = {"params": {k: v for k, v in state.items() if k in params},
+                "batch_stats": {k: v for k, v in state.items() if k not in params}}
+        for col, target in cols.items():
+            rel = target if subtree is None else {
+                k[len(subtree) + 1:] for k in target if k.startswith(subtree + ".")}
+            # as JAX skips a collection the source lacks: buffers are
+            # merged when the source has one of the model's
+            if not src or (col == "batch_stats" and not any(k in rel for k in src)):
+                continue
+            if subtree is None:
+                merged, n, total = merge_pretrained(target, src, log)
+            else:
+                merged, n, total = load_subtree(target, src, subtree, log)
+            state.update(merged)
+            log(f"{key}[{col}]: loaded {n}/{total} tensors from {conf[key]}")
+        model.load_state_dict(state, strict=True)
+
+
+# --------------------------------------------------------------------- #
+# pretrained word embeddings
+# --------------------------------------------------------------------- #
+def from_glove_txt(vocabulary, path: str, seed: int = 0) -> np.ndarray:
+    """A [vocab, dim] matrix from a GloVe/fastText text file; words it
+    lacks get N(0, 1) rows."""
+    vectors, dim = {}, None
+    with open(path) as f:
+        for line in f:
+            parts = line.rstrip().split(" ")
+            if len(parts) < 3:
+                continue
+            vectors[parts[0]] = np.asarray(parts[1:], np.float32)
+            dim = dim or len(parts) - 1
+    rng = np.random.default_rng(seed)
+    out = rng.normal(size=(len(vocabulary), dim)).astype(np.float32)
+    for word, idx in vocabulary.word2idx.items():
+        if word in vectors:
+            out[idx] = vectors[word]
+    return out
+
+
+def from_gensim(vocabulary, model_path: str, seed: int = 0) -> np.ndarray:
+    """A [vocab, dim] matrix from a gensim word2vec/fastText model."""
+    try:
+        import gensim
+    except ImportError as e:
+        raise ImportError(f"{model_path}: reading word vectors of this format "
+                          f"needs gensim, which is not installed; use a .npy "
+                          f"matrix or a GloVe .txt") from e
+    try:
+        kv = gensim.models.KeyedVectors.load(model_path)
+    except Exception:
+        kv = gensim.models.KeyedVectors.load_word2vec_format(
+            model_path, binary=model_path.endswith(".bin"))
+    rng = np.random.default_rng(seed)
+    out = rng.normal(size=(len(vocabulary), kv.vector_size)).astype(np.float32)
+    for word, idx in vocabulary.word2idx.items():
+        if word in kv:
+            out[idx] = kv[word]
+    return out
+
+
+def load_word_embeddings(path: str, vocabulary=None) -> np.ndarray:
+    """``.npy`` loads as it is; ``.txt``/``.vec`` and gensim models need
+    the vocabulary to align rows."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    if vocabulary is None:
+        raise ValueError(f"{path}: word vectors other than a .npy matrix need "
+                         f"the vocabulary")
+    if path.endswith((".txt", ".vec")):
+        return from_glove_txt(vocabulary, path)
+    return from_gensim(vocabulary, path)
+
+
+def set_embedding_param(model: torch.nn.Module, matrix: np.ndarray,
+                        module: str = "decoder", name: str = "word_embeddings"
+                        ) -> None:
+    """Install a [vocab, dim] matrix as ``<module>.<name>.weight``."""
+    emb = getattr(getattr(model, module), name).weight
+    if tuple(matrix.shape) != tuple(emb.shape):
+        raise ValueError(f"embedding shape {tuple(matrix.shape)} != "
+                         f"{tuple(emb.shape)}")
+    with torch.no_grad():
+        emb.copy_(torch.as_tensor(np.asarray(matrix, np.float32)))

@@ -103,9 +103,31 @@ Phases, each of which exits nonzero on failure:
    ``xe_baseline.yaml`` with the time warp, then ``evaluate`` at beam 3
    (and ``--encoder_int8`` for ``vae.yaml``).
 
+13. extras: the rest of ``cli train`` and three commands, on phase 10's
+   corpus and experiment at full width.  (a) ``train configs/ac_vae.yaml``
+   with the time warp for 2 epochs and ``--checkpoint_every_steps=20
+   --fault_abort_step=42``: exactly that SystemExit, ``step_1`` (step 20)
+   and ``step_0`` (step 40) on disk; ``--resume=true`` restores step 40,
+   skips 40 batches and ends at 90 with the snapshots gone; against phase
+   10's first run (the same command, uninterrupted, without snapshots)
+   ``ckpt_steps.json``'s keys and step exactly, its best score and epoch
+   2's train loss within rel 1e-3.  (b) One epoch with ``--accum_steps=2``,
+   ReduceLROnPlateau (patience 0, factor 0.5), ``--global_loss=kl
+   --free_bits=0.05``, a cyclical ``kl_anneal``, AdamW (weight decay
+   0.01), ``--freeze_word_embedding``, ``--pretrained=<phase 10>/best.pt``
+   and ``--profile_dir``: the word embeddings bit-identical to the
+   pretrained ones, the ``loaded`` log line, ``kl_raw``, the plateau's
+   fields, 22 updates for 45 micro-batches and one trace file.  (c) ``scst``
+   of phase 10's experiment for an epoch at ``sample_n`` 1 (rollout, host
+   CIDEr and replay + update timed apart), the replay's log-probs against
+   the rollout's on one batch (atol 1e-4), 3 N-SCST iterations at 5
+   samples.  (d) ``average_checkpoints best,last``, ``evaluate
+   --checkpoint=avg`` in bf16 and with the int8 encoder (80 + 30 launches)
+   and ``diagnose`` (its JSON keys).
+
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families).  Prints a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all six),
+serve, cli, diverse, families, extras).  Prints a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all seven),
 then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
@@ -117,12 +139,14 @@ import copy
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 from pathlib import Path
@@ -149,7 +173,8 @@ CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
                (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
                (128, 8, 256, 512), (128, 8, 512, 512)]
 POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
-PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families")
+PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
+         "extras")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -1865,6 +1890,319 @@ def families_phase(tmp):
     return total
 
 
+# phase 13: mid-epoch snapshots every SNAP_EVERY iterations of the 2-epoch
+# run, its injected fault at FAULT_AT; a few N-SCST iterations at
+# SCST_SAMPLE_N samples a clip
+SNAP_EVERY, FAULT_AT, SCST_SAMPLE_N, SCST_N_ITERS = 20, 42, 5, 3
+# card against card: an interrupted-and-resumed run against an
+# uninterrupted one; cuBLAS/cuDNN backward sums need not be bit-deterministic
+# (measured equal on an H100 80GB HBM3 at 700 W)
+RESUME_RTOL = 1e-3
+# the SCST replay's log-probs against the rollout's, same card and weights
+REPLAY_ATOL = 1e-4
+
+
+def extras_phase(tmp, exp):
+    """Phase 13 on phase 10's corpus and experiment: (a) mid-epoch
+    snapshots, a fault and a resume against an uninterrupted run; (b) one
+    epoch with the other train keys; (c) SCST and N-SCST; (d)
+    ``average_checkpoints``, ``evaluate --checkpoint=avg`` (bf16, int8) and
+    ``diagnose``.  Returns the kernel launches over all of it."""
+    from acvae_tpu_torch.cli import main as cli
+
+    config = str(CONFIGS / "ac_vae.yaml")
+    args = ["train", config, f"--h5_csv={tmp}/mels.csv",
+            f"--caption_file={tmp}/text.json", f"--vocab_file={tmp}/vocab.pkl",
+            "--augments=[timewarp,timemask,freqmask]"]
+    torch.cuda.synchronize()
+    reset_counts()
+    warps = extras_snapshots(cli, tmp, args, exp)
+    warps += extras_keys(cli, tmp, args, exp)
+    counts = read_counts()
+    check(counts["time_warp_1d"] == warps,
+          f"extras: time_warp_1d launched {counts['time_warp_1d']} times in "
+          f"{warps} train iterations")
+    extras_scst(cli, exp)
+    extras_average(cli, tmp, exp)
+    counts = read_counts()
+    for k, v in counts.items():
+        check(v > 0, f"extras: {k} never launched on the path")
+    print(f"extras: launches over the path {counts} ({SMI})")
+    return counts
+
+
+class _Timed:
+    """Wall times (synchronised) of the calls of ``owner.name`` while in
+    place; ``restore()`` puts the original back."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.real = real = getattr(owner, name)
+        self.times, self.starts = [], []
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            self.starts.append(t0)
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            self.times.append(time.perf_counter() - t0)
+            return out
+        setattr(owner, name, timed)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.real)
+
+
+def extras_snapshots(cli, tmp, args, exp):
+    """(a) 2 epochs with a snapshot every SNAP_EVERY iterations, stopped by
+    ``fault_abort_step`` at FAULT_AT, then ``--resume=true`` from the newest
+    snapshot; held against phase 10's first run (``exp``), the same
+    command uninterrupted and without snapshots.  Returns the train
+    iterations run (one ``time_warp_1d`` each)."""
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    run = args + ["--epochs=2", f"--checkpoint_every_steps={SNAP_EVERY}",
+                  f"--outputpath={tmp}/extras_a"]
+    saves = _Timed(cli, "save_checkpoint")
+    try:
+        try:
+            cli.main(run + [f"--fault_abort_step={FAULT_AT}"])
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            msg = None
+        snap_s = list(saves.times)
+    finally:
+        saves.restore()
+    check(msg == f"fault_abort_step: injected failure at step {FAULT_AT}",
+          f"the interrupted run ended with {msg!r}")
+    exp_a = next(Path(f"{tmp}/extras_a").glob("*/*/seed_1"))
+    meta = json.loads((exp_a / "ckpt_steps.json").read_text())
+    newest = FAULT_AT // SNAP_EVERY * SNAP_EVERY
+    # the two newest snapshots, one in each slot
+    want = {f"step_{(s // SNAP_EVERY) % 2}": s
+            for s in (newest - SNAP_EVERY, newest)}
+    check({k: meta.get(k) for k in want} == want
+          and all((exp_a / f"{k}.pt").exists() for k in want),
+          f"snapshots after the fault: ckpt_steps.json {meta}, expected {want}")
+    size_mb = (exp_a / f"step_{(newest // SNAP_EVERY) % 2}.pt").stat().st_size / 2**20
+
+    first = _Timed(Trainer, "step")
+    try:
+        t0 = time.perf_counter()
+        cli.main(run + ["--resume=true"])
+        to_first = first.starts[0] - t0
+    finally:
+        first.restore()
+    iters = 2 * CLI_ITERS
+    log = (exp_a / "train_caption.log").read_text()
+    check(f"at step {newest} → epoch 1 (skipping {newest} consumed batches)"
+          in log, f"the resume did not restore step {newest}")
+    last = torch.load(exp_a / "last.pt", map_location="cpu", weights_only=True)
+    check(last["step"] == iters, f"the resumed run ended at {last['step']}")
+    check(not list(exp_a.glob("step*.pt")), "stale snapshots left after last")
+    # phase 10's first two epochs are the uninterrupted run: its
+    # ckpt_steps.json then held last 90 and the best of their scores
+    ma = [json.loads(x) for x in (exp_a / "metrics.jsonl").read_text().splitlines()]
+    mb = [json.loads(x) for x in (exp / "metrics.jsonl").read_text().splitlines()][:2]
+    best = 0.0
+    for m in mb:
+        best = max(best, m["val_cider"])
+    meta_a = json.loads((exp_a / "ckpt_steps.json").read_text())
+    check(meta_a.keys() == {"last", "best_score"} and meta_a["last"] == iters,
+          f"ckpt_steps.json after the resume: {meta_a}")
+    # epoch 1's line of the resumed run averages only the batches after
+    # the resume, as the JAX CLI's does; epoch 2 is whole in both
+    check(len(ma) == 2, f"metrics.jsonl lines after the resume: {len(ma)}")
+    rel = abs(ma[1]["train_loss"] - mb[1]["train_loss"]) / abs(mb[1]["train_loss"])
+    d_best = abs(meta_a["best_score"] - best)
+    print(f"extras snapshots: save {_ms(snap_s)} a snapshot, {size_mb:.1f} MB; "
+          f"resume to the first step {to_first * 1e3:.0f} ms; epoch 2 train "
+          f"loss resumed {ma[1]['train_loss']:.6f} / uninterrupted "
+          f"{mb[1]['train_loss']:.6f} (rel {rel:.2e}); best_score "
+          f"{meta_a['best_score']:.6f} / {best:.6f} ({SMI})")
+    check(rel <= RESUME_RTOL and d_best <= RESUME_RTOL * max(best, 1e-3),
+          f"the resumed run is off the uninterrupted one: train loss rel "
+          f"{rel:.2e}, best_score {d_best:.2e} (rtol {RESUME_RTOL})")
+    return FAULT_AT + (iters - newest)
+
+
+def extras_keys(cli, tmp, args, exp):
+    """(b) One epoch with accumulation, the plateau, the KL variants, AdamW,
+    a frozen word embedding, a warm start from phase 10's best and a
+    profile.  Returns the iterations run."""
+    from acvae_tpu_torch.train.profiling import Trace
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    out, prof = f"{tmp}/extras_keys", f"{tmp}/extras_profile"
+    steps, stops = _Timed(Trainer, "step"), _Timed(Trace, "stop")
+    try:
+        t0 = time.perf_counter()
+        exp_k = Path(cli.main(args + [
+            "--epochs=1", f"--outputpath={out}", "--accum_steps=2",
+            "--scheduler=ReduceLROnPlateau",
+            "--scheduler_args={patience: 0, factor: 0.5}", "--global_loss=kl",
+            "--free_bits=0.05", "--kl_anneal={mode: cyclical, cycles: 2}",
+            "--optimizer=AdamW",
+            "--optimizer_args={lr: 0.0005, weight_decay: 0.01}",
+            "--freeze_word_embedding=true", f"--pretrained={exp}/best.pt",
+            f"--profile_dir={prof}"]))
+        wall = time.perf_counter() - t0
+    finally:
+        steps.restore()
+        stops.restore()
+    src = torch.load(exp / "best.pt", map_location="cpu", weights_only=True)
+    last = torch.load(exp_k / "last.pt", map_location="cpu", weights_only=True)
+    frozen = [k for k in src["state_dict"] if "word_embedding" in k]
+    check(len(frozen) == 3 and all(torch.equal(last["state_dict"][k],
+                                               src["state_dict"][k])
+                                   for k in frozen),
+          f"the frozen word embeddings {frozen} moved")
+    check("pretrained[params]: loaded" in (exp_k / "train_caption.log").read_text(),
+          "no 'pretrained[params]: loaded' line in the log")
+    m = json.loads((exp_k / "metrics.jsonl").read_text().splitlines()[-1])
+    meta = json.loads((exp_k / "ckpt_steps.json").read_text())
+    check("kl_raw" in m and all(math.isfinite(v) for v in m.values()),
+          f"metrics.jsonl: {m}")
+    check({"plateau_best", "plateau_num_bad", "plateau_scale"} <= set(meta),
+          f"ckpt_steps.json lacks the plateau: {meta}")
+    opt = last["optimizer"]
+    updates = CLI_ITERS // 2
+    check(opt["count"] == updates and opt["mini_step"] == CLI_ITERS % 2,
+          f"{opt['count']} updates, mini-step {opt['mini_step']} after "
+          f"{CLI_ITERS} micro-batches")
+    traces = list(Path(prof).glob("*.json"))
+    check(len(traces) == 1, f"profile_dir holds {traces}")
+    # after the profiled window (or all steps of an epoch no longer than
+    # it): micro-batches that accumulate (odd) and that apply the update
+    w = cli.PROFILE_STEPS if len(steps.times) > cli.PROFILE_STEPS + 1 else 0
+    acc_ms = [t * 1e3 for i, t in enumerate(steps.times[w:], w + 1) if i % 2]
+    upd_ms = [t * 1e3 for i, t in enumerate(steps.times[w:], w + 1) if not i % 2]
+    window = sum(steps.times[:cli.PROFILE_STEPS])
+    print(f"extras keys: 1 epoch {wall:.1f} s; steps {w + 1}-{CLI_ITERS} (step "
+          f"ends synchronised): {statistics.median(acc_ms):.1f} ms a "
+          f"micro-batch that accumulates, {statistics.median(upd_ms):.1f} ms "
+          f"one that applies the update, so {statistics.median(acc_ms) + statistics.median(upd_ms):.1f} "
+          f"ms an update ({updates} for {CLI_ITERS} micro-batches); the "
+          f"{cli.PROFILE_STEPS} profiled steps {window:.2f} s, writing the trace "
+          f"{stops.times[0]:.2f} s ({traces[0].stat().st_size / 2**20:.1f} MB); "
+          f"kl {m['kl']:.4f} kl_raw {m['kl_raw']:.4f}, kl_weight "
+          f"{m['kl_weight']}, plateau {meta['plateau_scale']} ({SMI})")
+    return CLI_ITERS
+
+
+def extras_scst(cli, exp):
+    """(c) ``scst`` of phase 10's experiment for an epoch at sample_n 1;
+    SCST_N_ITERS N-SCST iterations at SCST_SAMPLE_N; the replay's
+    log-probs against the rollout's on one batch."""
+    from acvae_tpu_torch import END_IDX
+    from acvae_tpu_torch.train import scst as scst_mod
+    from acvae_tpu_torch.train.checkpoints import load_experiment
+    from acvae_tpu_torch.train.trainer import build_optimizer
+
+    torch.cuda.reset_peak_memory_stats()
+    parts = {n: _Timed(scst_mod, n) for n in ("scst_train_step", "scst_reward")}
+    made = []
+    real_make = scst_mod.make_rollout
+
+    def make_rollout(*a, **k):
+        made.append(_Timed(types.SimpleNamespace(r=real_make(*a, **k)), "r"))
+        return made[-1].owner.r
+    scst_mod.make_rollout = make_rollout
+    try:
+        t0 = time.perf_counter()
+        out = cli.main(["scst", str(exp), "--epochs=1", "--sample_n=1"])
+        wall = time.perf_counter() - t0
+    finally:
+        scst_mod.make_rollout = real_make
+        for t in parts.values():
+            t.restore()
+    it_s, cider_s = parts["scst_train_step"].times, parts["scst_reward"].times
+    roll_s = made[0].times
+    check(len(it_s) == CLI_ITERS and (Path(out) / "last.pt").exists()
+          and (Path(out) / "scst.log").exists(),
+          f"scst: {len(it_s)} iterations, files {os.listdir(out)}")
+    rest = [a - b - c for a, b, c in zip(it_s, roll_s, cider_s)]
+    print(f"extras scst n1: {len(it_s)} iterations, {sum(it_s):.2f} s = "
+          f"{len(it_s) / sum(it_s):.2f} iterations/s; an iteration "
+          f"{_ms(it_s)}: rollout {_ms(roll_s)}, host CIDEr {_ms(cider_s)}, "
+          f"replay + update {_ms(rest)}; command {wall:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({SMI})")
+
+    conf, vocab, model = load_experiment(str(exp), "best", device="cuda")
+    ds, _, loader, _ = cli._build_dataloaders(cli.Config(conf), vocab)
+    refs = loader.refs()
+    opt = build_optimizer(dict(conf, optimizer_args={"lr": 5e-5},
+                               scheduler="constant", scheduler_args={}),
+                          model.named_parameters(), 1)
+    gen = torch.Generator("cuda").manual_seed(1)
+    batches = [cli._to_device(b, torch.device("cuda"))
+               for _, b in zip(range(SCST_N_ITERS), loader)]
+    b = batches[0]
+    rollout = scst_mod.make_rollout(model, sample_n=1, max_length=MAX_LEN)
+    ro = rollout(b.feats, b.feat_lens, gen)
+    rep = model.forced_decode(b.feats, b.feat_lens, ro["sampled_seqs"],
+                              eps=ro["eps"], grad=True)["sampled_logprobs"]
+    seqs = ro["sampled_seqs"]
+    mask = torch.cat([torch.ones_like(seqs[:, :1], dtype=torch.bool),
+                      seqs[:, :-1] != END_IDX], dim=1)
+    err = float((rep.detach() - ro["sampled_logprobs"]).abs()[mask].max())
+    print(f"extras scst replay: max |dlogprob| {err:.2e} over {int(mask.sum())} "
+          f"scored positions of a batch of {seqs.shape[0]} (atol {REPLAY_ATOL})")
+    check(err <= REPLAY_ATOL, f"the SCST replay's log-probs differ by {err:.2e}")
+    torch.cuda.reset_peak_memory_stats()
+    rollout = scst_mod.make_rollout(model, sample_n=SCST_SAMPLE_N,
+                                    max_length=MAX_LEN)
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = scst_mod.scst_train_step(model, opt, rollout, b.feats, b.feat_lens,
+                                     b.audio_ids, refs, vocab, gen,
+                                     sample_n=SCST_SAMPLE_N)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(math.isfinite(m["loss"]), f"N-SCST metrics {m}")
+    print(f"extras scst n{SCST_SAMPLE_N}: {len(times)} iterations of "
+          f"{b.feats.shape[0]}x{SCST_SAMPLE_N} rollouts, {_ms(times)} each "
+          f"(the first with its warm-up); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({SMI})")
+
+
+def extras_average(cli, tmp, exp):
+    """(d) ``average_checkpoints best,last``, ``evaluate --checkpoint=avg``
+    in bf16 and with the int8 encoder, and ``diagnose``."""
+    path = cli.main(["average_checkpoints", str(exp), "--names=best,last"])
+    check(Path(path) == exp / "avg.pt", f"average_checkpoints wrote {path}")
+    for tag, extra in (("bf16", []), ("int8", ["--encoder_int8=true"])):
+        before = read_counts()
+        t0 = time.perf_counter()
+        scores = cli.main(["evaluate", str(exp), "--checkpoint=avg",
+                           f"--eval_caption_file={tmp}/text.json",
+                           f"--tag=avg_{tag}"] + extra)
+        wall = time.perf_counter() - t0
+        got = {k: v - before[k] for k, v in read_counts().items()}
+        want = ((8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra
+                else (0, 0))
+        check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want
+              and all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+              f"evaluate avg {tag}: launches {got} (expected {want}), {scores}")
+        print(f"extras evaluate --checkpoint=avg {tag}: {wall:.2f} s, CIDEr "
+              f"{scores['CIDEr']:.4f}, launches {got} ({SMI})")
+    t0 = time.perf_counter()
+    res = cli.main(["diagnose", str(exp)])
+    secs = time.perf_counter() - t0
+    keys = {"exp", "checkpoint", "n_batches", "forward_mode", "ce_posterior_z",
+            "ce_prior_z", "ce_prior_penalty", "kl_total", "active_units_0.01",
+            "active_units_0.1", "latent_dims", "kl_dim_top8", "qp_mse",
+            "q_mean_var"}
+    check(set(res) == keys and res["n_batches"] == 6 and res["latent_dims"] == 512,
+          f"diagnose: {res}")
+    print(f"extras diagnose: {secs:.2f} s for 6 batches of 32; ce posterior "
+          f"{res['ce_posterior_z']} prior {res['ce_prior_z']}, kl "
+          f"{res['kl_total']}, active units {res['active_units_0.01']} "
+          f"({SMI})")
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -1942,6 +2280,7 @@ def main():
         by_path["diverse"] = phase("diverse", diverse_phase, tmp, exp,
                                    args.profile)
         by_path["families"] = phase("families", families_phase, tmp)
+        by_path["extras"] = phase("extras", extras_phase, tmp, exp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

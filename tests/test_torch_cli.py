@@ -45,6 +45,7 @@ from acvae_tpu_torch.train.trainer import Trainer
 from tests.test_torch_dbs import jax_dbs_eps
 from tests.test_torch_decode import SMALL, fixed_eps  # noqa: F401
 from tests.test_torch_ensemble import member_eps
+from tests.test_torch_families_rnn import one_torch_thread  # noqa: F401
 from tests.test_torch_quant import _flipped_codes, jax_baked
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -251,32 +252,94 @@ def test_resume_is_bit_identical(ws, tmp_path, monkeypatch):
     assert "resumed from" in (resumed / "train_caption.log").read_text()
 
 
+# the train keys the port runs now, run together once: a first epoch stopped
+# by fault_abort_step at step 3, then resumed; each case of the old refusal
+# list reads its own part
+RUNS = "runs"
 LATER = [("distributed", "true", "A19"), ("model_parallel", "2", "A19"),
-         ("kl_anneal", "{mode: linear}", "A17"),
-         ("adverse_loss", "{discriminator: d}", "A17"),
-         ("use_aug_prob", "0.5", "A17"), ("pretrained_encoder", "x.pth", "A17"),
-         ("checkpoint_every_steps", "10", "A17"),
-         ("fault_abort_step", "3", "A17"), ("embedding_path", "e", "A17"),
-         ("profile_dir", "p", "A17/A20"),
+         ("kl_anneal", "{mode: cyclical, cycles: 1, floor: 0.2}", RUNS),
+         ("adverse_loss", "{discriminator: d}", "A17 part 2"),
+         ("use_aug_prob", "0.5", "A17 part 2"),
+         # a missing file raises as the JAX CLI's torch.load does
+         ("pretrained_encoder", "x.pth", (FileNotFoundError, "x.pth")),
+         ("checkpoint_every_steps", "2", RUNS),
+         ("fault_abort_step", "3", RUNS), ("embedding_path", "e", "A17 part 2"),
+         ("profile_dir", "p", RUNS),
          # no train of the JAX package reads decode_dtype: accepted, ignored
          ("decode_dtype", "bfloat16", None),
          ("upload_dtype", "float16",
           (ValueError, "upload_dtype must be float32 or bfloat16, got 'float16'")),
-         ("scheduler", "ReduceLROnPlateau", "A17")]
+         ("scheduler", "ReduceLROnPlateau", RUNS)]
+
+
+@pytest.fixture(scope="module")
+def later_run(ws, tmp_path_factory):
+    """One epoch with every RUNS key of LATER: stopped at step 3 (after the
+    step-2 snapshot), then ``--resume=true``.  Returns the experiment dir
+    and what the stopped run left: its SystemExit message, ckpt_steps.json,
+    files and traces."""
+    out = tmp_path_factory.mktemp("later")
+    keys = {k: v for k, v, item in LATER if item == RUNS}
+    args = (["train", str(ws / "port.yaml"), "--device=cpu", "--epochs=1",
+             f"--outputpath={out}", f"--profile_dir={out}/prof"]
+            + [f"--{k}={v}" for k, v in keys.items()
+               if k not in ("fault_abort_step", "profile_dir")])
+    with pytest.raises(SystemExit) as e:
+        cli.main(args + [f"--fault_abort_step={keys['fault_abort_step']}"])
+    exp = _exp(out)
+    stopped = {"msg": str(e.value), "steps": tckpt.read_ckpt_steps(str(exp)),
+               "files": set(os.listdir(exp)),
+               "traces": list((out / "prof").glob("*.json"))}
+    cli.main(args + ["--resume=true"])
+    return exp, stopped
+
+
+def _check_later_run(key, exp, stopped):
+    """What the run shows of ``key``, against the JAX package's functions."""
+    meta = json.loads((exp / "ckpt_steps.json").read_text())
+    (metrics,) = _metrics(exp)
+    if key == "kl_anneal":
+        assert metrics["kl_weight"] == kl_weight_schedule(
+            1, 1, 1.5, mode="cyclical", cycles=1, floor=0.2) == 0.2
+    elif key == "checkpoint_every_steps":
+        assert stopped["steps"]["step_1"] == 2 and "step_1.pt" in stopped["files"]
+        assert not any(n.startswith("step") for n in os.listdir(exp))
+        assert not any(k.startswith("step") for k in meta)
+    elif key == "fault_abort_step":
+        assert stopped["msg"] == "fault_abort_step: injected failure at step 3"
+        log = (exp / "train_caption.log").read_text()
+        assert "at step 2 → epoch 1 (skipping 2 consumed batches)" in log
+        assert meta["last"] == 4
+    elif key == "profile_dir":
+        # the stopped run's trace (closed on the way out), then the resumed one's
+        assert len(stopped["traces"]) == 1
+        traces = list((exp.parents[2] / "prof").glob("*.json"))
+        assert len(traces) == 2
+        assert "traceEvents" in json.loads(traces[0].read_text())
+    elif key == "scheduler":
+        # the first epoch always improves on no score at all
+        assert meta["plateau_scale"] == 1.0 and meta["plateau_num_bad"] == 0
+        assert meta["plateau_best"] == metrics["val_cider"]
 
 
 @pytest.mark.parametrize("key,value,item", LATER, ids=[k for k, _, _ in LATER])
-def test_train_refuses_later_items(ws, key, value, item):
+def test_train_refuses_later_items(ws, key, value, item, tmp_path, request):
+    """Keys of later ROADMAP items raise, naming the item; the keys the port
+    now runs (``later_run``), as the JAX CLI runs them."""
     if item is None:
         conf = load_config(str(ws / "port.yaml"), **{key: value})
         cli._refuse_later_items(conf)
         assert cli._upload_dtype(conf) is None
         return
+    if item == RUNS:
+        _check_later_run(key, *request.getfixturevalue("later_run"))
+        return
     exc, match = (NotImplementedError, item) if isinstance(item, str) else item
     with pytest.raises(exc, match=match):
         cli.main(["train", str(ws / "port.yaml"), "--device=cpu",
-                  f"--{key}={value}", "--outputpath=/nonexistent/never"])
-    assert not Path("/nonexistent/never").exists()
+                  f"--{key}={value}", f"--outputpath={tmp_path / 'out'}"])
+    if exc is NotImplementedError:
+        assert not (tmp_path / "out").exists()
 
 
 def test_train_uploads_bf16_rounded_mels(ws, tmp_path, monkeypatch):

@@ -27,7 +27,8 @@ from acvae_tpu.train.trainer import TrainState, build_optimizer, make_train_step
 from acvae_tpu_torch.configs import FLAGSHIP_CONF, flagship_conf
 from acvae_tpu_torch.convert import from_flax
 from acvae_tpu_torch.models.build import build_model
-from acvae_tpu_torch.train.trainer import Trainer, apply_gradients, make_optimizer
+from acvae_tpu_torch.train.optim import OptaxChain
+from acvae_tpu_torch.train.trainer import Trainer
 from tests.test_torch_warp import jax_augment_draws
 
 V, E, N, TMEL, FDIM, L = 25, 16, 3, 64, 16, 8
@@ -197,7 +198,9 @@ def test_adam_with_clip_matches_optax():
     j_params, j_state = jax.tree_util.tree_map(jnp.asarray, params), None
     j_state = tx.init(j_params)
     t_params = [torch.tensor(params[k], requires_grad=True) for k in shapes]
-    opt = make_optimizer(t_params, 5e-4)
+    port_schedule = lambda step: float(schedule(step))  # noqa: E731
+    opt = OptaxChain(zip(shapes, t_params), "Adam", port_schedule,
+                     max_grad_norm=1.0)
     for step, scale in enumerate((3.0, 0.05, 1.7, 0.2)):
         grads = {k: (rng.normal(size=s) * scale).astype(np.float32)
                  for k, s in shapes.items()}
@@ -206,7 +209,8 @@ def test_adam_with_clip_matches_optax():
         j_params = optax.apply_updates(j_params, upd)
         for p, k in zip(t_params, shapes):
             p.grad = torch.tensor(grads[k])
-        norm = apply_gradients(opt, float(schedule(step)), 1.0)
+        assert opt.lr() == port_schedule(step)
+        norm = opt.step()
         np.testing.assert_allclose(float(norm), float(optax.global_norm(grads)),
                                    rtol=1e-6)
         for p, k in zip(t_params, shapes):
@@ -245,16 +249,31 @@ def test_weights_round_trip():
                                           err_msg="/".join(path))
 
 
+# keys the port now runs, with what their Trainer shows of them
+PORTED = {"free_bits": lambda t: t.conf["free_bits"] == 0.1,
+          "optimizer": lambda t: t.optimizer.name == "SGD",
+          "global_loss": lambda t: t.conf["global_loss"] == "kl"}
+
+
 @pytest.mark.parametrize("key,value", [
     ("free_bits", 0.1), ("adverse_loss", {"discriminator": "d"}),
     ("embedding_loss", "MSE"), ("use_aug_prob", 0.5),
     ("optimizer", "SGD"), ("global_loss", "kl"), ("model", "GlobalVAEModel"),
     ("encodermodel", "Cnn14")])
 def test_unported_branches_raise(key, value):
-    """Branches outside the slice raise instead of being silently ignored."""
+    """Branches outside the port raise instead of being silently ignored;
+    free_bits, the optimizers and global_loss: kl build and take
+    a step (``tests/test_torch_train_extras.py`` holds them against JAX)."""
+    conf = _port_conf(dict(SMALL, **{key: value}))
+    if key in PORTED:
+        trainer = Trainer(conf, V, FDIM, device="cpu", total_iters=10)
+        assert PORTED[key](trainer)
+        m = trainer.step(_batch(), iteration=1, epoch=1)
+        assert all(torch.isfinite(v).all() for v in m.values())
+        assert ("kl_raw" in m) == (key == "free_bits")
+        return
     with pytest.raises(NotImplementedError):
-        Trainer(_port_conf(dict(SMALL, **{key: value})), V, FDIM, device="cpu",
-                total_iters=10)
+        Trainer(conf, V, FDIM, device="cpu", total_iters=10)
 
 
 def test_trainer_ratios_follow_the_cli():
