@@ -12,17 +12,20 @@ the JAX package is the frozen reference that the tests hold it against.
   hybrid posterior, AR prior, attention GRU decoder) and the other families
   of ``configs/`` (``VAEModel`` with a Normal or GMM prior,
   ``SimpleVAEModel``, ``TransVAEModel``, ``Seq2SeqAttnModel``,
-  ``TransformerModel``), their train and inference forwards, and the int8
-  serving encoder (``quant``).
+  ``TransformerModel``), their train and inference forwards, the encoder
+  zoo (``encoders.ENCODERS``: the PANN Cnn10, Cnn14 and ResNet38 and 13
+  others) and the int8 serving encoder of Cnn10 and Cnn14 (``quant``).
 * ``acvae_tpu_torch.decoding`` — next-word sampling, the batched beam
   search, diverse beam search and the probability-averaged ensemble.
-* ``acvae_tpu_torch.data`` — the vocabulary, the corpus and its loader.
+* ``acvae_tpu_torch.data`` — the vocabulary, the corpus and its loader,
+  and kaldi ``.scp``/``.ark`` feature tables.
 * ``acvae_tpu_torch.evaluation`` — the COCO scorers, the diversity suite
   and the human (leave-one-out) bounds.
 * ``acvae_tpu_torch.cli`` — ``train``, ``evaluate``, ``predict``,
   ``diversity``, ``ensemble``, ``human_eval`` and the corpus commands.
-* ``acvae_tpu_torch.train``  — schedules, the train step and the
-  experiment dir (config, vocabulary, weights).
+* ``acvae_tpu_torch.train``  — schedules, the train step, the
+  experiment dir (config, vocabulary, weights) and the warm starts
+  (reference, PANN and espnet checkpoints).
 * ``acvae_tpu_torch.serve``  — ``CaptionService`` and the micro-batching
   HTTP server (``python -m acvae_tpu_torch.serve <exp_dir>``).
 

@@ -17,6 +17,9 @@ Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
 (``--augments=[timewarp,timemask]``).  Every command runs on ``cuda`` unless
 ``--device=cpu`` is given, and refuses to start without a card otherwise.
+A feature manifest (``h5_csv``, ``eval_h5_csv``, ...) is the TSV of
+``audio_id``/``hdf5_path`` or a kaldi ``.scp``/binary ``.ark`` table, read
+into memory.
 
 ``train`` writes ``<outputpath>/<model>/<remark>_<beta>[_<alpha>]/seed_<N>/``
 with ``train_caption.log`` (the epoch table), ``config.json``,
@@ -66,6 +69,7 @@ from acvae_tpu_torch.core.config import Config, load_config
 from acvae_tpu_torch.core.miniyaml import safe_load
 from acvae_tpu_torch.data.dataset import (CaptionDataset, CaptionLoader,
                                           refs_of)
+from acvae_tpu_torch.data.kaldi import read_mat_ark, read_mat_scp
 from acvae_tpu_torch.data.vocab import (Vocabulary, build_vocab as _build_vocab,
                                         load_caption_info, tokenize)
 from acvae_tpu_torch.decoding.ensemble import ensemble_decode
@@ -160,11 +164,22 @@ def _setup_logger(logfile: Optional[str]) -> logging.Logger:
 
 def _read_manifest(path: str) -> Dict[str, str]:
     """The TSV of ``audio_id``/``hdf5_path`` columns (base_runner.py:41-47)."""
-    if str(path).endswith((".scp", ".ark")):
-        _later("kaldi feature tables (.scp/.ark)", "A16/A20")
     with open(path, newline="") as f:
         return {row["audio_id"]: row["hdf5_path"]
                 for row in csv.DictReader(f, delimiter="\t")}
+
+
+def _feature_source(path: str) -> Dict[str, Dict[str, Any]]:
+    """``CaptionDataset`` kwargs for a feature manifest
+    (``acvae_tpu/cli/main.py:91-106``): a kaldi ``.scp`` or binary ``.ark``
+    is read into an in-memory ``features`` dict; anything else is the TSV
+    ``manifest``."""
+    p = str(path)
+    if p.endswith(".scp"):
+        return {"features": dict(read_mat_scp(p))}
+    if p.endswith(".ark"):
+        return {"features": dict(read_mat_ark(p))}
+    return {"manifest": _read_manifest(p)}
 
 
 def _train_val_split(caption_info: List[dict], percent: float, seed: int):
@@ -227,18 +242,19 @@ def _to_device(batch, device: torch.device,
 def _build_dataloaders(conf: Config, vocab: Vocabulary):
     zh = conf.get("zh", False)
     if "train_h5_csv" in conf:
-        train_src = _read_manifest(conf["train_h5_csv"])
-        val_src = _read_manifest(conf["val_h5_csv"])
+        train_src = _feature_source(conf["train_h5_csv"])
+        val_src = _feature_source(conf["val_h5_csv"])
         train_info = load_caption_info(conf["train_caption_file"], zh)
         val_info = load_caption_info(conf["val_caption_file"], zh)
     else:
-        train_src = val_src = _read_manifest(conf["h5_csv"])
+        train_src = val_src = _feature_source(conf["h5_csv"])
         info = load_caption_info(conf["caption_file"], zh)
         tr, va = _train_val_split(info, conf["train_percent"], conf["seed"])
         train_info, val_info = [info[i] for i in tr], [info[i] for i in va]
-    train_ds = CaptionDataset(train_src, train_info, vocab,
+    train_ds = CaptionDataset(**train_src, caption_info=train_info,
+                              vocabulary=vocab,
                               embedding_path=conf.get("embedding_path"))
-    val_ds = CaptionDataset(val_src, val_info, vocab)
+    val_ds = CaptionDataset(**val_src, caption_info=val_info, vocabulary=vocab)
     bs = conf.get("dataloader_args", {}).get("batch_size", conf["batch_size"])
     train_loader = CaptionLoader(train_ds, bs, shuffle=True, seed=conf["seed"])
     val_loader = CaptionLoader(val_ds, bs, shuffle=False)
@@ -465,9 +481,9 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
                 or conf["caption_file"])
     info = load_caption_info(cap_file, conf.get("zh", False))
     # one item per clip (caption_dataset.py:20-63); references from all
-    ds = CaptionDataset(_read_manifest(manifest),
-                        [{**a, "captions": a["captions"][:1]} for a in info],
-                        vocab)
+    ds = CaptionDataset(**_feature_source(manifest), vocabulary=vocab,
+                        caption_info=[{**a, "captions": a["captions"][:1]}
+                                      for a in info])
     loader = CaptionLoader(ds, conf.get("batch_size", 32))
     gen = torch.Generator(device).manual_seed(seed)
     kw = dict(decode_method=decode_method, beam_size=beam_size,
@@ -529,9 +545,12 @@ def predict(experiment_path: str, h5_csv: str, output: str = "predictions.csv",
     device = _device(device)
     conf, vocab, model = load_experiment(experiment_path, checkpoint,
                                          device=device)
-    manifest = _read_manifest(h5_csv)
-    info = [{"audio_id": aid, "captions": [{"tokens": ""}]} for aid in manifest]
-    loader = CaptionLoader(CaptionDataset(manifest, info, vocab),
+    src = _feature_source(h5_csv)
+    # the clips: the keys of the manifest or of the features alike
+    info = [{"audio_id": aid, "captions": [{"tokens": ""}]}
+            for aid in next(iter(src.values()))]
+    loader = CaptionLoader(CaptionDataset(**src, caption_info=info,
+                                          vocabulary=vocab),
                            conf.get("batch_size", 32))
     gen = torch.Generator(device).manual_seed(seed)
     decode = partial(_decode_model(model, decode_dtype).inference_forward,
@@ -611,8 +630,8 @@ def ensemble(*experiment_paths: str, eval_h5_csv: Optional[str] = None,
                     or conf["caption_file"])
         info = load_caption_info(cap_file, conf.get("zh", False))
         loader = CaptionLoader(CaptionDataset(
-            _read_manifest(manifest),
-            [{**a, "captions": a["captions"][:1]} for a in info], vocab),
+            **_feature_source(manifest), vocabulary=vocab,
+            caption_info=[{**a, "captions": a["captions"][:1]} for a in info]),
             conf.get("batch_size", 32))
         members.append(model)
     gen = torch.Generator(device).manual_seed(seed)

@@ -5,9 +5,18 @@
 returns the tensors under the port's (the reference's torch) names:
 
 * Dense kernels [in, out] and RNN ``wi``/``wh`` transpose to torch's
-  [out, in]; conv kernels go HWIO -> OIHW; the stem conv keeps only its
-  first input lane, and the JAX stem's padded lanes (they read only zeros)
-  go to the encoder's ``stem_pad_lanes`` buffer, which the int8 bake reads;
+  [out, in]; conv kernels go HWIO -> OIHW; a stem conv that stages mels
+  (``_stage_mel``) keeps only its first input lane: the PANN family's
+  padded lanes (they read only zeros) go to the encoder's
+  ``stem_pad_lanes`` buffer, which the int8 bake reads, and CNN10Q/D's
+  and CRNN8_Sub4's (``b0_conv1``) are dropped;
+* the PANN encoders take PANN's names: Cnn10's ``block<i>_<c>`` is
+  ``conv_block<i+1>``; Cnn14's ``block64``..``block2048`` are
+  ``conv_block1``..``conv_block6``; in a ResNet38 (told apart by its
+  ``layer1_0``) ``block64``/``block2048`` are ``conv_block1``/
+  ``conv_block_after1``, ``layer<s>_<b>`` is ``resnet.layer<s>.<b>`` and
+  its ``ds_conv``/``ds_bn`` are ``downsample.0``/``downsample.1``;
+  ``_MelBatchNorm_0/bn0`` is ``bn0``;
 * flax BatchNorm ``scale``/``bias`` and batch_stats ``mean``/``var`` become
   ``weight``/``bias`` and ``running_mean``/``running_var``;
 * a BiGRU's ``fwd``/``bwd`` cells become ``*_l0`` / ``*_l0_reverse``;
@@ -50,16 +59,36 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()):
         yield prefix, np.asarray(tree, dtype=np.float32)
 
 
-def _module_path(mods) -> Tuple[str, str]:
-    """flax module path -> (torch module prefix, rnn weight suffix)."""
+def _pann_block(c: int, resnet38: bool) -> str:
+    """A PANN ``block<c>`` ConvBlock's torch name: Cnn14's six are
+    ``conv_block1``..``conv_block6`` (64..2048); ResNet38's two are
+    ``conv_block1`` and ``conv_block_after1``."""
+    if resnet38:
+        return "conv_block1" if c == 64 else "conv_block_after1"
+    return f"conv_block{c.bit_length() - 6}"
+
+
+def _module_path(mods, resnet38=frozenset()) -> Tuple[str, str]:
+    """flax module path -> (torch module prefix, rnn weight suffix).
+    ``resnet38`` holds the paths of the ResNet38 encoders in the tree (their
+    ``block<c>``/``layer<s>_<b>``/``ds_*`` take PANN's ResNet38 names)."""
     out, suffix = [], ""
-    for m in mods:
+    for i, m in enumerate(mods):
+        in_r38 = tuple(mods[:i]) in resnet38
         blk = re.fullmatch(r"block(\d+)_\d+", m)
+        pann = re.fullmatch(r"block(\d+)", m)
+        r38_layer = in_r38 and re.fullmatch(r"layer(\d+)_(\d+)", m)
+        layer = re.fullmatch(r"layer(\d+)", m)
         if m == "_MelBatchNorm_0":
             continue
-        layer = re.fullmatch(r"layer(\d+)", m)
         if blk:
             out.append(f"conv_block{int(blk.group(1)) + 1}")
+        elif pann:
+            out.append(_pann_block(int(pann.group(1)), in_r38))
+        elif r38_layer:
+            out.append(f"resnet.layer{r38_layer.group(1)}.{r38_layer.group(2)}")
+        elif m in ("ds_conv", "ds_bn") and tuple(mods[:i - 1]) in resnet38:
+            out.append("downsample.0" if m == "ds_conv" else "downsample.1")
         elif layer:
             out.append(f"model.layers.{layer.group(1)}")
         elif m == "cross_attn":
@@ -73,22 +102,35 @@ def _module_path(mods) -> Tuple[str, str]:
     return ".".join(out), suffix
 
 
+def _resnet38_paths(variables: Dict[str, Any]) -> frozenset:
+    """The module paths holding both ``layer1_0`` and ``block2048``: the
+    ResNet38 encoders (a ResNetEncoder has ``layer1_0`` and no
+    ``block2048``, a Cnn14 ``block2048`` and no ``layer1_0``)."""
+    kids: Dict[Tuple[str, ...], set] = {}
+    for path, _ in _flatten(variables.get("params", {})):
+        for i, m in enumerate(path[:-1]):
+            kids.setdefault(tuple(path[:i]), set()).add(m)
+    return frozenset(p for p, k in kids.items() if {"layer1_0", "block2048"} <= k)
+
+
 def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, np.ndarray] = {}
     attn: Dict[str, Dict[str, np.ndarray]] = {}
     mha: Dict[str, Dict[str, np.ndarray]] = {}
+    r38 = _resnet38_paths(variables)
+    module_path = lambda mods: _module_path(mods, r38)  # noqa: E731
     for coll in ("params", "batch_stats"):
         for path, a in _flatten(variables.get(coll, {})):
             *mods, leaf = path
             if mods and mods[-1] in ("dec_proj", "enc_proj"):
-                attn.setdefault(_module_path(mods[:-1])[0], {})[
+                attn.setdefault(module_path(mods[:-1])[0], {})[
                     f"{mods[-1]}.{leaf}"] = a
                 continue
             if len(mods) > 1 and mods[-1] in _MHA and mods[-2].endswith("_attn"):
-                mha.setdefault(_module_path(mods[:-1])[0], {})[
+                mha.setdefault(module_path(mods[:-1])[0], {})[
                     f"{mods[-1]}.{leaf}"] = a
                 continue
-            prefix, suffix = _module_path(mods)
+            prefix, suffix = module_path(mods)
             key = prefix + "." if prefix else ""
             if coll == "batch_stats":
                 sd[key + _STATS[leaf]] = a
@@ -99,6 +141,8 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     enc = prefix[:-len("conv_block1.conv1")]
                     sd[enc + "stem_pad_lanes"] = a[:, :, 1:, :].transpose(3, 2, 0, 1)
                     a = a[:, :, :1, :]
+                elif prefix == "b0_conv1" or prefix.endswith(".b0_conv1"):
+                    a = a[:, :, :1, :]   # CNN10Q/D, CRNN8_Sub4: lanes dropped
                 sd[key + "weight"] = a.transpose(3, 2, 0, 1)
             elif leaf == "kernel":
                 sd[key + "weight"] = a.T

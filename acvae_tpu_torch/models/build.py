@@ -3,9 +3,10 @@
 The reference's model names: ``Hybrid_VAEModel`` and ``VAEModel``
 (``VAECaptionModel``), ``SimpleVAEModel``, ``TransVAEModel``,
 ``Seq2SeqAttnModel`` (``AttnCaptionModel``) and ``TransformerModel``, each
-with its default posterior.  The encoder is Cnn10 (the others are ROADMAP
-A16); the decoders and latents are those of ``models/decoders.py`` and
-``models/latent.py``.  The decoder's memory size is its embed size; when
+with its default posterior.  The encoder is any of ``models/encoders.py``'s
+``ENCODERS`` by the JAX package's name (the composites' ``trunk``/``crnn``/
+``cnn`` given as dicts with a ``name``); the decoders and latents are those
+of ``models/decoders.py`` and ``models/latent.py``.  The decoder's memory size is its embed size; when
 the encoder's differs, the model's ``ln`` adapter maps it.  Any other name
 raises NotImplementedError.
 """
@@ -14,19 +15,16 @@ from __future__ import annotations
 import inspect
 from typing import Any, Dict, Optional
 
-import torch
-
 from acvae_tpu_torch import DEFAULT_DEVICE
 from acvae_tpu_torch.models.captioner import AttnCaptionModel, TransformerCaptionModel
 from acvae_tpu_torch.models.decoders import DECODERS
-from acvae_tpu_torch.models.encoders import Cnn10
+from acvae_tpu_torch.models.encoders import build_encoder
 from acvae_tpu_torch.models.latent import (GMMPriorRNN, PosteriorRNN,
                                            PosteriorRNNHybrid, PosteriorSentence,
                                            PriorRNN)
 from acvae_tpu_torch.models.trans_vae import TransVAECaptionModel
 from acvae_tpu_torch.models.vae import SimpleVAECaptionModel, VAECaptionModel
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 LATENTS = {c.__name__: c for c in (PosteriorRNN, PosteriorSentence, PriorRNN,
                                    GMMPriorRNN)}
 LATENTS["PosteriorRNN_hybrid"] = PosteriorRNNHybrid
@@ -62,18 +60,14 @@ def build_model(conf: Dict[str, Any], vocab_size: int, data_dim: int,
             f"model {name!r} is not ported: the port builds {', '.join(MODELS)} "
             f"(the CaptionSentenceModel head of configs/sentence.yaml is "
             f"ROADMAP A17 part 2)")
-    if conf.get("encodermodel", "Cnn10") != "Cnn10":
-        raise NotImplementedError(f"encodermodel={conf['encodermodel']!r} is "
-                                  f"not ported (only 'Cnn10'; ROADMAP A16)")
     dec_name = conf.get("decoder", "VAERNNBahdanauAttnDecoder")
     if dec_name not in DECODERS:
         raise NotImplementedError(f"decoder {dec_name!r} is not ported (the JAX "
                                   f"package registers {sorted(DECODERS)})")
     model_args = dict(conf.get("model_args", {}))
 
-    enc_args = dict(conf.get("encoder_args", {}))
-    enc_args["dtype"] = _DTYPES[enc_args.get("dtype", "float32")]
-    encoder = Cnn10(inputdim=data_dim, device=device, **enc_args)
+    encoder = build_encoder(conf.get("encodermodel", "Cnn10"),
+                            conf.get("encoder_args", {}), data_dim, device)
     dec_args = dict(conf.get("decoder_args", {}))
     embed = dec_args.setdefault("embed_size", encoder.embed_size)
     decoder = DECODERS[dec_name](vocab_size, enc_mem_size=embed, device=device,

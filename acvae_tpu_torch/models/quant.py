@@ -1,7 +1,8 @@
 """Int8 serving encoder (counterpart of ``acvae_tpu/models/quant.py``).
 
-Reinterprets the port's trained f32 ``Cnn10`` as an int8 conv pipeline,
-inference only, with the JAX package's schemes and arithmetic:
+Reinterprets the port's trained f32 PANN ``Cnn10`` or ``Cnn14`` as an int8
+conv pipeline, inference only, with the JAX package's schemes and
+arithmetic:
 
 * conv weights: symmetric per-output-channel int8, with the per-input-channel
   activation scales folded in before quantization (bake time);
@@ -22,8 +23,11 @@ the encoder's device with TF32 off.
 
 Schemes (``--int8_scheme``): v1 per-tensor symmetric; v2 per-channel +
 offset coding; v2sym per-channel symmetric (the serving default); v3 v2sym
-+ MSE-optimal clips + bias correction; v4 v2sym + quantized tail.  Only
-Cnn10 is ported (Cnn14 is ROADMAP A16).
++ MSE-optimal clips + bias correction; v4 v2sym + quantized tail.  Cnn14's
+last block has no pool, so its five pools all run on the codes, and its
+last conv's 18,432-term int32 sums (2048 channels) reach ~3e8, past
+float32's 2^24: the conversion rounds to nearest, as JAX's
+``astype(float32)`` does.
 """
 from __future__ import annotations
 
@@ -89,8 +93,8 @@ def _arch_spec(arch: str, channels: Sequence[int]) -> Dict[str, Any]:
                            for i in range(len(channels))],
                 "head": "embed_pooled", "subsample": 16}
     if arch == "Cnn14":
-        raise NotImplementedError("the int8 Cnn14 encoder is not ported: the "
-                                  "port has no Cnn14 (ROADMAP A16)")
+        return {"blocks": [(f"conv_block{i + 1}", i < 5) for i in range(6)],
+                "head": "fc1", "subsample": 32}
     raise ValueError(f"int8 quantization supports Cnn10/Cnn14, not {arch!r}")
 
 
@@ -113,7 +117,7 @@ def _frame_mask(n_time: int, n_valid: torch.Tensor) -> torch.Tensor:
 
 
 class QuantPannEncoder:
-    """Int8 reinterpretation of a trained port ``Cnn10``.
+    """Int8 reinterpretation of a trained port ``Cnn10`` or ``Cnn14``.
 
     ``QuantPannEncoder(encoder, calib_feats, calib_lens, **scheme)`` (or
     :meth:`from_bn0_stats`) bakes on the encoder's device; then
@@ -415,8 +419,9 @@ class QuantPannEncoder:
                 x = avgpool2x2_f32(x) if x.dtype == torch.float32 \
                     else avgpool2x2_i8(x)
         if self.quant_tail:
-            # freq mean on the codes (int32 sum over the post-pool bins),
-            # dequantized on the 16× smaller [N, T', C]
+            # freq mean on the codes (int32 sum over the last map's bins:
+            # Cnn10's 4 after its pool, Cnn14's 2 unpooled), dequantized
+            # on the smaller [N, T', C]
             x = (torch.sum(x.to(torch.int32), dim=2).float()
                  * (self._s_tail / x.shape[2]))
         else:
@@ -427,7 +432,7 @@ class QuantPannEncoder:
                 "audio_embeds_lens": lens}
 
 
-# the JAX package's name for the Cnn10 default
+# the JAX package's name for it (Cnn10, the default arch)
 QuantCnn10 = QuantPannEncoder
 
 # named quantization schemes (``quant.py:498-521``, the --int8_scheme values)

@@ -77,14 +77,15 @@ def diagnose_experiment(exp_dir: str, h5_csv: Optional[str] = None,
     batches of the caption file (every caption; the recipe's own files
     when not given), shuffled with ``seed``.  Batch i draws from seed
     100 + i under both z."""
-    from acvae_tpu_torch.cli.main import _read_manifest
+    from acvae_tpu_torch.cli.main import _feature_source
 
     exp = Path(exp_dir)
     conf = json.loads((exp / "config.json").read_text())
     vocab = Vocabulary.load(str(exp / "vocab.pkl"))
     info = load_caption_info(caption_file or conf["caption_file"],
                              conf.get("zh", False))
-    ds = CaptionDataset(_read_manifest(h5_csv or conf["h5_csv"]), info, vocab)
+    ds = CaptionDataset(**_feature_source(h5_csv or conf["h5_csv"]),
+                        caption_info=info, vocabulary=vocab)
     loader = CaptionLoader(ds, batch_size, shuffle=True, seed=seed)
     device = torch.device(device)
     model = build_model(conf, len(vocab), ds.data_dim, device=device)

@@ -12,18 +12,25 @@ tensors"`` (and ``[batch_stats]`` for the buffers).  ``pretrained`` and
 and ``pretrained_decoder`` into that submodule (the source's names are
 then the submodule's own).
 
-Sources: the port's own ``.pt`` and a reference ``.pth``/``.pt`` (its
-``{"model": ...}`` wrapper unwrapped).  PANN and espnet state dicts wait
-for ROADMAP A16; an orbax directory or a pickled flax tree reaches the port
-through the JAX side (``acvae_tpu_torch/convert.py::experiment_from_flax``).
+Sources: the port's own ``.pt``, a reference ``.pth``/``.pt`` (its
+``{"model": ...}`` wrapper unwrapped), a PANN audio-tagger checkpoint
+(Cnn10, Cnn14_16k, ResNet38: :func:`pann_state_dict`) and an espnet
+VGG2L+RNNP encoder (:func:`espnet_state_dict`), the last two renamed as
+the JAX package's ``pann_to_flax``/``espnet_to_flax`` route them
+(``acvae_tpu/train/pretrained.py:86-172, 422-517``).  An orbax directory or
+a pickled flax tree reaches the port through the JAX side
+(``acvae_tpu_torch/convert.py::experiment_from_flax``).
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
+
+from acvae_tpu_torch.models.encoders import STEM_LANE_PAD
 
 # (config key, the submodule it loads into, None for the whole model)
 PRETRAINED_KEYS = (("pretrained", None), ("pretrained_encoder", "encoder"),
@@ -95,11 +102,120 @@ def _looks_like_espnet(state_dict: Dict[str, Any]) -> bool:
             for k in state_dict)
 
 
-def load_state_source(path: str) -> Dict[str, Any]:
-    """The flat state dict a ``pretrained*`` key names.  A missing file
-    raises FileNotFoundError; PANN and espnet dicts NotImplementedError
-    (ROADMAP A16); a directory or a non-torch file ValueError naming the
-    JAX-side route."""
+def _tensor(v) -> torch.Tensor:
+    return (v.detach().cpu() if torch.is_tensor(v)
+            else torch.as_tensor(np.asarray(v))).float()
+
+
+def pann_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A PANN checkpoint's tensors under the port encoder's names, as
+    ``pann_to_flax`` routes them (``pretrained.py:86-172``): the arch is
+    ResNet38 where a ``resnet.`` key exists, else Cnn14 where
+    ``conv_block6`` does, else Cnn10; Cnn10's ``fc1`` (or the reference's
+    ``embed_pooled``) is ``embed_pooled``; the spectrogram frontend,
+    ``fc_audioset`` and every other key are skipped.  A one-lane stem gets
+    a zero ``stem_pad_lanes``, the JAX stem's zero-padded lanes.  A
+    ResNet38 shortcut is ``downsample.0``/``.1`` (``downsample.1``/``.2``
+    behind PANN's stride-2 AvgPool2d, renamed down)."""
+    arch = ("ResNet38" if any(k.startswith("resnet.") for k in sd) else
+            "Cnn14" if any(k.startswith("conv_block6") for k in sd) else "Cnn10")
+    blocks = {"Cnn10": [f"conv_block{i}" for i in range(1, 5)],
+              "Cnn14": [f"conv_block{i}" for i in range(1, 7)],
+              "ResNet38": ["conv_block1", "conv_block_after1"]}[arch]
+    bn = (".weight", ".bias", ".running_mean", ".running_var")
+    names = {"bn0" + s: "bn0" + s for s in bn}
+    for blk in blocks:
+        for j in (1, 2):
+            names[f"{blk}.conv{j}.weight"] = f"{blk}.conv{j}.weight"
+            names.update({f"{blk}.bn{j}{s}": f"{blk}.bn{j}{s}" for s in bn})
+    if arch == "ResNet38":
+        for k in sd:
+            m = re.fullmatch(r"(resnet\.layer\d+\.\d+)\.(conv[12]\.weight|"
+                             r"bn[12]\.\w+|downsample\.(\d)\.\w+)", k)
+            if m and not k.endswith("num_batches_tracked"):
+                shift = int(f"{m.group(1)}.downsample.2.weight" in sd)
+                names[k] = (k if m.group(3) is None else
+                            f"{m.group(1)}.downsample.{int(m.group(3)) - shift}."
+                            + k.rsplit(".", 1)[1])
+    head = "embed_pooled" if arch == "Cnn10" else "fc1"
+    for src in (("embed_pooled", "fc1") if arch == "Cnn10" else ("fc1",)):
+        names.update({f"{src}.weight": f"{head}.weight", f"{src}.bias": f"{head}.bias"})
+    out = {dst: _tensor(sd[src]) for src, dst in names.items() if src in sd}
+    stem = out.get(f"{blocks[0]}.conv1.weight")
+    if stem is not None and stem.shape[1] == 1:
+        out["stem_pad_lanes"] = torch.zeros(stem.shape[0], STEM_LANE_PAD - 1,
+                                            *stem.shape[2:])
+    return out
+
+
+def espnet_state_dict(sd: Dict[str, Any], inputdim: int = 64,
+                      log: Callable = print) -> Dict[str, torch.Tensor]:
+    """An espnet ``vggbgrup`` encoder's tensors under the port's
+    ``E2EASREncoder`` names, as ``espnet_to_flax`` converts them
+    (``pretrained.py:422-517``): the ``enc.enc.``/``enc.`` prefix dropped,
+    VGG2L's ``conv<s>_<j>`` -> ``vgg<s-1>_conv<j>``, ``birnn<i>``/``rnn<i>``
+    -> ``bgru<i>`` and ``bt<i>`` -> ``proj<i>``.  espnet flattens VGG2L's
+    output channel-major and the port freq-major, so the first GRU layer's
+    input columns are permuted; that needs ``inputdim % 4 == 0`` (espnet
+    ceil-pools the freq axis, the port floor-pools), else ValueError.  A
+    layer with 4 gate blocks (LSTM) is skipped with a log line."""
+    sd = dict(sd)
+    for pre in ("enc.enc.", "enc."):
+        if any(k.startswith(pre + "0.") for k in sd):
+            sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+            break
+    out: Dict[str, torch.Tensor] = {}
+    for stage in (1, 2):
+        for j in (1, 2):
+            for leaf in ("weight", "bias"):
+                key = f"0.conv{stage}_{j}.{leaf}"
+                if key in sd:
+                    out[f"vgg{stage - 1}_conv{j}.{leaf}"] = _tensor(sd[key])
+    if inputdim % 4 != 0:
+        raise ValueError(
+            f"espnet checkpoint: inputdim={inputdim} is not divisible by 4 — "
+            f"espnet's VGG2L ceil-pools the freq axis "
+            f"(ceil(ceil({inputdim}/2)/2)={-(-(-(-inputdim // 2)) // 2)}) "
+            f"while E2EASREncoder floor-pools ({inputdim // 4}), so the "
+            f"flattened RNN input layouts cannot be reconciled; re-extract "
+            f"features at a multiple-of-4 mel dim (espnet_inputdim config key)")
+    fp = inputdim // 4
+    perm = torch.tensor([c * fp + f for f in range(fp) for c in range(128)])
+    i = 0
+    while f"1.birnn{i}.weight_ih_l0" in sd or f"1.rnn{i}.weight_ih_l0" in sd:
+        base = f"1.birnn{i}" if f"1.birnn{i}.weight_ih_l0" in sd else f"1.rnn{i}"
+        gates = sd[base + ".weight_ih_l0"].shape[0]
+        hidden = sd[base + ".weight_hh_l0"].shape[1]
+        if gates != 3 * hidden:
+            log(f"skip {base}: {gates // hidden}-gate RNN is not a GRU "
+                "(vggblstmp checkpoint?) — E2EASREncoder is the vggbgrup flavor")
+            i += 1
+            continue
+        for rev in ("", "_reverse"):
+            if f"{base}.weight_ih_l0{rev}" not in sd:
+                continue
+            for leaf in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"):
+                t = _tensor(sd[f"{base}.{leaf}_l0{rev}"])
+                if i == 0 and leaf == "weight_ih":
+                    t = t[:, perm]
+                out[f"bgru{i}.{leaf}_l0{rev}"] = t
+        for leaf in ("weight", "bias"):
+            if f"1.bt{i}.{leaf}" in sd:
+                out[f"proj{i}.{leaf}"] = _tensor(sd[f"1.bt{i}.{leaf}"])
+        i += 1
+    if i == 0:
+        log("no RNNP layers found — not a VGG2L+RNNP encoder dict?")
+    return out
+
+
+def load_state_source(path: str, espnet_inputdim: int = 64,
+                      log: Callable = print) -> Dict[str, Any]:
+    """The flat state dict, in the port's names, that a ``pretrained*`` key
+    names: a whole AC-VAE model's as it is, a PANN or espnet encoder's
+    renamed (:func:`pann_state_dict`, :func:`espnet_state_dict`).  A
+    missing file raises FileNotFoundError; a directory, a non-torch file or
+    a torch file of none of these kinds ValueError, naming the JAX-side
+    route."""
     p = Path(path)
     route = ("convert it on the JAX side: load_raw_checkpoint, then "
              "acvae_tpu_torch/convert.py::experiment_from_flax")
@@ -118,11 +234,9 @@ def load_state_source(path: str) -> Dict[str, Any]:
     if _looks_like_acvae(sd):
         return sd
     if _looks_like_espnet(sd):
-        raise NotImplementedError(f"{path}: espnet encoder checkpoints are not "
-                                  f"ported (ROADMAP A16)")
+        return espnet_state_dict(sd, espnet_inputdim, log)
     if _looks_like_pann(sd):
-        raise NotImplementedError(f"{path}: PANN checkpoints are not ported "
-                                  f"(ROADMAP A16)")
+        return pann_state_dict(sd)
     raise ValueError(f"{path}: torch checkpoint is neither a full AC-VAE "
                      f"model, an espnet encoder, nor a PANN backbone")
 
@@ -135,7 +249,8 @@ def apply_pretrained(conf: Dict[str, Any], model: torch.nn.Module,
     for key, subtree in PRETRAINED_KEYS:
         if key not in conf:
             continue
-        src = load_state_source(conf[key])
+        src = load_state_source(conf[key], int(conf.get("espnet_inputdim", 64)),
+                                log)
         state = model.state_dict()
         cols = {"params": {k: v for k, v in state.items() if k in params},
                 "batch_stats": {k: v for k, v in state.items() if k not in params}}

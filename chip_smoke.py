@@ -15,13 +15,14 @@ Phases, each of which exits nonzero on failure:
    the main path's shapes and at edge cases; times the kernel, the plain
    version and the library call that computes the same function with CUDA
    events (median, L2 flushed).  ``time_warp_1d``: max |error| <= 1e-6.
-   ``conv3x3_i8`` (every conv of the int8 encoder at batch 512, block 1's
-   2^31-element tensors included, and the ragged edges of its tiles) and
-   ``avgpool2x2_i8`` (its 3 pools): max |error| 0, and each beside cuDNN's
+   ``conv3x3_i8`` (every conv of the int8 Cnn10 and Cnn14 at batch 512,
+   block 1's 2^31-element tensors included, Cnn14's 2- and 4-column maps
+   and 2048 channels, and the ragged edges of its tiles) and
+   ``avgpool2x2_i8`` (their 3 and 5 pools): max |error| 0, and each beside cuDNN's
    bf16 ``conv2d``/``avg_pool2d`` at the same shapes, channels-last, and
    each body conv beside ``torch._int_mm`` of its im2col (labelled
-   comparisons, not the same function); the body (7 convs) and the stem
-   reported apart.
+   comparisons, not the same function); Cnn10's body (7 convs) and stem
+   reported apart, and Cnn14's 12 convs (11 body) and 5 pools.
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -125,9 +126,29 @@ Phases, each of which exits nonzero on failure:
    --checkpoint=avg`` in bf16 and with the int8 encoder (80 + 30 launches)
    and ``diagnose`` (its JSON keys).
 
+14. encoders: (a) every registered encoder (``models/encoders.py``) on the
+   card against the CPU at ``tests/test_encoders.py``'s widths (N 2, T 64;
+   Cnn14, ResNet38 and CNN10Encoder at their fixed widths), same weights,
+   eval and train mode with the dropouts off: within 1e-3·(1 + |cpu|),
+   lengths exact.  Then the flagship recipe with PANN Cnn14
+   (``encodermodel: Cnn14``, ``encoder_args.embed_size: 2048``, bf16) at
+   full width: (b) 3 ``Trainer`` steps at batch 32, T_mel 1024 ragged,
+   with the time warp (3 launches); (c) through ``save_experiment``/
+   ``load_experiment``, the beam-3 decode at batch 512 with the bf16
+   encoder, then with the int8 v2sym one calibrated from bn0's statistics
+   (its codes at the 12 quantize points card vs CPU on 2 clips; one
+   warm-up and 5 timed batches; 12 ``conv3x3_i8`` and 5 ``avgpool2x2_i8``
+   a batch): captions/s, the encoder / loop split, peak memory; then
+   ``CaptionService(encoder_int8=True)`` over HTTP; (d) on phase 10's
+   corpus, a seeded state dict in PANN's Cnn14 layout (with its frontend
+   and ``fc_audioset``) as ``train --pretrained_encoder`` for 1 epoch (the
+   ``loaded 40/40`` line), ``evaluate --encoder_int8`` (120 + 50
+   launches), and ``evaluate`` on the ``.npz`` manifest and on the same
+   features as a kaldi ``.scp``/``.ark`` table: the same captions.
+
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families, extras).  Prints a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all seven),
+serve, cli, diverse, families, extras, encoders).  Prints a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all eight),
 then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
@@ -173,8 +194,16 @@ CONV_SHAPES = [(1024, 64, 1, 64), (1024, 64, 64, 64), (512, 32, 64, 128),
                (512, 32, 128, 128), (256, 16, 128, 256), (256, 16, 256, 256),
                (128, 8, 256, 512), (128, 8, 512, 512)]
 POOL_SHAPES = [(1024, 64, 64), (512, 32, 128), (256, 16, 256)]
+# Cnn14 (phase 14) shares Cnn10's first 7 convs and 3 pools; its block 4
+# requantizes (sym) where Cnn10's writes f32, then blocks 5 and 6 (2048
+# channels on 2-column maps; the last conv unpooled, f32): 12 convs and 5
+# int8 pools a batch
+CNN14_CONVS = [(128, 8, 512, 512, "sym"), (64, 4, 512, 1024, "sym"),
+               (64, 4, 1024, 1024, "sym"), (32, 2, 1024, 2048, "sym"),
+               (32, 2, 2048, 2048, "f32relu")]
+CNN14_POOLS = [(128, 8, 512), (64, 4, 1024)]
 PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
-         "extras")
+         "extras", "encoders")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -366,7 +395,10 @@ CONV_EDGES = [  # (N, H, W, Ci, Co, mode, pad_code)
     (2, 17, 24, 192, 128, "f32", -128), (2, 8, 8, 192, 64, "sym", 0),
     # the stem's tile (512 pixels of rows of at most 128 columns)
     (2, 5, 200, 1, 64, "offset", -128), (2, 13, 7, 1, 192, "f32", -128),
-    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0)]
+    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0),
+    # Cnn14's narrow maps at odd heights: 2 and 4 columns, 2048 channels
+    (3, 9, 2, 2048, 128, "sym", 0), (2, 33, 4, 1024, 2048, "f32relu", 0),
+    (2, 5, 2, 2048, 2048, "f32", -128)]
 POOL_EDGES = [(3, 101, 63, 64), (3, 7, 9, 512), (3, 2, 2, 16), (2, 1, 1, 16)]
 
 
@@ -386,81 +418,105 @@ def int_mm_ms(x, w, flush):
     return ms * N / n, n
 
 
+def _conv_case(H, W, ci, co, mode, g, flush):
+    """One conv shape at batch DEC_BATCH: the kernel against its plain
+    version (max |err| 0), timed beside the plain version, cuDNN's bf16
+    conv2d and (body convs) ``torch._int_mm``.  Returns its numbers."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import conv3x3_i8
+    from acvae_tpu_torch.ops.int8 import conv3x3_i8_ref
+
+    F = torch.nn.functional
+    x, w, A, B = conv_inputs(DEC_BATCH, H, W, ci, co, g)
+    w_hwio = w.permute(1, 2, 3, 0)
+    out = conv3x3_i8(x, w, A, B, mode, 0)
+    torch.cuda.synchronize()
+    err = max_err(out, conv3x3_i8_ref(x, w_hwio, A, B, mode, 0))
+    check(err == 0, f"conv3x3_i8 disagrees with its plain version at "
+                    f"[{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: {err}")
+    del out
+    k_ms = time_ms(lambda: conv3x3_i8(x, w, A, B, mode, 0), flush)
+    p_ms = time_ms(lambda: conv3x3_i8_ref(x, w_hwio, A, B, mode, 0), flush,
+                   reps=2)
+    mm, i_ms = "", 0.0
+    if ci > 1:
+        i_ms, n = int_mm_ms(x, w, flush)
+        mm = (f", int8 torch._int_mm {i_ms:.4f} ms (GEMM only, not the same "
+              f"function; im2col of {n} images, scaled)")
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # NHWC as channels-last
+    wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+    l_ms = time_ms(lambda: F.conv2d(xb, wb, padding=1), flush, reps=10)
+    del xb, wb, x
+    ops = 2.0 * DEC_BATCH * H * W * 9 * ci * co
+    nbytes = (DEC_BATCH * H * W * (ci + co * (4 if mode == "f32relu" else 1))
+              + 9 * ci * co + 8 * co)
+    b_ms, by = bound(ops, nbytes, INT8_OPS)
+    print(f"conv3x3_i8 [{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: kernel "
+          f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), plain {p_ms:.4f} "
+          f"ms, bf16 cuDNN conv2d {l_ms:.4f} ms (not the same function)"
+          f"{mm}, bound {b_ms:.4f} ms ({by}); max_abs_err {err}")
+    return dict(ms=k_ms, plain=p_ms, bound=b_ms, by=by, bf16=l_ms,
+                int_mm=i_ms, ops=ops, err=err)
+
+
+def _pool_case(H, W, C, g, flush, pool):
+    """One pool shape at batch DEC_BATCH, as :func:`_conv_case`."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8
+    from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref
+
+    x = torch.randint(-128, 128, (DEC_BATCH, H, W, C), dtype=torch.int8,
+                      device="cuda", generator=g)
+    err = max_err(avgpool2x2_i8(x), avgpool2x2_i8_ref(x))
+    check(err == 0, f"avgpool2x2_i8 disagrees with its plain version at "
+                    f"[{DEC_BATCH},{H},{W},{C}]: {err}")
+    pool["err"] = max(pool["err"], err)
+    k_ms = time_ms(lambda: avgpool2x2_i8(x), flush)
+    p_ms = time_ms(lambda: avgpool2x2_i8_ref(x), flush, reps=10)
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    l_ms = time_ms(lambda: torch.nn.functional.avg_pool2d(xb, 2), flush)
+    del xb
+    b_ms, _ = bound(0, DEC_BATCH * H * W * C * 5 // 4, INT8_OPS)
+    print(f"avgpool2x2_i8 [{DEC_BATCH},{H},{W},{C}]: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bf16 cuDNN avg_pool2d {l_ms:.4f} ms (not "
+          f"the same function), bound {b_ms:.4f} ms (bytes); max_abs_err {err}")
+    pool["ms"] += k_ms
+    pool["plain"] += p_ms
+    pool["bound"] += b_ms
+    pool["bf16"] += l_ms
+
+
+def _tally(cases):
+    """The sums over conv cases of :func:`_conv_case`."""
+    t = {k: sum(c[k] for c in cases)
+         for k in ("ms", "plain", "bound", "bf16", "int_mm", "ops")}
+    by = {b: sum(c["bound"] for c in cases if c["by"] == b)
+          for b in ("operations", "bytes")}
+    return dict(t, convs=len(cases), bound_by=max(by, key=by.get))
+
+
 def int8_kernel_phase(flush):
     """conv3x3_i8 and avgpool2x2_i8 against their plain versions: every
-    shape of a batch of 512 and the edge cases, max |err| 0; times summed
-    over a batch's 7 body convs, its stem and its 3 pools."""
+    shape of a batch of 512 of Cnn10 and of Cnn14, and the edge cases, max
+    |err| 0; times summed over a Cnn10 batch's 7 body convs, its stem and
+    its 3 pools, and over a Cnn14 batch's 12 convs and 5 pools."""
     from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
     from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
 
-    F = torch.nn.functional
     g = torch.Generator("cuda").manual_seed(2)
-    part = {k: dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, int_mm=0.0, ops=0.0,
-                    by={"operations": 0.0, "bytes": 0.0}, convs=0)
-            for k in ("body", "stem")}
-    err_all = 0.0
-    for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1):
-        mode = "f32relu" if k == len(CONV_SHAPES) else "sym"
-        x, w, A, B = conv_inputs(DEC_BATCH, H, W, ci, co, g)
-        w_hwio = w.permute(1, 2, 3, 0)
-        out = conv3x3_i8(x, w, A, B, mode, 0)
-        torch.cuda.synchronize()
-        err = max_err(out, conv3x3_i8_ref(x, w_hwio, A, B, mode, 0))
-        check(err == 0, f"conv3x3_i8 disagrees with its plain version at "
-                        f"[{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: {err}")
-        err_all = max(err_all, err)
-        del out
-        k_ms = time_ms(lambda: conv3x3_i8(x, w, A, B, mode, 0), flush)
-        p_ms = time_ms(lambda: conv3x3_i8_ref(x, w_hwio, A, B, mode, 0), flush,
-                       reps=2)
-        mm = ""
-        c = part["stem" if ci == 1 else "body"]
-        if ci > 1:
-            i_ms, n = int_mm_ms(x, w, flush)
-            c["int_mm"] += i_ms
-            mm = (f", int8 torch._int_mm {i_ms:.4f} ms (GEMM only, not the same "
-                  f"function; im2col of {n} images, scaled)")
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # NHWC as channels-last
-        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
-        l_ms = time_ms(lambda: F.conv2d(xb, wb, padding=1), flush, reps=10)
-        del xb, wb, x
-        ops = 2.0 * DEC_BATCH * H * W * 9 * ci * co
-        nbytes = (DEC_BATCH * H * W * (ci + co * (4 if mode == "f32relu" else 1))
-                  + 9 * ci * co + 8 * co)
-        b_ms, by = bound(ops, nbytes, INT8_OPS)
-        print(f"conv3x3_i8 [{DEC_BATCH},{H},{W},{ci}]->{co} {mode}: kernel "
-              f"{k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s), plain {p_ms:.4f} "
-              f"ms, bf16 cuDNN conv2d {l_ms:.4f} ms (not the same function)"
-              f"{mm}, bound {b_ms:.4f} ms ({by}); max_abs_err {err}")
-        c["ms"] += k_ms
-        c["plain"] += p_ms
-        c["bound"] += b_ms
-        c["by"][by] += b_ms
-        c["bf16"] += l_ms
-        c["ops"] += ops
-        c["convs"] += 1
+    cnn10 = [_conv_case(H, W, ci, co, "f32relu" if k == len(CONV_SHAPES)
+                        else "sym", g, flush)
+             for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1)]
+    extra14 = [_conv_case(H, W, ci, co, mode, g, flush)
+               for H, W, ci, co, mode in CNN14_CONVS]
+    err_all = max(c["err"] for c in cnn10 + extra14)
+    part = {"stem": _tally(cnn10[:1]), "body": _tally(cnn10[1:])}
+    c14, body14 = _tally(cnn10[:7] + extra14), _tally(cnn10[1:7] + extra14)
     pool = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0)
     for H, W, C in POOL_SHAPES:
-        x = torch.randint(-128, 128, (DEC_BATCH, H, W, C), dtype=torch.int8,
-                          device="cuda", generator=g)
-        err = max_err(avgpool2x2_i8(x), avgpool2x2_i8_ref(x))
-        check(err == 0, f"avgpool2x2_i8 disagrees with its plain version at "
-                        f"[{DEC_BATCH},{H},{W},{C}]: {err}")
-        pool["err"] = max(pool["err"], err)
-        k_ms = time_ms(lambda: avgpool2x2_i8(x), flush)
-        p_ms = time_ms(lambda: avgpool2x2_i8_ref(x), flush, reps=10)
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
-        l_ms = time_ms(lambda: F.avg_pool2d(xb, 2), flush)
-        del xb
-        b_ms, _ = bound(0, DEC_BATCH * H * W * C * 5 // 4, INT8_OPS)
-        print(f"avgpool2x2_i8 [{DEC_BATCH},{H},{W},{C}]: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, bf16 cuDNN avg_pool2d {l_ms:.4f} ms (not "
-              f"the same function), bound {b_ms:.4f} ms (bytes); max_abs_err {err}")
-        pool["ms"] += k_ms
-        pool["plain"] += p_ms
-        pool["bound"] += b_ms
-        pool["bf16"] += l_ms
-    del x
+        _pool_case(H, W, C, g, flush, pool)
+    pool14 = dict(pool)
+    for H, W, C in CNN14_POOLS:
+        _pool_case(H, W, C, g, flush, pool14)
+    pool["err"] = pool14["err"]
     for n, H, W, ci, co, mode, pad in CONV_EDGES:
         x, w, A, B = conv_inputs(n, H, W, ci, co, g)
         err = max_err(conv3x3_i8(x, w, A, B, mode, pad),
@@ -481,20 +537,25 @@ def int8_kernel_phase(flush):
               f"max_abs_err {err}")
         pool["err"] = max(pool["err"], err)
     for name, c in part.items():
-        c["bound_by"] = max(c["by"], key=c["by"].get)
         print(f"int8 kernels, a batch of {DEC_BATCH}: conv3x3_i8 {name} "
               f"({c['convs']} convs) {c['ms']:.3f} ms ({c['ops'] / c['ms'] / 1e9:.1f} "
               f"TOP/s; plain {c['plain']:.1f}, bf16 cuDNN {c['bf16']:.3f}, "
               + (f"_int_mm {c['int_mm']:.3f}, " if name == "body" else "")
               + f"bound {c['bound']:.3f} ({c['bound_by']}))")
-    conv = {k: sum(c[k] for c in part.values())
-            for k in ("ms", "plain", "bound", "bf16")}
-    by = {k: sum(c["by"][k] for c in part.values()) for k in ("operations", "bytes")}
+    conv = _tally(cnn10)
     print(f"int8 kernels, a batch of {DEC_BATCH}: 8 conv3x3_i8 {conv['ms']:.3f} ms "
           f"(plain {conv['plain']:.1f}, bf16 cuDNN {conv['bf16']:.3f}, bound "
           f"{conv['bound']:.3f}); 3 avgpool2x2_i8 {pool['ms']:.3f} ms (plain "
           f"{pool['plain']:.3f}, bf16 cuDNN {pool['bf16']:.3f}, bound "
           f"{pool['bound']:.3f})")
+    print(f"int8 kernels, a Cnn14 batch of {DEC_BATCH}: 12 conv3x3_i8 "
+          f"{c14['ms']:.3f} ms (plain {c14['plain']:.1f}, bf16 cuDNN "
+          f"{c14['bf16']:.3f}, bound {c14['bound']:.3f}), of which the 11 body "
+          f"convs {body14['ms']:.3f} ms ({body14['ops'] / body14['ms'] / 1e9:.1f} "
+          f"TOP/s, {body14['ops'] / 2e12:.2f} T MAC; _int_mm {body14['int_mm']:.3f}, "
+          f"bound {body14['bound']:.3f}); 5 avgpool2x2_i8 {pool14['ms']:.3f} ms "
+          f"(plain {pool14['plain']:.3f}, bf16 cuDNN {pool14['bf16']:.3f}, bound "
+          f"{pool14['bound']:.3f}) ({SMI})")
     common = {"route": "cuda", "source": "acvae_tpu_torch/csrc/conv_i8.cu",
               "launches": None, "library_ms": None}
     split = {name: {"convs": c["convs"], "ms": c["ms"], "plain_ms": c["plain"],
@@ -502,17 +563,24 @@ def int8_kernel_phase(flush):
                     "tops": c["ops"] / c["ms"] / 1e9, "bf16_cudnn_ms": c["bf16"],
                     "int_mm_ms": c["int_mm"] if name == "body" else None}
              for name, c in part.items()}
+    split["cnn14"] = {"convs": c14["convs"], "ms": c14["ms"],
+                      "plain_ms": c14["plain"], "bound_ms": c14["bound"],
+                      "body_ms": body14["ms"], "body_bound_ms": body14["bound"],
+                      "body_int_mm_ms": body14["int_mm"],
+                      "bf16_cudnn_ms": c14["bf16"]}
     return [dict(common, name="conv3x3_i8",
                  replaces="acvae_tpu/models/quant.py:424",
                  max_abs_err=err_all, ms=conv["ms"], plain_ms=conv["plain"],
-                 bound_ms=conv["bound"], bound_by=max(by, key=by.get),
+                 bound_ms=conv["bound"], bound_by=conv["bound_by"],
                  bf16_cudnn_ms=conv["bf16"], timed=f"8 convs of a batch of {DEC_BATCH}",
                  **split),
             dict(common, name="avgpool2x2_i8",
                  replaces="acvae_tpu/models/quant.py:86",
                  max_abs_err=pool["err"], ms=pool["ms"], plain_ms=pool["plain"],
                  bound_ms=pool["bound"], bound_by="bytes",
-                 bf16_cudnn_ms=pool["bf16"], timed=f"3 pools of a batch of {DEC_BATCH}")]
+                 bf16_cudnn_ms=pool["bf16"], timed=f"3 pools of a batch of {DEC_BATCH}",
+                 cnn14={"pools": 5, "ms": pool14["ms"], "plain_ms": pool14["plain"],
+                        "bound_ms": pool14["bound"], "bf16_cudnn_ms": pool14["bf16"]})]
 
 
 def small_conf():
@@ -868,10 +936,12 @@ def _http(url, data=None, headers=None):
         return e.code, json.loads(e.read())
 
 
-def http_checks(exp, tag="serve", **svc_kw):
+def http_checks(exp, tag="serve", per_batch=(8, 3), **svc_kw):
     """(b) CaptionService at the CLI defaults (and ``svc_kw``) behind
     run_server: one request of each kind, one malformed, then a burst of 16
-    concurrent mels.  Returns the kernel launches of the service's life."""
+    concurrent mels.  ``per_batch``: the int8 encoder's conv3x3_i8 and
+    avgpool2x2_i8 launches a batch.  Returns the kernel launches of the
+    service's life."""
     from acvae_tpu_torch.serve import CaptionService, run_server
 
     reset_counts()
@@ -957,7 +1027,8 @@ def http_checks(exp, tag="serve", **svc_kw):
     counts = read_counts()
     # 2 warm-up batches, 5 direct ones, then the server's
     batches = 2 + 5 + stats["batches"]
-    want = (8 * batches, 3 * batches) if svc.quant is not None else (0, 0)
+    want = ((per_batch[0] * batches, per_batch[1] * batches)
+            if svc.quant is not None else (0, 0))
     got = (counts["conv3x3_i8"], counts["avgpool2x2_i8"])
     print(f"{tag}: launches over the service's {batches} batches {counts}")
     check(got == want, f"{tag}: conv3x3_i8/avgpool2x2_i8 launched {got} times "
@@ -2203,6 +2274,304 @@ def extras_average(cli, tmp, exp):
           f"({SMI})")
 
 
+# phase 14: every registered encoder at tests/test_encoders.py's widths
+# (Cnn14, ResNet38 and CNN10Encoder have fixed widths), then the flagship
+# recipe with PANN Cnn14 (``--encodermodel=Cnn14
+# --encoder_args.embed_size=2048``, bf16) at full width
+ENC_SMALL = [
+    ("Cnn10", {"embed_size": 16, "channels": [4, 8, 8, 16]}),
+    ("Cnn14", {"embed_size": 2048}), ("ResNet38", {}),
+    ("CRNNEncoder", {"embed_size": 256}),
+    ("CNN10QEncoder", {"embed_size": 16, "channels": [4, 8, 8, 16]}),
+    ("CNN10DEncoder", {"embed_size": 24, "channels": [4, 8, 8, 16]}),
+    ("CRNN8_Sub4", {"embed_size": 16, "channels": [4, 8, 8, 16]}),
+    ("RNNEncoder", {"embed_size": 12, "hidden_size": 8}),
+    ("TransformerEncoder", {"embed_size": 16, "nhead": 2, "nlayers": 1}),
+    ("CNN10Encoder", {"embed_size": 512}),
+    ("E2EASREncoder", {"embed_size": 24, "hidden_size": 16, "nlayers": 1}),
+    ("M2TransformerEncoder", {"embed_size": 16, "nhead": 2, "nlayers": 1,
+                              "dim_feedforward": 32, "memory_slots": 5}),
+    ("ResNetEncoder", {"embed_size": 16, "channels": [4, 8, 8, 16]}),
+    ("CNNEncoder", {"embed_size": 16}),
+    ("PreTrainedCNN", {"trunk": {"name": "CNN10Encoder"}, "embed_size": 8}),
+    ("CNN10CRNNEncoder", {
+        "crnn": {"name": "CRNN8_Sub4", "embed_size": 16, "channels": [4, 8, 8, 16]},
+        "cnn": {"name": "CNN10QEncoder", "embed_size": 16,
+                "channels": [4, 8, 8, 16]}})]
+# card against CPU in float32 (TF32 off): cuDNN's and the CPU's sums run in
+# other orders, and a train-mode BatchNorm over a few values per channel
+# magnifies that; |card - cpu| <= ENC_TOL * (1 + |cpu|)
+ENC_TOL = 1e-3
+ENC_STEPS = 3
+# Cnn14's int8 launches a batch: 1 stem + 11 body convs, 5 int8 pools
+CNN14_PER_BATCH = (12, 5)
+
+
+def cnn14_conf():
+    """The flagship recipe with the PANN Cnn14 encoder (bf16), the time
+    warp on."""
+    from acvae_tpu_torch.configs import flagship_conf
+    conf = flagship_conf(encodermodel="Cnn14", data_dim=DATA_DIM)
+    conf["encoder_args"] = dict(conf["encoder_args"], embed_size=2048)
+    return conf
+
+
+def encoders_parity():
+    """(a) Every registered encoder on the card against the CPU, same
+    weights, eval and train mode (dropout off on both sides), lengths
+    exact, running statistics after the train-mode forward."""
+    from acvae_tpu_torch.models.encoders import ENCODERS, build_encoder
+
+    check(sorted(ENCODERS) == sorted(n for n, _ in ENC_SMALL),
+          f"phase 14 covers {sorted(n for n, _ in ENC_SMALL)}, the port "
+          f"registers {sorted(ENCODERS)}")
+    rng = np.random.default_rng(51)
+    feats = torch.tensor(rng.normal(size=(2, 64, DATA_DIM)).astype(np.float32))
+    lens = torch.tensor([64, 32])
+    fn = torch.nn.functional
+    real_dropout = fn.dropout
+    fn.dropout = lambda x, p=0.5, training=True, inplace=False: x
+    try:
+        for name, args in ENC_SMALL:
+            torch.manual_seed(51)
+            cpu = build_encoder(name, args, DATA_DIM, device="cpu")
+            gpu = build_encoder(name, args, DATA_DIM, device="cuda")
+            gpu.load_state_dict(cpu.state_dict())
+            errs = []
+            for train in (False, True):
+                with torch.no_grad():
+                    a = gpu(feats.cuda(), lens.cuda(), train=train)
+                    b = cpu(feats, lens, train=train)
+                for k in ("audio_embeds", "audio_embeds_pooled"):
+                    ref = b[k].float()
+                    d = (a[k].float().cpu() - ref).abs()
+                    errs.append(d.max().item())
+                    check(a[k].shape == b[k].shape and bool(
+                        (d <= ENC_TOL * (1 + ref.abs())).all()),
+                          f"encoders {name} {k} train={train}: card vs CPU "
+                          f"max |d| {errs[-1]}")
+                check(torch.equal(a["audio_embeds_lens"].cpu(),
+                                  b["audio_embeds_lens"]), f"encoders {name} lens")
+            sa, sb = gpu.state_dict(), cpu.state_dict()
+            stats = max([(sa[k].cpu() - v).abs().max().item() for k, v in sb.items()
+                         if "running" in k] or [0.0])
+            check(stats <= ENC_TOL * (1 + max([v.abs().max().item() for k, v in
+                                               sb.items() if "running" in k] or [0])),
+                  f"encoders {name}: running statistics differ by {stats}")
+            print(f"encoders parity {name}: max |card - cpu| eval "
+                  f"{max(errs[:2]):.2e}, train {max(errs[2:]):.2e}, running "
+                  f"stats {stats:.2e}")
+            del cpu, gpu
+    finally:
+        fn.dropout = real_dropout
+    torch.cuda.empty_cache()
+
+
+def cnn14_train(conf):
+    """(b) ENC_STEPS Trainer steps of the Cnn14 flagship at batch 32, T_mel
+    1024 ragged, the time warp on; returns the launches."""
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(7)
+    trainer = Trainer(conf, VOCAB, DATA_DIM, device="cuda",
+                      total_iters=ITERS_PER_EPOCH * EPOCHS)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    n_enc = sum(p.numel() for p in trainer.model.encoder.parameters())
+    rng = np.random.default_rng(1)
+    epoch = 12
+    it0 = ITERS_PER_EPOCH * (epoch - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = []
+    for i in range(ENC_STEPS):
+        batch = make_batch(rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch, it0 + 1 + i, epoch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"encoders Cnn14 train: non-finite metric at step {i + 1}: {vals}")
+    counts = read_counts()
+    check(counts == {"time_warp_1d": ENC_STEPS, "conv3x3_i8": 0,
+                     "avgpool2x2_i8": 0},
+          f"encoders Cnn14 train: launches {counts} in {ENC_STEPS} steps")
+    check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
+          "encoders Cnn14 train: non-finite parameters after the steps")
+    print(f"encoders Cnn14 train: {n_params} params ({n_enc} in the encoder), "
+          f"batch {BATCH}, T_mel {T_MEL}, L {CAP_LEN}, bf16 encoder: step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of steps "
+          f"2-{ENC_STEPS} {statistics.median(step_ms[1:]):.1f}; loss "
+          f"{vals['loss']:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"{counts} ({SMI})")
+    del trainer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def cnn14_serve(conf):
+    """(c) The Cnn14 flagship through save_experiment/load_experiment: the
+    beam-3 decode at batch 512 with the bf16 encoder, then with the v2sym
+    int8 encoder calibrated from bn0's statistics (its codes card vs CPU on
+    2 clips first), then CaptionService(encoder_int8=True) over HTTP.
+    Returns the launches."""
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+    from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
+
+    total = dict.fromkeys(kernel_fns(), 0)
+    torch.manual_seed(9)
+    with tempfile.TemporaryDirectory() as exp:
+        save_experiment(exp, build_model(conf, VOCAB, DATA_DIM, device="cuda"),
+                        conf, flagship_vocab())
+        _, vocab, model = load_experiment(exp, device="cuda")
+        counts, _, _ = decode_rate(
+            "encoders Cnn14 bf16 decode",
+            lambda f, l, g: model.inference_forward(f, l, generator=g, **BEAM_KW),
+            model.encode, model, vocab)
+        check(sum(counts.values()) == 0, f"the bf16 decode launched {counts}")
+        t0 = time.perf_counter()
+        quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        q_cpu = copy.deepcopy(quant).to("cpu")
+        rng = np.random.default_rng(43)
+        x = torch.tensor(rng.normal(size=(2, 128, DATA_DIM)).astype(np.float32))
+        xl = torch.tensor([128, 100])
+        codes_gpu, codes_cpu = [], []
+        with torch.inference_mode():
+            quant(x.cuda(), xl.cuda(), codes=codes_gpu)
+            q_cpu(x, xl, codes=codes_cpu)
+        del q_cpu
+        flipped = [int((a.cpu() != b).sum()) for a, b in zip(codes_gpu, codes_cpu)]
+        check(len(flipped) == 12 and sum(flipped) == 0,
+              f"encoders Cnn14 int8: codes card vs CPU differ {flipped}")
+        print(f"encoders Cnn14 int8: v2sym calibrated from bn0's statistics in "
+              f"{calib_s:.2f} s; codes at the 12 quantize points card vs CPU "
+              f"(2 clips, T 128) differ at {flipped}")
+        int8 = int8_decode_fn(model, quant, **BEAM_KW)
+        counts, feats, lens = decode_rate(
+            "encoders Cnn14 int8 decode",
+            lambda f, l, g: int8(f, l, generator=g),
+            lambda f, l: model.apply_ln(quant(f, l)), model, vocab)
+        batches = 1 + DEC_TIMED
+        check((counts["conv3x3_i8"], counts["avgpool2x2_i8"],
+               counts["time_warp_1d"]) == (CNN14_PER_BATCH[0] * batches,
+                                           CNN14_PER_BATCH[1] * batches, 0),
+              f"encoders Cnn14 int8: launches {counts} in {batches} batches "
+              f"(expected {CNN14_PER_BATCH} a batch)")
+        for k, v in counts.items():
+            total[k] += v
+        with torch.inference_mode():
+            a = quant(feats, lens)["audio_embeds"].flatten()
+            b = model.encode(feats, lens)["audio_embeds_raw"].float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm() + 1e-12))
+        print(f"encoders Cnn14 int8: audio_embeds cosine to the bf16 "
+              f"encoder's {cos:.5f}; int8 / bf16 captions/s "
+              f"{RATES['encoders Cnn14 int8 decode'] / RATES['encoders Cnn14 bf16 decode']:.3f} ({SMI})")
+        check(cos > 0.9, f"the int8 Cnn14 strays from the bf16 one: cos {cos}")
+        del model, quant, int8, feats
+        torch.cuda.empty_cache()
+        for k, v in http_checks(exp, "encoders Cnn14 int8 serve", CNN14_PER_BATCH,
+                                encoder_int8=True).items():
+            total[k] += v
+    return total
+
+
+def cnn14_cli(tmp):
+    """(d) On phase 10's corpus: a seeded state dict in PANN's Cnn14 layout
+    (its frontend and tagger head included) as ``--pretrained_encoder`` of
+    ``train`` (1 epoch), ``evaluate --encoder_int8``, then ``evaluate`` on
+    the .npz manifest and on the same features as a kaldi .scp/.ark table
+    (the same captions).  Returns the launches."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.data.kaldi import write_mat_ark
+    from acvae_tpu_torch.models.encoders import build_encoder
+
+    torch.manual_seed(61)
+    enc = build_encoder("Cnn14", {}, DATA_DIM)
+    n_enc = len(list(enc.parameters()))
+    pann = {k: v for k, v in enc.state_dict().items() if k != "stem_pad_lanes"}
+    pann.update({"fc_audioset.weight": torch.randn(527, 2048),
+                 "fc_audioset.bias": torch.zeros(527),
+                 "spectrogram_extractor.stft.conv_real.weight": torch.randn(257, 1, 512),
+                 "logmel_extractor.melW": torch.randn(257, DATA_DIM),
+                 "bn0.num_batches_tracked": torch.tensor(0)})
+    pth = Path(tmp) / "Cnn14_16k_seeded.pth"
+    torch.save({"model": pann}, pth)
+    config = str(CONFIGS / "ac_vae.yaml")
+    total = dict.fromkeys(kernel_fns(), 0)
+    reset_counts()
+    t0 = time.perf_counter()
+    exp = Path(cli.main([
+        "train", config, f"--h5_csv={tmp}/mels.csv",
+        f"--caption_file={tmp}/text.json", f"--vocab_file={tmp}/vocab.pkl",
+        f"--outputpath={tmp}/cnn14", "--epochs=1", "--encodermodel=Cnn14",
+        "--encoder_args.embed_size=2048", f"--pretrained_encoder={pth}",
+        "--augments=[timewarp,timemask,freqmask]"]))
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["time_warp_1d"] == CLI_ITERS,
+          f"encoders cli: time_warp_1d launched {counts['time_warp_1d']} times "
+          f"in {CLI_ITERS} iterations")
+    log_text = (exp / "train_caption.log").read_text()
+    loaded = f"pretrained_encoder[params]: loaded {n_enc}/{n_enc} tensors"
+    check(loaded in log_text and "pretrained_encoder[batch_stats]: loaded" in log_text,
+          f"encoders cli: no {loaded!r} in the train log")
+    m = json.loads((exp / "metrics.jsonl").read_text().splitlines()[-1])
+    check(math.isfinite(m["train_loss"]), f"encoders cli: {m}")
+    for k, v in counts.items():
+        total[k] += v
+    line = (f"encoders cli: train Cnn14 warm-started from a PANN-layout .pth "
+            f"({loaded}), 1 epoch ({CLI_ITERS} iterations) {train_s:.1f} s, "
+            f"epoch wall {m['epoch_wall_s']:.2f} s, loss {m['train_loss']:.4f}, "
+            f"val CIDEr {m['val_cider']:.4f}")
+    with np.load(Path(tmp) / "mels.npz") as z:
+        write_mat_ark(f"{tmp}/mels.ark", {k: z[k] for k in z.files},
+                      f"{tmp}/mels.scp")
+    for tag, extra in (("int8", ["--encoder_int8"]), ("npz", ["--tag=npz"]),
+                       ("scp", [f"--eval_h5_csv={tmp}/mels.scp", "--tag=scp"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = cli.main(["evaluate", str(exp),
+                           f"--eval_caption_file={tmp}/text.json"] + extra)
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        want = ((CNN14_PER_BATCH[0] * CLI_EVAL_BATCHES,
+                 CNN14_PER_BATCH[1] * CLI_EVAL_BATCHES) if tag == "int8" else (0, 0))
+        check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want
+              and got["time_warp_1d"] == 0,
+              f"encoders cli evaluate {tag}: launches {got}, expected {want}")
+        check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+              f"encoders cli evaluate {tag}: {scores}")
+        for k, v in got.items():
+            total[k] += v
+        line += (f"; evaluate {tag} {wall:.2f} s ({CLI_AUDIOS / wall:.1f} clips/s "
+                 f"with load and scoring), CIDEr {scores['CIDEr']:.4f}")
+    caps = {t: json.loads((exp / f"eval_output_beam_3_{t}.json").read_text())
+            for t in ("npz", "scp")}
+    check(caps["npz"] == caps["scp"], "encoders cli: the .scp manifest's "
+                                      "captions differ from the .npz one's")
+    print(line + f"; .scp captions identical to .npz ({SMI})")
+    return total
+
+
+def encoders_phase(tmp):
+    """Phase 14; returns the kernel launches of (b)-(d)."""
+    encoders_parity()
+    conf = cnn14_conf()
+    total = dict.fromkeys(kernel_fns(), 0)
+    for counts in (cnn14_train(conf), cnn14_serve(conf), cnn14_cli(tmp)):
+        for k, v in counts.items():
+            total[k] += v
+    print(f"encoders: launches over the path {total} ({SMI})")
+    return total
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -2281,6 +2650,7 @@ def main():
                                    args.profile)
         by_path["families"] = phase("families", families_phase, tmp)
         by_path["extras"] = phase("extras", extras_phase, tmp, exp)
+        by_path["encoders"] = phase("encoders", encoders_phase, tmp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

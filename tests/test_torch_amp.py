@@ -19,7 +19,8 @@ from acvae_tpu.ops.amp import cast_floats_for_decode as j_cast
 from acvae_tpu.ops.amp import resolve_decode_dtype as j_resolve
 from acvae_tpu_torch.configs import flagship_conf
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
-from tests.test_torch_decode import (SMALL, E, T, V, mels, port_model,
+from tests.test_torch_decode import (SMALL, E, T, V, mels,  # noqa: F401
+                                     one_torch_thread, port_model,
                                      small_jax_model)
 
 

@@ -721,7 +721,8 @@ print("BLOCKED_OK")
 
 
 def test_cli_runs_without_yaml_h5py_pandas_nltk(ws, tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    # one intra-op thread, as the module's own tests run (one_torch_thread)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", BLOCKED_RUN, str(tmp_path),
                         str(ws / "port.yaml"), str(ws)],
                        capture_output=True, text=True, timeout=600, env=env,

@@ -14,7 +14,8 @@ from acvae_tpu.cli.main import _train_val_split as j_split
 from acvae_tpu.data import dataset as jds
 from acvae_tpu.data import synthetic as jsyn
 from acvae_tpu.data import vocab as jvocab
-from acvae_tpu_torch.cli.main import _read_manifest, _train_val_split
+from acvae_tpu_torch.cli.main import (_feature_source, _read_manifest,
+                                      _train_val_split)
 from acvae_tpu_torch.data import dataset as tds
 from acvae_tpu_torch.data import synthetic as tsyn
 from acvae_tpu_torch.data import vocab as tvocab
@@ -180,7 +181,15 @@ def test_loader_unsorted_and_stage(corpus):
 
 
 def test_later_items_raise(corpus, monkeypatch):
+    """Caption embeddings and a multi-host loader raise naming their ROADMAP
+    items; kaldi ``.scp``/``.ark`` tables (written by the JAX package's
+    writer) read through ``_feature_source`` into the clips' arrays, and
+    the port's writer writes the same bytes; without h5py an HDF5 store
+    names h5py and the .npz route."""
     import sys
+
+    from acvae_tpu.data.kaldi import write_mat_ark as j_write
+    from acvae_tpu_torch.data.kaldi import write_mat_ark
 
     root, info, vocab = corpus
     with pytest.raises(NotImplementedError, match="A17"):
@@ -189,9 +198,26 @@ def test_later_items_raise(corpus, monkeypatch):
                             tvocab.Vocabulary())
     with pytest.raises(NotImplementedError, match="A19"):
         tds.CaptionLoader(ds, 4, host_count=2)
+    mats = {aid: np.load(root / "mels.npz")[aid].squeeze() for aid in
+            _read_manifest(str(root / "npz.csv"))}
+    mats["f64"] = mats[next(iter(mats))].astype(np.float64)
+    j_write(str(root / "feats.ark"), mats, str(root / "feats.scp"))
+    write_mat_ark(str(root / "port.ark"), mats, str(root / "port.scp"))
+    assert (root / "port.ark").read_bytes() == (root / "feats.ark").read_bytes()
+    assert (root / "port.scp").read_text() == (root / "feats.scp").read_text(
+        ).replace("feats.ark", "port.ark")
     for suffix in ("scp", "ark"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            _read_manifest(str(root / f"feats.{suffix}"))
+        src = _feature_source(str(root / f"feats.{suffix}"))
+        assert list(src) == ["features"] and list(src["features"]) == list(mats)
+        for aid, mat in mats.items():
+            got = src["features"][aid]
+            assert got.dtype == mat.dtype and np.array_equal(got, mat), aid
+    ds = tds.CaptionDataset(**_feature_source(str(root / "feats.scp")),
+                            caption_info=info, vocabulary=tvocab.Vocabulary())
+    ref = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")), info,
+                             tvocab.Vocabulary())
+    for i in range(len(ref)):
+        assert np.array_equal(ds.get(i)[1], ref.get(i)[1])
     # without h5py an HDF5 store names h5py and the .npz route
     monkeypatch.setitem(sys.modules, "h5py", None)
     with pytest.raises(ImportError, match="h5py.*npz"):

@@ -25,7 +25,8 @@ from acvae_tpu.decoding.dbs import diverse_beam_search as j_dbs
 from acvae_tpu.models.common import eps_stack as j_eps_stack
 from acvae_tpu_torch.convert import quant_from_flax
 from acvae_tpu_torch.decoding.dbs import DBSConfig, dbs_bdash, diverse_beam_search
-from tests.test_torch_decode import E, T, mels, port_model, small_jax_model
+from tests.test_torch_decode import (E, T, mels, one_torch_thread,  # noqa: F401
+                                     port_model, small_jax_model)
 from tests.test_torch_quant import jax_baked
 
 N_SYN, V_SYN, T_SYN = 3, 7, 7

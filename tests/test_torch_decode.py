@@ -28,6 +28,18 @@ from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.attention import AdditiveAttention
 from acvae_tpu_torch.models.build import build_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module: at these sizes it is as fast, and
+    a parallel test run on shared cores makes torch's spinning thread pool
+    tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 V, E, TMEL, FDIM, T = 25, 16, 64, 16, 8
 SMALL = dict(
     encoder_args={"embed_size": E, "channels": [4, 8, 8, 16]},

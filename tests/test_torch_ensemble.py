@@ -28,6 +28,7 @@ from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
 from tests.test_torch_decode import E, T, mels, port_model, small_jax_model
 from tests.test_torch_serve import (BUCKET, MAXLEN, _quantize, _request_mels,
                                     experiments)  # noqa: F401
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 
 N_SYN, V_SYN, T_SYN = 3, 6, 7
 

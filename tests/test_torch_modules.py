@@ -26,6 +26,7 @@ from acvae_tpu_torch.models.attention import AdditiveAttention
 from acvae_tpu_torch.models.decoders import VAERNNBahdanauAttnDecoder
 from acvae_tpu_torch.models.latent import PosteriorRNNHybrid, PriorRNN
 from acvae_tpu_torch.models.rnn import GRU, GRUCell, LSTMCell
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 V, E, H, N, S = 25, 16, 16, 3, 5

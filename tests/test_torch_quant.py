@@ -30,6 +30,7 @@ from tests.test_torch_decode import (E, T, eps_slab, fixed_eps,  # noqa: F401
                                      mels, port_model, small_jax_model)
 from tests.test_torch_serve import (BATCH, BUCKET, MAXLEN,  # noqa: F401
                                     _quantize, _request_mels, experiments)
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 
 CH = (4, 8, 8, 16)
 N, TQ, F = 4, 128, 64
@@ -162,6 +163,22 @@ def encoders():
     return v, port, feats, live
 
 
+@pytest.fixture(scope="module")
+def jax_bakes(encoders):
+    """scheme -> the JAX QuantPannEncoder calibrated on the encoders'
+    batch, made once for the module."""
+    v, _, feats, _ = encoders
+    cache = {}
+
+    def get(scheme):
+        if scheme not in cache:
+            cache[scheme] = jquant.QuantPannEncoder(
+                v, jnp.asarray(feats), jnp.asarray(LENS), channels=CH,
+                **jquant.scheme_kwargs(scheme))
+        return cache[scheme]
+    return get
+
+
 def jax_baked(jq):
     """The baked arrays of a JAX QuantPannEncoder, as numpy."""
     return {"act_scales": [np.asarray(s) for s in jq.act_scales],
@@ -199,13 +216,12 @@ def _assert_same_bake(pq, jq):
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
-def test_calibration_matches_jax(encoders, scheme):
+def test_calibration_matches_jax(encoders, jax_bakes, scheme):
     """Both packages calibrate from the same batch and from bn0's
     statistics (the same numpy draws)."""
     v, port, feats, _ = encoders
     kw = jquant.scheme_kwargs(scheme)
-    jq = jquant.QuantPannEncoder(v, jnp.asarray(feats), jnp.asarray(LENS),
-                                 channels=CH, **kw)
+    jq = jax_bakes(scheme)
     pq = tquant.QuantPannEncoder(port, torch.tensor(feats), torch.tensor(LENS),
                                  **tquant.scheme_kwargs(scheme))
     _assert_same_bake(pq, jq)
@@ -257,12 +273,10 @@ def _flipped_codes(pq, jq, feats, lens):
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
-def test_same_calibration_same_codes(encoders, scheme):
+def test_same_calibration_same_codes(jax_bakes, scheme):
     """The JAX encoder carried across by ``quant_from_flax``: identical codes
     at every quantize point, embeddings within 1e-5, lengths equal."""
-    v, _, feats, _ = encoders
-    jq = jquant.QuantPannEncoder(v, jnp.asarray(feats), jnp.asarray(LENS),
-                                 channels=CH, **jquant.scheme_kwargs(scheme))
+    jq = jax_bakes(scheme)
     pq = quant_from_flax(jax_baked(jq), device="cpu")
     x = (np.random.default_rng(5).normal(size=(N, TQ, F)) * 2 - 1).astype(np.float32)
     got = []
@@ -280,11 +294,8 @@ def test_same_calibration_same_codes(encoders, scheme):
                                   np.asarray(ref["audio_embeds_lens"]))
 
 
-def test_quant_from_flax_refuses_live_stem_lanes(encoders):
-    v, _, feats, _ = encoders
-    jq = jquant.QuantPannEncoder(v, jnp.asarray(feats), jnp.asarray(LENS),
-                                 channels=CH, **jquant.scheme_kwargs("v2sym"))
-    baked = jax_baked(jq)
+def test_quant_from_flax_refuses_live_stem_lanes(jax_bakes):
+    baked = jax_baked(jax_bakes("v2sym"))
     baked["act_scales"][0] = np.array([0.05, 0.05], np.float32)
     with pytest.raises(ValueError, match="lanes"):
         quant_from_flax(baked, device="cpu")
@@ -456,8 +467,26 @@ def test_invalid_int8_compositions_raise(experiments, encoders):
     _, _, model = load_experiment(port_exp, device="cpu")
     with pytest.raises(ValueError, match="Cnn10/Cnn14"):
         tquant.quant_encoder_for({"encodermodel": "CRNN"}, model)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tquant.quant_encoder_for({"encodermodel": "Cnn14"}, model)
+    # Cnn14 bakes, as JAX's _arch_spec lays it out: its five pooled blocks
+    # and the unpooled last one, head fc1, subsample 32 (its scales and
+    # codes against JAX's: tests/test_torch_encoders.py)
+    from acvae_tpu_torch.configs import flagship_conf
+    from acvae_tpu_torch.models.build import build_model
+    from tests.test_torch_train_step import SMALL
+
+    conf14 = flagship_conf(**dict(SMALL, encodermodel="Cnn14",
+                                  encoder_args={"embed_size": 2048}))
+    model14 = build_model(conf14, 9, F, device="cpu")
+    feats14 = np.random.default_rng(3).normal(size=(2, 64, F)).astype(np.float32)
+    pq = tquant.quant_encoder_for(conf14, model14, calib=(
+        torch.tensor(feats14), torch.tensor([64, 40])),
+        **tquant.scheme_kwargs("v2sym"))
+    spec = jquant._arch_spec("Cnn14", CH)
+    assert [b["pool"] for b in pq.blocks] == [p for _, p in spec["blocks"]]
+    assert pq.subsample == spec["subsample"] == 32
+    assert tuple(pq.fc[0].shape) == (2048, 2048)
+    assert [tuple(b["w2"].shape) for b in pq.blocks] == [
+        (3, 3, c, c) for c in (64, 128, 256, 512, 1024, 2048)]
     with pytest.raises(ValueError, match="inference_from_encoded"):
         tquant.quant_encoder_for({"encodermodel": "Cnn10"}, model.encoder)
 

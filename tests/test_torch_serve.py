@@ -29,6 +29,7 @@ from acvae_tpu_torch.serve import CaptionService, main, run_server
 from acvae_tpu_torch.train.checkpoints import load_experiment, save_experiment
 from tests.test_torch_decode import (FDIM, TMEL, V, fixed_eps,  # noqa: F401
                                      port_model, small_jax_model)
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 
 BUCKET, BATCH, MAXLEN = TMEL, 4, 8
 

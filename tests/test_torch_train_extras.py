@@ -375,8 +375,10 @@ def test_merge_pretrained_matches_jax(warm, subtree):
 def test_pretrained_sources(warm, tmp_path):
     """The port's own ``.pt`` and a reference ``{"model": module.*}`` dict
     merge through the config keys (one ``loaded`` line per collection);
-    PANN and espnet dicts raise naming A16; a directory or a pickled tree
-    raise naming the JAX-side route; a missing file FileNotFoundError."""
+    PANN and espnet encoder dicts merge into the encoder as JAX converts
+    them (``pann_to_flax``/``espnet_to_flax`` then ``from_flax``), the
+    stem's padded lanes zero; a directory or a pickled tree raise naming
+    the JAX-side route; a missing file FileNotFoundError."""
     _, _, _, t_source = warm
     src = {k: v for k, v in t_source.items()
            if not k.startswith(("decoder.word_embeddings", "decoder.classifier"))}
@@ -393,19 +395,64 @@ def test_pretrained_sources(warm, tmp_path):
                 assert torch.equal(sd[k], v), k
         assert any(line.startswith(f"{key}[params]: loaded ") for line in log)
         assert any(line.startswith(f"{key}[batch_stats]: loaded ") for line in log)
+    # a PANN-layout Cnn10 (the encoder's own names, a live stem lane and
+    # PANN's frontend and tagger head, which are skipped)
     model = build_model(_port_conf(SMALL), V, FDIM, device="cpu")
-    before = {k: v.clone() for k, v in model.state_dict().items()}
     enc = {k[len("encoder."):]: v for k, v in src.items() if k.startswith("encoder.")}
+    enc["stem_pad_lanes"] = torch.ones_like(enc["stem_pad_lanes"])
+    enc["fc_audioset.weight"] = torch.zeros(3, 16)
+    enc["spectrogram_extractor.stft.conv_real.weight"] = torch.zeros(2, 1, 4)
     torch.save(enc, tmp_path / "enc.pt")
-    with pytest.raises(NotImplementedError, match="PANN.*A16"):
-        tpre.apply_pretrained({"pretrained_encoder": str(tmp_path / "enc.pt")},
-                              model, _quiet)
-    torch.save({"enc.enc.0.conv1_1.weight": torch.zeros(1),
-                "enc.enc.1.birnn0.weight_ih_l0": torch.zeros(1)},
-               tmp_path / "espnet.pth")
-    with pytest.raises(NotImplementedError, match="espnet.*A16"):
-        tpre.apply_pretrained({"pretrained_encoder": str(tmp_path / "espnet.pth")},
-                              model, _quiet)
+    want = from_flax(jpre.pann_to_flax({k: v.numpy() for k, v in enc.items()}))
+    assert not want["stem_pad_lanes"].any()
+    log = []
+    tpre.apply_pretrained({"pretrained_encoder": str(tmp_path / "enc.pt")},
+                          model, log.append)
+    sd = model.state_dict()
+    n_enc = {c: sum(k.startswith("encoder.") and (k in dict(model.named_parameters()))
+                    == (c == "params") for k in sd) for c in ("params", "batch_stats")}
+    for col, n in n_enc.items():
+        assert f"pretrained_encoder[{col}]: loaded {n}/{n} tensors" in " ".join(log)
+    assert sorted(want) == sorted(k[len("encoder."):] for k in sd
+                                  if k.startswith("encoder."))
+    for k, v in want.items():
+        assert torch.equal(sd["encoder." + k], v), k
+    # an espnet VGG2L + BiGRU (GRU and LSTM layers) into an E2EASREncoder
+    conf = flagship_conf(**dict(SMALL, encodermodel="E2EASREncoder", encoder_args={
+        "embed_size": 16, "hidden_size": 8, "nlayers": 2}))
+    model = build_model(conf, V, FDIM, device="cpu")
+    rng = np.random.default_rng(4)
+    esp = {f"enc.enc.0.conv{s_}_{j}.{leaf}": rng.normal(size=shape).astype(np.float32)
+           for s_, (ci, co) in ((1, (1, 64)), (2, (64, 128))) for j in (1, 2)
+           for leaf, shape in (("weight", (co, ci if j == 1 else co, 3, 3)),
+                               ("bias", (co,)))}
+    for i, (d_in, gates) in enumerate(((128 * FDIM // 4, 3), (16, 4))):
+        for rev in ("", "_reverse"):
+            for leaf, shape in (("weight_ih", (gates * 8, d_in)),
+                                ("weight_hh", (gates * 8, 8)),
+                                ("bias_ih", (gates * 8,)), ("bias_hh", (gates * 8,))):
+                esp[f"enc.enc.1.birnn{i}.{leaf}_l0{rev}"] = rng.normal(
+                    size=shape).astype(np.float32)
+        esp[f"enc.enc.1.bt{i}.weight"] = rng.normal(size=(16, 16)).astype(np.float32)
+        esp[f"enc.enc.1.bt{i}.bias"] = rng.normal(size=(16,)).astype(np.float32)
+    torch.save({k: torch.tensor(v) for k, v in esp.items()}, tmp_path / "espnet.pth")
+    jlog = []
+    want = from_flax(jpre.espnet_to_flax(esp, FDIM, jlog.append))
+    before = model.state_dict()
+    log = []
+    tpre.apply_pretrained({"pretrained_encoder": str(tmp_path / "espnet.pth"),
+                           "espnet_inputdim": FDIM}, model, log.append)
+    sd = model.state_dict()
+    assert len(want) == 18 and any("not a GRU" in m for m in jlog)
+    assert any("skip 1.birnn1: 4-gate RNN is not a GRU" in m for m in log)
+    assert any(m.startswith("pretrained_encoder[params]: loaded 18/") for m in log)
+    for k, v in sd.items():
+        name = k[len("encoder."):]
+        assert torch.equal(v, want[name] if name in want else before[k]), k
+    with pytest.raises(ValueError, match="not divisible by 4"):
+        tpre.apply_pretrained({"pretrained_encoder": str(tmp_path / "espnet.pth"),
+                               "espnet_inputdim": 18}, model, _quiet)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
     for bad in (tmp_path, tmp_path / "tree.pkl"):
         with pytest.raises(ValueError, match="experiment_from_flax"):
             tpre.apply_pretrained({"pretrained": str(bad)}, model, _quiet)

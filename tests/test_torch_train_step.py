@@ -29,7 +29,7 @@ from acvae_tpu_torch.convert import from_flax
 from acvae_tpu_torch.models.build import build_model
 from acvae_tpu_torch.train.optim import OptaxChain
 from acvae_tpu_torch.train.trainer import Trainer
-from tests.test_torch_warp import jax_augment_draws
+from tests.test_torch_warp import jax_augment_draws, one_torch_thread  # noqa: F401
 
 V, E, N, TMEL, FDIM, L = 25, 16, 3, 64, 16, 8
 AUG_ARGS = {"p": 1.0, "W": 8, "T": 10, "F": 4}
@@ -50,9 +50,9 @@ def test_flagship_conf_matches_yaml():
     assert dict(ref) == FLAGSHIP_CONF
 
 
-def _batch(seed=0):
+def _batch(seed=0, fdim=FDIM):
     rng = np.random.default_rng(seed)
-    return {"feats": rng.normal(size=(N, TMEL, FDIM)).astype(np.float32),
+    return {"feats": rng.normal(size=(N, TMEL, fdim)).astype(np.float32),
             "feat_lens": np.array([TMEL, 48, 33], np.int32),
             "caps": rng.integers(3, V, size=(N, L)).astype(np.int32),
             "cap_lens": np.array([L, 5, 3], np.int32)}
@@ -249,10 +249,28 @@ def test_weights_round_trip():
                                           err_msg="/".join(path))
 
 
+def _cnn14_like_jax(trainer):
+    """A Cnn14 encoder with JAX's parameters, counted from the JAX model's
+    init traced abstractly (less the stem's padded lane, which the port
+    keeps as a buffer)."""
+    conf = flagship_conf(**dict(SMALL, encodermodel="Cnn14",
+                                encoder_args={"embed_size": 2048}))
+    b = _batch(fdim=64)
+    shapes = jax.eval_shape(lambda k: j_build_model(conf, V, 64).init(
+        {"params": k, "sample": k}, b["feats"], b["feat_lens"], b["caps"],
+        b["cap_lens"], train=False), jax.random.key(0))
+    n_jax = sum(int(np.prod(x.shape)) for x in
+                jax.tree_util.tree_leaves(shapes["params"]["encoder"]))
+    enc = trainer.model.encoder
+    return (type(enc).__name__ == "Cnn14" and n_jax - 64 * 9
+            == sum(p.numel() for p in enc.parameters()))
+
+
 # keys the port now runs, with what their Trainer shows of them
 PORTED = {"free_bits": lambda t: t.conf["free_bits"] == 0.1,
           "optimizer": lambda t: t.optimizer.name == "SGD",
-          "global_loss": lambda t: t.conf["global_loss"] == "kl"}
+          "global_loss": lambda t: t.conf["global_loss"] == "kl",
+          "encodermodel": _cnn14_like_jax}
 
 
 @pytest.mark.parametrize("key,value", [
@@ -262,13 +280,19 @@ PORTED = {"free_bits": lambda t: t.conf["free_bits"] == 0.1,
     ("encodermodel", "Cnn14")])
 def test_unported_branches_raise(key, value):
     """Branches outside the port raise instead of being silently ignored;
-    free_bits, the optimizers and global_loss: kl build and take
-    a step (``tests/test_torch_train_extras.py`` holds them against JAX)."""
+    free_bits, the optimizers, global_loss: kl and the Cnn14 encoder (at
+    its fixed width, on 64 mel bins) build and take a step
+    (``tests/test_torch_train_extras.py`` and
+    ``tests/test_torch_encoders.py`` hold them against JAX)."""
     conf = _port_conf(dict(SMALL, **{key: value}))
+    fdim = FDIM
+    if key == "encodermodel":
+        conf["encoder_args"] = dict(PORT_ENC, embed_size=2048)
+        fdim = 64
     if key in PORTED:
-        trainer = Trainer(conf, V, FDIM, device="cpu", total_iters=10)
+        trainer = Trainer(conf, V, fdim, device="cpu", total_iters=10)
         assert PORTED[key](trainer)
-        m = trainer.step(_batch(), iteration=1, epoch=1)
+        m = trainer.step(_batch(fdim=fdim), iteration=1, epoch=1)
         assert all(torch.isfinite(v).all() for v in m.values())
         assert ("kl_raw" in m) == (key == "free_bits")
         return
