@@ -266,9 +266,8 @@ class Cnn14(_PannEncoder):
     channels = (64, 128, 256, 512, 1024, 2048)
 
     def __init__(self, inputdim: int = 64, embed_size: int = 2048,
-                 dtype=torch.float32, conv_dropout: float = 0.2,
-                 head_dropout: float = 0.5, device=None):
-        super().__init__(inputdim, 64, conv_dropout, head_dropout, device)
+                 dtype=torch.float32, device=None):
+        super().__init__(inputdim, 64, 0.2, 0.5, device)
         self.embed_size = embed_size
         cins = (1,) + self.channels[:-1]
         self.blocks = [ConvBlock(ci, co, dtype, device)
@@ -352,9 +351,8 @@ class ResNet38(_PannEncoder):
     -> ConvBlock2048 -> pooled head; subsampling ×32."""
 
     def __init__(self, inputdim: int = 64, embed_size: int = 2048,
-                 dtype=torch.float32, conv_dropout: float = 0.2,
-                 head_dropout: float = 0.5, device=None):
-        super().__init__(inputdim, 64, conv_dropout, head_dropout, device)
+                 dtype=torch.float32, device=None):
+        super().__init__(inputdim, 64, 0.2, 0.5, device)
         self.embed_size = embed_size
         self.conv_block1 = ConvBlock(1, 64, dtype, device)
         self.resnet = _ResNetTrunk(dtype, device)

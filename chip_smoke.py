@@ -132,8 +132,8 @@ Phases, each of which exits nonzero on failure:
    eval and train mode with the dropouts off: within 1e-3·(1 + |cpu|),
    lengths exact.  Then the flagship recipe with PANN Cnn14
    (``encodermodel: Cnn14``, ``encoder_args.embed_size: 2048``, bf16) at
-   full width: (b) 3 ``Trainer`` steps at batch 32, T_mel 1024 ragged,
-   with the time warp (3 launches); (c) through ``save_experiment``/
+   full width: (b) 6 ``Trainer`` steps at batch 32, T_mel 1024 ragged,
+   with the time warp (6 launches; the median ms of steps 2-6); (c) through ``save_experiment``/
    ``load_experiment``, the beam-3 decode at batch 512 with the bf16
    encoder, then with the int8 v2sym one calibrated from bn0's statistics
    (its codes at the 12 quantize points card vs CPU on 2 clips; one
@@ -2302,7 +2302,7 @@ ENC_SMALL = [
 # other orders, and a train-mode BatchNorm over a few values per channel
 # magnifies that; |card - cpu| <= ENC_TOL * (1 + |cpu|)
 ENC_TOL = 1e-3
-ENC_STEPS = 3
+ENC_STEPS = 6
 # Cnn14's int8 launches a batch: 1 stem + 11 body convs, 5 int8 pools
 CNN14_PER_BATCH = (12, 5)
 

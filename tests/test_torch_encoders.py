@@ -44,7 +44,7 @@ from acvae_tpu_torch.train import pretrained as tpre
 from tests.test_encoders import CONFIGS
 from tests.test_torch_cli import EPOCH_KEYS, _eval_files, _metrics, ws  # noqa: F401
 from tests.test_torch_decode import SMALL, fixed_eps, one_torch_thread  # noqa: F401
-from tests.test_torch_quant import jax_baked
+from tests.test_torch_quant import _assert_same_bake, jax_baked
 
 N, T, F = 2, 64, 64
 LENS = np.array([T, 32], np.int32)
@@ -228,20 +228,64 @@ def _jax_int8(jq, x, lens):
     return codes, out
 
 
+@torch.no_grad()
+def _calibration_f64(port, feats, lens):
+    """Cnn14's calibration pass in float64 on the same float32 weights: per
+    quantize point and channel, the largest valid |activation| and the
+    largest sum of |terms| behind one (|bn scale|·(|W|∗|x|) + |bn bias|),
+    M.  Two float32 summations of the same terms in different orders
+    differ by a small multiple of u·M; a channel whose max nearly cancels
+    (block 5's 4×4 maps hold a few valid values per channel at N 2) shows
+    that as a large relative gap."""
+    def fold(bn):
+        s = bn.weight.double() / torch.sqrt(bn.running_var.double() + bn.eps)
+        return s, bn.bias.double() - bn.running_mean.double() * s
+
+    def valid(v, n):                                      # v: [N, C, T, F]
+        m = (torch.arange(v.shape[2])[None, :] < n[:, None])[:, None, :, None]
+        return torch.amax(torch.where(m, v, 0.0), dim=(0, 2, 3)).numpy()
+
+    s0, b0 = fold(port.bn0)
+    feats, n = torch.tensor(feats, dtype=torch.float64)[:, None], torch.tensor(lens)
+    x = feats * s0 + b0                                   # NCHW, H time
+    maxima, sizes = [valid(x.abs(), n)], [valid(feats.abs() * s0.abs() + b0.abs(), n)]
+    for i, blk in enumerate(port.blocks):
+        for j in (1, 2):
+            w = getattr(blk, f"conv{j}").weight.double()
+            s, b = (a[:, None, None] for a in fold(getattr(blk, f"bn{j}")))
+            sizes.append(valid(torch.nn.functional.conv2d(x.abs(), w.abs(), padding=1)
+                               * s.abs() + b.abs(), n))
+            x = torch.relu(torch.nn.functional.conv2d(x, w, padding=1) * s + b)
+            maxima.append(valid(x, n))
+        if i < 5:
+            x, n = torch.nn.functional.avg_pool2d(x, 2), torch.clamp_min(n // 2, 1)
+    return maxima, sizes
+
+
+@pytest.fixture(scope="module")
+def cnn14_calibration(big):
+    """(JAX variables, the port Cnn14 of them, calibration feats, the
+    float64 pass of its calibration)."""
+    _, v = big("Cnn14")
+    port = build_encoder("Cnn14", {}, F, device="cpu")
+    port.load_state_dict(from_flax(v), strict=True)
+    feats = (_feats(2) * 2 - 1).astype(np.float32)
+    return v, port, feats, _calibration_f64(port, feats, LENS)
+
+
 @pytest.mark.parametrize("scheme", ["v1", "v2sym", "v4"])
-def test_int8_cnn14_matches_jax(big, scheme):
+def test_int8_cnn14_matches_jax(cnn14_calibration, scheme):
     """JAX's bake of the Cnn14 carried across (``quant_from_flax``): the
     codes at every quantize point (stem, 11 requantized convs, the v4
-    tail) identical, the embeddings within 1e-5, the lengths equal.  The
-    port's own calibration of the same weights (``from_flax``, the live
-    padded stem lane in ``stem_pad_lanes`` for v1's weight scale) gives
-    each scale within rtol 1e-3 (plus 1e-6 of its quantize point's
-    largest, for channels whose max is a nearly cancelled relu output):
-    float32 convs of up to 9·1024 terms summed in another order, on block
-    5's 4×2 maps (see ``tests/test_torch_quant.py::
-    test_invalid_int8_compositions_raise``)."""
-    _, v = big("Cnn14")
-    feats = (_feats(2) * 2 - 1).astype(np.float32)
+    tail) identical, the embeddings within 1e-5, the lengths equal.
+
+    The port's own calibration of the same weights (``from_flax``, the live
+    padded stem lane in ``stem_pad_lanes`` for v1's weight scale): each
+    scale, JAX's and the port's, within rtol 1e-5 plus 8·u·M/levels of the
+    float64 pass (``_calibration_f64``), and of each other; the ratios to
+    u·M/levels are printed.  Given the port's scales, JAX bakes the same
+    int8 weights and the same A/B (``_assert_same_bake``)."""
+    v, port, feats, (maxima, sizes) = cnn14_calibration
     kw = jquant.scheme_kwargs(scheme)
     jq = jquant.QuantPannEncoder(v, jnp.asarray(feats), jnp.asarray(LENS),
                                  arch="Cnn14", **kw)
@@ -259,15 +303,32 @@ def test_int8_cnn14_matches_jax(big, scheme):
         np.testing.assert_allclose(out[k].numpy(), np.asarray(ref[k]), rtol=0,
                                    atol=1e-5, err_msg=k)
     np.testing.assert_array_equal(out["audio_embeds_lens"].numpy(), LENS // 32)
-    port = build_encoder("Cnn14", {}, F, device="cpu")
-    port.load_state_dict(from_flax(v), strict=True)
     own = tquant.QuantPannEncoder(port, torch.tensor(feats), torch.tensor(LENS),
                                   arch="Cnn14", **tquant.scheme_kwargs(scheme))
     js = [np.asarray(s) for s in jq.act_scales]
+    stem = np.concatenate([own.act_scales[0], js[0][1:]]) if js[0].ndim else None
     js[0] = js[0][:1] if js[0].ndim else js[0]
+    assert len(own.act_scales) == len(js) == 12 + jq.quant_tail
+    worst = {}
     for i, (a, b) in enumerate(zip(own.act_scales, js)):
-        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-6 * np.max(b),
-                                   err_msg=f"scale {i}")
+        m, top = ((sizes[i], maxima[i]) if kw["per_channel"]
+                  else (sizes[i].max(), maxima[i].max()))
+        ulp = 2.0 ** -24 * m / own._levels(i)
+        r = top / own._levels(i) + 1e-12
+        for what, gap in (("port - jax", a - b), ("port - f64", a - r),
+                          ("jax - f64", b - r)):
+            gap = np.abs(np.asarray(gap, np.float64))
+            assert np.all(gap <= 1e-5 * np.abs(r) + 8 * ulp), (what, i)
+            worst[what] = max(worst.get(what, 0.0), np.max(gap / ulp))
+        worst["relative port - jax"] = max(worst.get("relative port - jax", 0.0),
+                                           np.max(np.abs(a - b) / b))
+    print(scheme, {k: f"{w:.3g}" for k, w in worst.items()})
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jquant.QuantPannEncoder, "_calibrate", lambda self, f, n: (
+            [own.act_scales[0] if stem is None else stem] + own.act_scales[1:]))
+        same = jquant.QuantPannEncoder(v, jnp.asarray(feats), jnp.asarray(LENS),
+                                       arch="Cnn14", **kw)
+    _assert_same_bake(own, same)
 
 
 # --------------------------------------------------------------------- #

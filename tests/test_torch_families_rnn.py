@@ -45,6 +45,7 @@ from acvae_tpu_torch.models.decoders import RNNDecoder
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode
 from acvae_tpu_torch.ops.losses import gmm_kl_loss
 from acvae_tpu_torch.train.trainer import Trainer
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 from tests.test_torch_quant import jax_baked
 
 V, E, E_LN, FDIM, TMEL, N, T = 30, 16, 12, 16, 64, 3, 7
@@ -112,17 +113,6 @@ class Pair:
         m = build_model(self.port_conf, V, FDIM, device="cpu")
         m.load_state_dict(from_flax(self.variables), strict=True)
         return m.eval()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the module: at these sizes it is as fast, and
-    a parallel test run on shared cores makes torch's spinning thread pool
-    tens of times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -287,7 +287,7 @@ def test_unported_branches_raise(key, value):
     conf = _port_conf(dict(SMALL, **{key: value}))
     fdim = FDIM
     if key == "encodermodel":
-        conf["encoder_args"] = dict(PORT_ENC, embed_size=2048)
+        conf["encoder_args"] = {"embed_size": 2048}
         fdim = 64
     if key in PORTED:
         trainer = Trainer(conf, V, fdim, device="cpu", total_iters=10)

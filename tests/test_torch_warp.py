@@ -23,17 +23,7 @@ from acvae_tpu_torch.ops import specaug as tsa
 from acvae_tpu_torch.ops import warp as tw
 from acvae_tpu_torch.ops.cuda import build as tbuild
 from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for the module: at these sizes it is as fast, and
-    a parallel test run on shared cores makes torch's spinning thread pool
-    tens of times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from tests.test_torch_decode import one_torch_thread  # noqa: F401
 
 
 AUG_TOL = dict(rtol=0, atol=5e-4)
