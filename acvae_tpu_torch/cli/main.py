@@ -12,6 +12,13 @@
     python -m acvae_tpu_torch.cli scst <exp_dir> [--sample_n=N] [--epochs=E]
     python -m acvae_tpu_torch.cli average_checkpoints <exp_dir> [--names=best,last]
     python -m acvae_tpu_torch.cli diagnose <exp_dir> [--batches=6]
+    python -m acvae_tpu_torch.cli train_discriminator <config.yaml> [--mode=cap2cap]
+    python -m acvae_tpu_torch.cli stage1 <text.json> <vocab.pkl> [--output_dir=...]
+    python -m acvae_tpu_torch.cli stage1_test <stage1_dir> <text.json> <vocab.pkl>
+    python -m acvae_tpu_torch.cli extract_embedding <stage1_dir> <text.json> <vocab.pkl> <out_dir>
+    python -m acvae_tpu_torch.cli global_vae <text.json> <vocab.pkl> [--output_dir=...]
+    python -m acvae_tpu_torch.cli export_embeddings <embedding_dir> <output_prefix>
+    python -m acvae_tpu_torch.cli extract_sentence_embedding <text.json> <vocab.pkl> <source> <out_dir>
 
 Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
@@ -28,7 +35,12 @@ with ``train_caption.log`` (the epoch table), ``config.json``,
 epoch) and ``ckpt_steps.json``; ``--checkpoint_every_steps=k`` adds
 mid-epoch snapshots (``step_0.pt``/``step_1.pt``), and ``--resume=true``
 continues from the newest readable one.  The train keys of the JAX CLI work
-as there: ``kl_anneal``, ``free_bits``, ``global_loss``, the five
+as there: ``kl_anneal``, ``free_bits``, ``global_loss``, ``use_aug_prob``
+(captions whose ``cap_id`` holds "aug" kept with that probability),
+``embedding_path``/``embedding_scaler`` with ``embedding_loss`` and
+``dec_par`` (configs/sentence.yaml), ``adverse_loss`` (a
+``train_discriminator`` experiment as the frozen discriminator,
+configs/adverse.yaml), the five
 optimizers with their ``optimizer_args``, ``freeze_word_embedding``,
 ``model_args.freeze_encoder``, ``accum_steps``, ``ReduceLROnPlateau``, the
 ``pretrained*`` warm starts, ``fault_abort_step`` and ``profile_dir`` (a
@@ -46,6 +58,12 @@ scores the references leave-one-out.  ``scst`` fine-tunes an experiment
 with self-critical sequence training into ``<exp>/scst_n<N>/``,
 ``average_checkpoints`` writes ``<output_name>.pt`` (the mean of the named
 checkpoints) and ``diagnose`` prints the posterior-collapse diagnostics.
+The auxiliary stack: ``train_discriminator`` (aud2cap or cap2cap),
+``stage1`` (the GE2E caption embedder), ``stage1_test`` (its EER),
+``extract_embedding`` (its per-caption tree for ``embedding_path``),
+``extract_sentence_embedding`` (the tree from word vectors),
+``export_embeddings`` (projector TSVs) and ``global_vae`` (the sentence VAE
+that ``pretrained_global`` merges).
 """
 from __future__ import annotations
 
@@ -64,7 +82,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from acvae_tpu_torch import DEFAULT_DEVICE
+from acvae_tpu_torch import DEFAULT_DEVICE, END_IDX, START_IDX
 from acvae_tpu_torch.core.config import Config, load_config
 from acvae_tpu_torch.core.miniyaml import safe_load
 from acvae_tpu_torch.data.dataset import (CaptionDataset, CaptionLoader,
@@ -77,6 +95,7 @@ from acvae_tpu_torch.evaluation.coco import CiderScorer, score_captions
 from acvae_tpu_torch.evaluation.diversity import (eval_div_stats, novelty,
                                                   self_bleu)
 from acvae_tpu_torch.evaluation.human_eval import human_diversity, human_scores
+from acvae_tpu_torch.losses.wrappers import augment_keep_mask
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, int8_decode_fn,
                                           quant_encoder_for, scheme_kwargs)
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
@@ -104,8 +123,6 @@ DEFAULTS = dict(
 # and ignored; so is decode_dtype, which no train reads)
 LATER_KEYS = {
     "distributed": "A19", "model_parallel": "A19", "sequence_parallel": "A19",
-    "adverse_loss": "A17 part 2", "use_aug_prob": "A17 part 2",
-    "embedding_loss": "A17 part 2", "embedding_path": "A17 part 2",
 }
 # the metrics averaged over an epoch into metrics.jsonl
 DIAG_KEYS = ("kl", "kl_raw", "active_units", "kl_dim_max", "qp_mse",
@@ -234,9 +251,11 @@ def _to_device(batch, device: torch.device,
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     feats = (put(batch.feats) if feats_dtype is None else
              torch.from_numpy(batch.feats).to(feats_dtype).to(device).float())
+    embeds = None if batch.cap_embeds is None else put(batch.cap_embeds)
     return dataclasses.replace(batch, feats=feats,
                                feat_lens=put(batch.feat_lens),
-                               caps=put(batch.caps), cap_lens=put(batch.cap_lens))
+                               caps=put(batch.caps), cap_lens=put(batch.cap_lens),
+                               cap_embeds=embeds)
 
 
 def _build_dataloaders(conf: Config, vocab: Vocabulary):
@@ -251,9 +270,11 @@ def _build_dataloaders(conf: Config, vocab: Vocabulary):
         info = load_caption_info(conf["caption_file"], zh)
         tr, va = _train_val_split(info, conf["train_percent"], conf["seed"])
         train_info, val_info = [info[i] for i in tr], [info[i] for i in va]
+    # the validation set has no caption embeddings (they only enter the loss)
     train_ds = CaptionDataset(**train_src, caption_info=train_info,
                               vocabulary=vocab,
-                              embedding_path=conf.get("embedding_path"))
+                              embedding_path=conf.get("embedding_path"),
+                              embedding_scaler=conf.get("embedding_scaler", False))
     val_ds = CaptionDataset(**val_src, caption_info=val_info, vocabulary=vocab)
     bs = conf.get("dataloader_args", {}).get("batch_size", conf["batch_size"])
     train_loader = CaptionLoader(train_ds, bs, shuffle=True, seed=conf["seed"])
@@ -332,6 +353,11 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     trainer = Trainer(conf, len(vocab), train_ds.data_dim, device=device,
                       total_iters=total_iters, vocab=vocab)
     apply_pretrained(conf, trainer.model, logger.info)
+    if trainer.adversarial is not None:
+        logger.info(f"adverse_loss: discriminator from "
+                    f"{conf['adverse_loss']['discriminator']} "
+                    f"(alpha={trainer.adversarial.get('alpha', 1.0)})")
+    aug_prob = conf.get("use_aug_prob")
     plateau = None
     if conf.get("scheduler") == "ReduceLROnPlateau":
         # the epoch scheduler, stepped with the val score
@@ -379,7 +405,15 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                     if profile_dir and profile_start is None:
                         # this run's first step (a resume starts mid-count)
                         profile_start, prof = iteration, Trace(profile_dir)
-                    m = trainer.step(batch.arrays(), iteration, epoch)
+                    arrays = batch.arrays()
+                    if aug_prob is not None:
+                        # per-iteration draws, so that a mid-epoch resume
+                        # draws the masks of the uninterrupted run
+                        arrays["keep_mask"] = augment_keep_mask(
+                            batch.cap_ids, aug_prob, np.random.default_rng(
+                                (seed + 9) * 1_000_003 + iteration)
+                        ).astype(np.float32)
+                    m = trainer.step(arrays, iteration, epoch)
                     if prof is not None and iteration >= (profile_start
                                                           + PROFILE_STEPS - 1):
                         prof = _stop_trace(prof, device)
@@ -748,6 +782,415 @@ def diagnose(experiment_path: str, eval_h5_csv: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------- #
+# the auxiliary training stack: the discriminator of adverse_loss, the GE2E
+# caption embedder, the global sentence VAE and the embedding trees
+def _discriminator_model(mode: str, conf: Config, vocab_size: int,
+                         data_dim: Optional[int], device: torch.device):
+    """The seeded trainer module of ``train_discriminator``: the encoder
+    of the recipe and the discriminator (aud2cap), or the discriminator
+    alone (cap2cap)."""
+    from acvae_tpu_torch.models.discriminator import (
+        Aud2CapDiscriminatorTrainer, Cap2CapDiscriminatorTrainer,
+        DiscriminatorRNNModel)
+    from acvae_tpu_torch.models.encoders import build_encoder
+
+    cuda = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(conf["seed"])
+        # cap2cap reads no audio: no aud_proj, as in the JAX package's tree
+        audio_dim = conf["discriminator_audio_dim"] if mode == "aud2cap" else None
+        dscrm = DiscriminatorRNNModel(vocab_size, audio_dim=audio_dim,
+                                      device=device,
+                                      **conf.get("discriminator_args", {}))
+        if mode == "cap2cap":
+            return Cap2CapDiscriminatorTrainer(dscrm, conf.get("uttnumbers", 5))
+        enc = build_encoder(conf["encodermodel"], conf.get("encoder_args", {}),
+                            data_dim, device)
+        return Aud2CapDiscriminatorTrainer(enc, dscrm)
+
+
+def train_discriminator(config: str, mode: str = "aud2cap",
+                        device=DEFAULT_DEVICE, **kwargs) -> str:
+    """Train the caption discriminator (acvae_tpu/cli/main.py:1509-1656):
+    ``aud2cap`` matches audio to captions (negatives: the batch's captions
+    rolled by one), ``cap2cap`` caption to caption over Stage1Dataset
+    groups of the seeded 90/10 audio split.  BCE over both, the recipe's
+    optimizer at ``optimizer_args.lr`` (default 1e-3) with the
+    ``max_grad_norm`` clip; ``best`` on the validation loss (the train loss
+    when the held-out split yields no batch).  Writes
+    ``<outputpath>/DiscriminatorModel/<remark>_<mode>/seed_<N>/``
+    (``train_dscrm.log``, ``config.json``, ``vocab.pkl``, ``best.pt``,
+    ``last.pt``), the directory ``adverse_loss.discriminator`` names."""
+    from acvae_tpu_torch.data.aux_datasets import Stage1Dataset
+    from acvae_tpu_torch.losses.wrappers import bce_logits_loss
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+    from acvae_tpu_torch.train.optim import OptaxChain
+
+    if mode not in ("aud2cap", "cap2cap"):
+        raise ValueError(f"mode {mode!r}: aud2cap or cap2cap")
+    conf = Config(copy.deepcopy(DEFAULTS))
+    conf.update(load_config(config, **kwargs))
+    device = _device(device)
+    seed = conf["seed"]
+    outputdir = (Path(conf["outputpath"]) / "DiscriminatorModel"
+                 / f"{conf['remark']}_{mode}" / f"seed_{seed}")
+    outputdir.mkdir(parents=True, exist_ok=True)
+    logger = _setup_logger(str(outputdir / "train_dscrm.log"))
+    vocab = Vocabulary.load(conf["vocab_file"])
+    conf["discriminator_mode"] = mode
+    conf["discriminator_audio_dim"] = conf.get("encoder_args", {}).get(
+        "embed_size", 512)
+    data_dim = None
+    if mode == "aud2cap":
+        train_ds, _, train_loader, val_loader = _build_dataloaders(conf, vocab)
+        conf["data_dim"] = data_dim = train_ds.data_dim
+    else:
+        info = load_caption_info(conf["caption_file"], conf.get("zh", False))
+        perm = np.random.default_rng(seed).permutation(len(info))
+        n_tr = max(1, int(len(info) * 0.9))
+        utt, per_batch = conf.get("uttnumbers", 5), conf.get("audios_per_batch", 8)
+        s1 = Stage1Dataset([info[i] for i in perm[:n_tr]], vocab, uttnumbers=utt)
+        s1_val = Stage1Dataset([info[i] for i in perm[n_tr:]], vocab,
+                               uttnumbers=utt)
+        s1.require_batch(per_batch, seed)
+    model = _discriminator_model(mode, conf, len(vocab), data_dim, device)
+    lr = conf.get("optimizer_args", {}).get("lr", 1e-3)
+    optimizer = OptaxChain(model.named_parameters(), conf.get("optimizer", "Adam"),
+                           lambda step: lr,
+                           max_grad_norm=conf.get("max_grad_norm", 1.0))
+
+    def batches(epoch: int, train: bool):
+        if mode == "aud2cap":
+            loader = train_loader if train else val_loader
+            loader.set_epoch(epoch)
+            return ((b.feats, b.feat_lens, b.caps, b.cap_lens) for b in
+                    loader.prefetch(stage=partial(_to_device, device=device)))
+        return (tuple(torch.from_numpy(a).to(device) for a in b) for b in
+                (s1 if train else s1_val).batches(per_batch, seed, epoch))
+
+    def loss_of(args, train: bool):
+        pos, neg = model(*args, train=train)
+        probs = torch.cat([pos, neg])
+        labels = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
+        return bce_logits_loss(probs, labels), probs, labels
+
+    (outputdir / "config.json").write_text(json.dumps(conf, indent=1))
+    improved = criterion_improver("loss")   # on the validation loss
+    logger.info("{:^10}\t{:^12}\t{:^10}\t{:^10}".format(
+        "Epoch", "Train loss", "Acc", "Val loss"))
+    for epoch in range(1, conf["epochs"] + 1):
+        losses, accs = [], []
+        for args in batches(epoch, True):
+            optimizer.zero_grad()
+            loss, probs, labels = loss_of(args, True)
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+            accs.append(((probs > 0.5) == (labels > 0.5)).float().mean())
+        with torch.no_grad():
+            vlosses = [loss_of(args, False)[0] for args in batches(epoch, False)]
+        loss = float(np.mean(torch.stack(losses).cpu().numpy()))
+        acc = float(np.mean(torch.stack(accs).cpu().numpy()))
+        # a tiny corpus can leave the held-out split without a batch
+        vloss = (float(np.mean(torch.stack(vlosses).cpu().numpy()))
+                 if vlosses else loss)
+        logger.info(f"{epoch:^10}\t{loss:^12.4g}\t{acc:^10.3f}\t{vloss:^10.4g}")
+        if improved(vloss):
+            save_experiment(str(outputdir), model, conf, vocab, "best")
+        save_experiment(str(outputdir), model, conf, vocab, "last")
+    return str(outputdir)
+
+
+def _stage1_models(vocab_size: int, embed_size: int, seed: int,
+                   device: torch.device):
+    """The seeded stage-1 embedder and GE2E loss of ``stage1``."""
+    from acvae_tpu_torch.models.stage1 import GE2ELoss, Stage1Encoder
+
+    cuda = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(seed)
+        return (Stage1Encoder(vocab_size, embed_size=embed_size, device=device),
+                GE2ELoss(device=device))
+
+
+def _load_stage1(stage1_dir: str, vocab_size: int, embed_size: int,
+                 device: torch.device):
+    from acvae_tpu_torch.models.stage1 import Stage1Encoder
+
+    enc = Stage1Encoder(vocab_size, embed_size=embed_size, device=device)
+    ckpt = torch.load(Path(stage1_dir) / "stage1_params.pt", map_location="cpu",
+                      weights_only=True)
+    enc.load_state_dict(ckpt["state_dict"], strict=True)
+    return enc
+
+
+def stage1(caption_file: str, vocab_file: str,
+           output_dir: str = "experiments/stage1", epochs: int = 20,
+           audios_per_batch: int = 16, uttnumbers: int = 5,
+           embed_size: int = 512, lr: float = 1e-3, seed: int = 1,
+           zh: bool = False, device=DEFAULT_DEVICE) -> str:
+    """GE2E pretraining of the stage-1 caption embedder
+    (acvae_tpu/cli/main.py:1658-1725, runners/stage1_runner.py): batches of
+    ``audios_per_batch`` × ``uttnumbers`` captions; optax's ``sgd(lr,
+    momentum=0.9)`` on two groups, each clipped apart (the embedder at 3.0,
+    the loss's w/b at 1.0).  Writes ``stage1.log`` and
+    ``stage1_params.pt`` (the embedder with its BatchNorm statistics) into
+    ``output_dir``."""
+    from acvae_tpu_torch.data.aux_datasets import Stage1Dataset
+    from acvae_tpu_torch.train.optim import OptaxChain
+
+    device = _device(device)
+    info = load_caption_info(caption_file, zh)
+    vocab = Vocabulary.load(vocab_file)
+    ds = Stage1Dataset(info, vocab, uttnumbers=uttnumbers)
+    ds.require_batch(audios_per_batch, seed)
+    enc, loss_mod = _stage1_models(len(vocab), embed_size, seed, device)
+    opts = [OptaxChain(m.named_parameters(), "SGD", lambda step: lr,
+                       max_grad_norm=clip, momentum=0.9)
+            for m, clip in ((enc, 3.0), (loss_mod, 1.0))]
+    outdir = Path(output_dir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    logger = _setup_logger(str(outdir / "stage1.log"))
+    for epoch in range(1, epochs + 1):
+        losses = []
+        for caps, lens in ds.batches(audios_per_batch, seed, epoch):
+            emb = enc(torch.from_numpy(caps).to(device),
+                      torch.from_numpy(lens).to(device), train=True)
+            loss = loss_mod(emb.reshape(audios_per_batch, uttnumbers, -1))
+            for opt in opts:
+                opt.zero_grad()
+            loss.backward()
+            for opt in opts:
+                opt.step()
+            losses.append(loss.detach())
+        mean = np.mean([float(v) for v in torch.stack(losses).cpu()])
+        logger.info(f"epoch {epoch}: GE2E loss {mean:.4f}")
+    torch.save({"state_dict": {k: v.detach().cpu()
+                               for k, v in enc.state_dict().items()}},
+               outdir / "stage1_params.pt")
+    return str(outdir)
+
+
+def stage1_test(stage1_dir: str, caption_file: str, vocab_file: str,
+                audios_per_batch: int = 16, uttnumbers: int = 4,
+                epochs: int = 1, embed_size: int = 512, seed: int = 1,
+                device=DEFAULT_DEVICE) -> float:
+    """Caption-verification EER of a stage-1 embedder
+    (acvae_tpu/cli/main.py:1727-1782): each batch's groups split in half,
+    the first half the enrollment (its centroids), the second the
+    verification; ``equal_error_rate`` of their similarities, averaged over
+    the batches of ``epochs`` reshuffles and printed.  ``uttnumbers`` must
+    be even."""
+    from acvae_tpu_torch.data.aux_datasets import Stage1Dataset
+    from acvae_tpu_torch.models.stage1 import (equal_error_rate, get_centroids,
+                                               get_cossim)
+
+    if uttnumbers % 2:
+        raise ValueError("uttnumbers must be even for enroll/verify "
+                         "halves (stage1_runner.py:160)")
+    device = _device(device)
+    vocab = Vocabulary.load(vocab_file)
+    ds = Stage1Dataset(load_caption_info(caption_file), vocab,
+                       uttnumbers=uttnumbers)
+    enc = _load_stage1(stage1_dir, len(vocab), embed_size, device)
+    half, A = uttnumbers // 2, audios_per_batch
+
+    def embed(caps, lens):
+        return enc(caps.reshape(-1, caps.shape[-1]), lens.reshape(-1),
+                   train=False).reshape(A, half, -1)
+
+    eers = []
+    with torch.no_grad():
+        for epoch in range(epochs):
+            for caps, lens in ds.batches(A, seed, epoch):
+                caps = torch.from_numpy(caps).to(device).reshape(A, uttnumbers, -1)
+                lens = torch.from_numpy(lens).to(device).reshape(A, uttnumbers)
+                enr = embed(caps[:, :half], lens[:, :half])
+                ver = embed(caps[:, half:], lens[:, half:])
+                sim = get_cossim(ver, get_centroids(enr))
+                eers.append(equal_error_rate(sim)[0])
+    avg = float(np.mean(eers)) if eers else float("nan")
+    print(f"avg EER over {len(eers)} batches: {avg:.4f}")
+    return avg
+
+
+def extract_embedding(stage1_dir: str, caption_file: str, vocab_file: str,
+                      output_dir: str, embed_size: int = 512,
+                      device=DEFAULT_DEVICE) -> str:
+    """``<output_dir>/<audio_id>/<i>.npy``, the stage-1 embedding of each
+    caption (padded to 22 ids), and ``caption.npy``, their mean: the tree
+    ``embedding_path`` reads (acvae_tpu/cli/main.py:1784-1816)."""
+    device = _device(device)
+    vocab = Vocabulary.load(vocab_file)
+    enc = _load_stage1(stage1_dir, len(vocab), embed_size, device)
+    out_root = Path(output_dir)
+    with torch.no_grad():
+        for audio in load_caption_info(caption_file):
+            aid_dir = out_root / audio["audio_id"]
+            aid_dir.mkdir(parents=True, exist_ok=True)
+            caps, lens = [], []
+            for cap in audio["captions"]:
+                ids = ([START_IDX] + [vocab(t) for t in cap["tokens"].split()]
+                       + [END_IDX])
+                caps.append(np.pad(np.asarray(ids[:22], np.int32),
+                                   (0, max(0, 22 - len(ids)))))
+                lens.append(min(len(ids), 22))
+            emb = enc(torch.from_numpy(np.stack(caps)).to(device),
+                      torch.tensor(lens, device=device), train=False)
+            emb = emb.cpu().numpy()
+            for i in range(emb.shape[0]):
+                np.save(aid_dir / f"{i}.npy", emb[i])
+            np.save(aid_dir / "caption.npy", emb.mean(0))
+    return str(out_root)
+
+
+def global_vae(caption_file: str, vocab_file: str,
+               output_dir: str = "experiments/global_vae", epochs: int = 20,
+               batch_size: int = 64, latent_size: int = 512, lr: float = 5e-4,
+               kl_weight: float = 0.5, seed: int = 1,
+               device=DEFAULT_DEVICE) -> str:
+    """Pretrain the global sentence VAE on the caption corpus
+    (acvae_tpu/cli/main.py:1818-1877): CE + ``kl_weight``·KL against
+    N(0, 1), the gradient clipped at 1.0, then Adam.  Writes
+    ``global_vae.log`` and ``global_vae_params.pt``, which ``train``'s
+    ``pretrained_global`` merges by name."""
+    from acvae_tpu_torch.data.aux_datasets import CaptionCorpus
+    from acvae_tpu_torch.models.global_vae import GlobalSentenceVAE
+    from acvae_tpu_torch.ops.losses import cross_entropy, normal_kl_loss
+    from acvae_tpu_torch.ops.masked import length_mask
+    from acvae_tpu_torch.train.optim import OptaxChain
+
+    device = _device(device)
+    vocab = Vocabulary.load(vocab_file)
+    corpus = CaptionCorpus(load_caption_info(caption_file), vocab)
+    cuda = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(seed)
+        model = GlobalSentenceVAE(len(vocab), latent_size=latent_size,
+                                  device=device)
+    optimizer = OptaxChain(model.named_parameters(), "Adam", lambda step: lr,
+                           max_grad_norm=1.0)
+    gen = torch.Generator(device).manual_seed(seed + 2)
+    outdir = Path(output_dir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    logger = _setup_logger(str(outdir / "global_vae.log"))
+    for epoch in range(1, epochs + 1):
+        losses = []
+        for caps, lens in corpus.batches(batch_size, seed=seed, epoch=epoch):
+            caps = torch.from_numpy(caps).to(device)
+            lens = torch.from_numpy(lens).to(device)
+            out = model(caps, lens, train=True, generator=gen)
+            mask = length_mask(lens - 1, caps.shape[1] - 1)
+            ce = cross_entropy(out["logits"], caps[:, 1:], mask)
+            kl = normal_kl_loss(out["mu"], out["logvar"],
+                                torch.zeros_like(out["mu"]),
+                                torch.zeros_like(out["logvar"]))
+            loss = ce + kl_weight * kl
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        mean = np.mean([float(v) for v in torch.stack(losses).cpu()])
+        logger.info(f"epoch {epoch}: loss {mean:.4f}")
+    torch.save({"state_dict": {k: v.detach().cpu()
+                               for k, v in model.state_dict().items()}},
+               outdir / "global_vae_params.pt")
+    return str(outdir)
+
+
+def export_embeddings(embedding_dir: str, output_prefix: str) -> str:
+    """``<output_prefix>_vectors.tsv`` and ``_metadata.tsv`` (audio_id,
+    cap_idx) of an embedding tree, for TensorBoard's projector
+    (acvae_tpu/cli/main.py:1915-1933)."""
+    vecs, labels = [], []
+    for audio_dir in sorted(Path(embedding_dir).iterdir()):
+        if not audio_dir.is_dir():
+            continue
+        for npy in sorted(audio_dir.glob("[0-9]*.npy")):
+            vecs.append(np.load(npy))
+            labels.append(f"{audio_dir.name}\t{npy.stem}")
+    np.savetxt(f"{output_prefix}_vectors.tsv", np.stack(vecs), delimiter="\t")
+    with open(f"{output_prefix}_metadata.tsv", "w") as f:
+        f.write("audio_id\tcap_idx\n")
+        f.write("\n".join(labels) + "\n")
+    print(f"wrote {len(vecs)} embeddings")
+    return output_prefix
+
+
+def extract_sentence_embedding(caption_file: str, vocab_file: str,
+                               embedding_source: str, output_dir: str,
+                               device=DEFAULT_DEVICE) -> str:
+    """Per-caption sentence embeddings, the mean of the caption's word
+    vectors (acvae_tpu/cli/main.py:2457-2498): ``<output_dir>/<audio_id>/
+    <i>.npy`` and the per-audio mean ``caption.npy``.  ``embedding_source``
+    is a ``.npy`` or pickled [vocab, dim] matrix, a GloVe/fastText text
+    file or a gensim model (``train/pretrained.py::load_word_embeddings``),
+    or a local HuggingFace transformer directory (its mean-pooled last
+    hidden states, computed on ``device``; needs the ``transformers``
+    package).  The word-vector means are host numpy."""
+    from acvae_tpu_torch.train.pretrained import load_word_embeddings
+
+    src = Path(embedding_source)
+    if src.is_dir() and (src / "config.json").exists():
+        return _extract_hf_sentence_embedding(caption_file, embedding_source,
+                                              output_dir, device)
+    vocab = Vocabulary.load(vocab_file)
+    matrix = load_word_embeddings(embedding_source, vocab)
+    out_root = Path(output_dir)
+    n = 0
+    for audio in load_caption_info(caption_file):
+        aid_dir = out_root / audio["audio_id"]
+        aid_dir.mkdir(parents=True, exist_ok=True)
+        embs = []
+        for i, cap in enumerate(audio["captions"]):
+            words = (cap.get("tokens")
+                     or " ".join(tokenize(cap["caption"]))).split()
+            ids = [vocab(w) for w in words]
+            emb = (matrix[ids].mean(0) if ids
+                   else np.zeros(matrix.shape[1], np.float32))
+            np.save(aid_dir / f"{i}.npy", emb.astype(np.float32))
+            embs.append(emb)
+            n += 1
+        np.save(aid_dir / "caption.npy", np.mean(embs, axis=0).astype(np.float32))
+    print(f"wrote {n} caption embeddings under {output_dir}")
+    return output_dir
+
+
+def _extract_hf_sentence_embedding(caption_file: str, model_dir: str,
+                                   output_dir: str, device) -> str:
+    """Mean-pooled last hidden states of a local HF transformer over the
+    real tokens (the reference's utils/bert SentenceTransformer pooling)."""
+    try:
+        from transformers import AutoModel, AutoTokenizer
+    except ImportError as e:
+        raise ImportError(f"{model_dir} is a HuggingFace model directory; "
+                          f"embedding with it needs the transformers package, "
+                          f"which is not installed") from e
+    tok = AutoTokenizer.from_pretrained(model_dir)
+    mdl = AutoModel.from_pretrained(model_dir).eval().to(device)
+    out_root = Path(output_dir)
+    n = 0
+    with torch.no_grad():
+        for audio in load_caption_info(caption_file):
+            aid_dir = out_root / audio["audio_id"]
+            aid_dir.mkdir(parents=True, exist_ok=True)
+            texts = [c.get("caption") or c["tokens"] for c in audio["captions"]]
+            enc = {k: v.to(device) for k, v in tok(
+                texts, return_tensors="pt", padding=True,
+                truncation=True).items()}
+            hidden = mdl(**enc).last_hidden_state
+            m = enc["attention_mask"].unsqueeze(-1).float()
+            emb = ((hidden * m).sum(1) / m.sum(1).clamp(min=1)).cpu().numpy()
+            emb = emb.astype(np.float32)
+            for i in range(emb.shape[0]):
+                np.save(aid_dir / f"{i}.npy", emb[i])
+                n += 1
+            np.save(aid_dir / "caption.npy", emb.mean(0))
+    print(f"wrote {n} HF caption embeddings under {output_dir}")
+    return output_dir
+
+
+# ---------------------------------------------------------------------- #
 def make_synthetic(output_dir: str, num_audios: int = 3000,
                    captions_per_audio: int = 5, mel_frames: int = 1024,
                    rich: bool = False, seed: int = 0) -> str:
@@ -813,9 +1256,15 @@ COMMANDS = {"train": train, "evaluate": evaluate, "predict": predict,
             "human_eval": human_eval, "scst": scst,
             "average_checkpoints": average_checkpoints, "diagnose": diagnose,
             "make_synthetic": make_synthetic, "build_vocab": build_vocab,
-            "tokenize_caption": tokenize_caption}
+            "tokenize_caption": tokenize_caption,
+            "train_discriminator": train_discriminator, "stage1": stage1,
+            "stage1_test": stage1_test, "extract_embedding": extract_embedding,
+            "global_vae": global_vae, "export_embeddings": export_embeddings,
+            "extract_sentence_embedding": extract_sentence_embedding}
 # the commands that compute on the device (the others only check --device)
-ON_DEVICE = ("train", "evaluate", "predict", "ensemble", "scst", "diagnose")
+ON_DEVICE = ("train", "evaluate", "predict", "ensemble", "scst", "diagnose",
+             "train_discriminator", "stage1", "stage1_test",
+             "extract_embedding", "global_vae", "extract_sentence_embedding")
 
 
 def main(argv: Optional[List[str]] = None) -> Any:

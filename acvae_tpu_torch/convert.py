@@ -29,11 +29,16 @@ returns the tensors under the port's (the reference's torch) names:
   [heads, head_dim, out] becomes ``out_proj``; LayerNorm ``scale`` becomes
   ``weight``;
 * everything else (``ln``, ``mixture_logits``, the Linear heads) keeps its
-  name.
+  name: so do the auxiliary models' trees (``DiscriminatorRNNModel`` and
+  its trainer wrappers' ``dscrm``/``encoder``, ``Stage1Encoder`` with its
+  ``bn`` statistics, ``GE2ELoss``'s ``w``/``b``, ``GlobalSentenceVAE``, the
+  sentence head's ``output_transform``), the discriminator's scalar
+  ``scale`` included.
 
 ``quant_from_flax(baked)`` carries a baked JAX int8 encoder across (no new
 calibration).  ``experiment_from_flax`` writes a JAX experiment's weights,
-recipe and vocabulary as a port experiment dir.
+recipe and vocabulary as a port experiment dir, ``discriminator_from_flax``
+a JAX ``train_discriminator`` experiment.
 """
 from __future__ import annotations
 
@@ -146,6 +151,8 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 sd[key + "weight"] = a.transpose(3, 2, 0, 1)
             elif leaf == "kernel":
                 sd[key + "weight"] = a.T
+            elif leaf == "scale" and a.ndim == 0:   # the discriminator's
+                sd[key + leaf] = a
             elif leaf in ("scale", "embedding"):
                 sd[key + "weight"] = a
             else:  # bias, v
@@ -164,7 +171,9 @@ def from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             [parts[f"{p}.bias"].reshape(E) for p in _MHA[:3]])
         sd[key + "out_proj.weight"] = parts["out.kernel"].reshape(E, -1).T
         sd[key + "out_proj.bias"] = parts["out.bias"]
-    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # (ascontiguousarray makes a 0-d array 1-d: the scalars keep their shape)
+    return {k: torch.tensor(np.ascontiguousarray(v)).reshape(v.shape)
+            for k, v in sd.items()}
 
 
 def experiment_from_flax(tree: Dict[str, Any], conf: Dict[str, Any], vocab,
@@ -185,6 +194,20 @@ def experiment_from_flax(tree: Dict[str, Any], conf: Dict[str, Any], vocab,
                         device="cpu")
     model.load_state_dict(from_flax(tree), strict=True)
     return save_experiment(out_dir, model, conf, vocab, name)
+
+
+def discriminator_from_flax(tree: Dict[str, Any], conf: Dict[str, Any], vocab,
+                            out_dir: str, name: str = "best"):
+    """A port ``train_discriminator`` experiment (``config.json``,
+    ``vocab.pkl``, ``<name>.pt``), which ``adverse_loss.discriminator`` can
+    name, from a JAX one: ``tree`` is its ``load_raw_checkpoint(exp, name,
+    subset=("params", "batch_stats"))`` (the trainer wrapper's ``dscrm``
+    and, for aud2cap, ``encoder``), ``conf`` its ``config.yaml`` and
+    ``vocab`` its vocabulary.  Returns the weights' path."""
+    from acvae_tpu_torch.train.checkpoints import save_state
+
+    return save_state(out_dir, from_flax(tree), json.loads(json.dumps(conf)),
+                      vocab, name)
 
 
 def quant_from_flax(baked: Dict[str, Any], device=DEFAULT_DEVICE):

@@ -12,10 +12,16 @@ log-mel features + captions -> padded batches.
   any other path is HDF5 and needs h5py, imported at its first read.
 * ``CaptionLoader.prefetch`` collates in a producer thread; its ``stage``
   hook runs there too (the CLI's moves each batch to the device).
+* With ``embedding_path``, each caption also carries its sentence embedding
+  ``<embedding_path>/<audio_id>/<cap_idx>.npy`` (caption_dataset.py:105-110),
+  standardized by a mean/std fit over the dataset's embeddings with
+  ``embedding_scaler`` (run_sentence.py:54-73); a batch holds them as
+  ``cap_embeds`` [N, E].
 """
 from __future__ import annotations
 
 import bisect
+import os
 import queue
 import threading
 from dataclasses import dataclass
@@ -51,10 +57,14 @@ class Batch:
     audio_ids: List[str]
     cap_indices: np.ndarray  # [N] caption position within its clip
     cap_ids: List[str]       # the captions' cap_id tags
+    cap_embeds: Optional[np.ndarray] = None  # [N, E] (embedding_path)
 
     def arrays(self) -> Dict[str, np.ndarray]:
-        return {"feats": self.feats, "feat_lens": self.feat_lens,
-                "caps": self.caps, "cap_lens": self.cap_lens}
+        out = {"feats": self.feats, "feat_lens": self.feat_lens,
+               "caps": self.caps, "cap_lens": self.cap_lens}
+        if self.cap_embeds is not None:
+            out["cap_embeds"] = self.cap_embeds
+        return out
 
 
 def _open_store(path: str):
@@ -81,10 +91,8 @@ class CaptionDataset:
                  vocabulary: Optional[Vocabulary] = None,
                  features: Optional[Dict[str, np.ndarray]] = None,
                  max_cap_len: int = MAX_LENGTH + 2,
-                 embedding_path: Optional[str] = None):
-        if embedding_path is not None:
-            raise NotImplementedError("caption embeddings (embedding_path) "
-                                      "are not ported (ROADMAP A17)")
+                 embedding_path: Optional[str] = None,
+                 embedding_scaler: bool = False):
         self._manifest = manifest or {}
         self._features = features
         self._caption_info = caption_info or []
@@ -92,6 +100,17 @@ class CaptionDataset:
         self._stores: Dict[str, object] = {}
         self._lock = threading.Lock()
         self.max_cap_len = max_cap_len
+        self._embedding_path = embedding_path
+        self._emb_mean = self._emb_std = None
+        if embedding_scaler and embedding_path is not None:
+            embs = [np.load(p) for p in (
+                self._emb_file(info["audio_id"], ci)
+                for info in self._caption_info
+                for ci in range(len(info["captions"]))) if os.path.exists(p)]
+            if embs:
+                stack = np.stack(embs)
+                self._emb_mean = stack.mean(0)
+                self._emb_std = np.maximum(stack.std(0), 1e-8)
         self.pairs = np.array(
             [(ai, ci) for ai, info in enumerate(self._caption_info)
              for ci in range(len(info["captions"]))], dtype=np.int64)
@@ -112,15 +131,25 @@ class CaptionDataset:
             store = self._stores[path]
         return np.asarray(store[audio_id]).squeeze()
 
+    def _emb_file(self, audio_id: str, cap_idx: int) -> str:
+        return os.path.join(self._embedding_path, audio_id, f"{cap_idx}.npy")
+
     def get(self, pair_idx: int):
-        """(audio_id, feature [T, F] float32, caption ids int32)."""
+        """(audio_id, feature [T, F] float32, caption ids int32, the
+        caption's embedding with ``embedding_path``, else None)."""
         ai, ci = self.pairs[pair_idx]
         info = self._caption_info[ai]
         audio_id = info["audio_id"]
         feature = self._load_feature(audio_id).astype(np.float32)
         tokens = info["captions"][ci]["tokens"].split()
         cap = [START_IDX] + [self._vocabulary(t) for t in tokens] + [END_IDX]
-        return audio_id, feature, np.asarray(cap[:self.max_cap_len], np.int32)
+        cap = np.asarray(cap[:self.max_cap_len], np.int32)
+        if self._embedding_path is None:
+            return audio_id, feature, cap, None
+        emb = np.load(self._emb_file(audio_id, ci))
+        if self._emb_mean is not None:
+            emb = (emb - self._emb_mean) / self._emb_std
+        return audio_id, feature, cap, emb
 
     def cap_tag(self, pair_idx: int) -> str:
         """The caption's ``cap_id``, else its position."""
@@ -181,24 +210,26 @@ class CaptionLoader:
             if self.drop_last and len(chunk) < self.batch_size:
                 break
             items = [self.dataset.get(int(i)) for i in chunk]
-            bucket = pick_bucket(max(f.shape[0] for _, f, _ in items),
+            bucket = pick_bucket(max(f.shape[0] for _, f, _, _ in items),
                                  self.buckets)
             N, F = len(items), items[0][1].shape[1]
             feats = np.zeros((N, bucket, F), np.float32)
             feat_lens = np.zeros((N,), np.int32)
             caps = np.full((N, L), PAD_IDX, np.int32)
             cap_lens = np.zeros((N,), np.int32)
-            for i, (_, feat, cap) in enumerate(items):
+            for i, (_, feat, cap, _) in enumerate(items):
                 t = min(feat.shape[0], bucket)
                 feats[i, :t] = feat[:t]
                 feat_lens[i] = t
                 caps[i, :len(cap)] = cap
                 cap_lens[i] = len(cap)
+            embs = (np.stack([it[3] for it in items]).astype(np.float32)
+                    if self.dataset._embedding_path is not None else None)
             yield Batch(feats, feat_lens, caps, cap_lens,
-                        [aid for aid, _, _ in items],
+                        [aid for aid, _, _, _ in items],
                         np.asarray([self.dataset.pairs[int(i)][1] for i in chunk],
                                    np.int32),
-                        [self.dataset.cap_tag(int(i)) for i in chunk])
+                        [self.dataset.cap_tag(int(i)) for i in chunk], embs)
 
     def prefetch(self, depth: int = 2, skip_batches: int = 0,
                  stage: Optional[Callable] = None) -> Iterator:

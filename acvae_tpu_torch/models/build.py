@@ -59,7 +59,7 @@ def build_model(conf: Dict[str, Any], vocab_size: int, data_dim: int,
         raise NotImplementedError(
             f"model {name!r} is not ported: the port builds {', '.join(MODELS)} "
             f"(the CaptionSentenceModel head of configs/sentence.yaml is "
-            f"ROADMAP A17 part 2)")
+            f"Seq2SeqAttnModel with model_args.seq_output_size)")
     dec_name = conf.get("decoder", "VAERNNBahdanauAttnDecoder")
     if dec_name not in DECODERS:
         raise NotImplementedError(f"decoder {dec_name!r} is not ported (the JAX "
@@ -94,4 +94,5 @@ def build_model(conf: Dict[str, Any], vocab_size: int, data_dim: int,
             device=device)
     cls = AttnCaptionModel if name == "Seq2SeqAttnModel" else TransformerCaptionModel
     # the JAX package passes model_args to the captioner as its fields
+    # (Seq2SeqAttnModel's seq_output_size: the CaptionSentenceModel head)
     return cls(encoder, decoder, device=device, **model_args)

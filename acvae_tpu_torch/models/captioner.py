@@ -32,7 +32,8 @@ from acvae_tpu_torch.decoding.sampling import sample_next_word
 from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            grad_optional,
                                            forced_logprob, stack_steps)
-from acvae_tpu_torch.ops.masked import length_mask
+from acvae_tpu_torch.models.encoders import _dense
+from acvae_tpu_torch.ops.masked import length_mask, mean_with_lens
 
 
 def _dbs_config(max_length, beam_size, model, **dbs_kwargs) -> DBSConfig:
@@ -72,14 +73,21 @@ class _PlainCaptioner(CaptionModel):
 
 
 class AttnCaptionModel(_PlainCaptioner):
+    """``seq_output_size`` adds the CaptionSentenceModel head
+    (word_model.py:409-438): the train forward also returns ``seq_outputs``,
+    the length-mean of the decoder outputs, projected by
+    ``output_transform`` (flax's kaiming-uniform Dense) where the size
+    differs from the decoder's ``hidden_size``."""
+
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  max_length: int = MAX_LENGTH,
                  seq_output_size: Optional[int] = None, device=None):
-        if seq_output_size is not None:
-            raise NotImplementedError(
-                "seq_output_size (the CaptionSentenceModel head of "
-                "configs/sentence.yaml) is not ported (ROADMAP A17 part 2)")
         super().__init__(encoder, decoder, max_length, device)
+        self.seq_output_size = seq_output_size
+        self.output_transform = None
+        if seq_output_size is not None and seq_output_size != decoder.hidden_size:
+            self.output_transform = _dense(decoder.hidden_size, seq_output_size,
+                                           "kaiming_uniform", device)
 
     def _ctx(self, encoded):
         enc_mem = encoded["audio_embeds"].to(self.decoder.state_dtype())
@@ -119,7 +127,14 @@ class AttnCaptionModel(_PlainCaptioner):
                 for k, v in (("logits", d["logits"]), ("output", d["output"]),
                              ("seqs", word)):
                     ys[k].append(v)
-        return stack_steps(ys)
+        out = stack_steps(ys)
+        if self.seq_output_size is not None:
+            # CaptionSentenceModel.train_process (word_model.py:421-427)
+            seq = mean_with_lens(out["output"], cap_lens - 1)
+            if self.output_transform is not None:
+                seq = self.output_transform(seq)
+            out["seq_outputs"] = seq
+        return out
 
     def stepwise_decode(self, encoded, method: str, max_length: int,
                         temp: float = 1.0, gumbel=None, generator=None):

@@ -41,7 +41,12 @@ class GRUCell(_Cell):
     gates = 3
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        gi, gh = self.gates_from(x, h)
+        return self.recur(F.linear(x, self.weight_ih, self.bias_ih), h)
+
+    def recur(self, gi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One step from the input half of the gates ``gi`` [N, 3H], which a
+        caller can project for a whole sequence at once."""
+        gh = F.linear(h, self.weight_hh, self.bias_hh)
         H = self.hidden_size
         r = torch.sigmoid(gi[..., :H] + gh[..., :H])
         z = torch.sigmoid(gi[..., H:2 * H] + gh[..., H:2 * H])

@@ -11,7 +11,11 @@ is written when the validation score improves and ``last.pt`` every epoch;
 slots, ``step_0.pt`` and ``step_1.pt``, removed once ``last`` supersedes
 them.  ``ckpt_steps.json`` records each checkpoint's step and the best
 score.  :func:`resume_newest` restores the newest readable candidate;
-:func:`average_checkpoints` writes the elementwise mean of several.
+:func:`average_checkpoints` writes the elementwise mean of several.  A
+``train_discriminator`` experiment has the same layout (its config records
+``discriminator_mode``, ``discriminator_audio_dim`` and
+``discriminator_args``); :func:`load_discriminator` reads it back for
+``adverse_loss``.
 """
 from __future__ import annotations
 
@@ -50,12 +54,20 @@ def save_experiment(exp_dir: str, model: torch.nn.Module, conf: Dict[str, Any],
                     vocab: Vocabulary, name: str = "best") -> Path:
     """Write ``config.json``, ``vocab.pkl`` and ``<name>.pt`` (weights only)
     into ``exp_dir`` (created if missing); returns the weights' path."""
+    return save_state(exp_dir, {k: v.detach().cpu()
+                                for k, v in model.state_dict().items()},
+                      conf, vocab, name)
+
+
+def save_state(exp_dir: str, state_dict: Dict[str, torch.Tensor],
+               conf: Dict[str, Any], vocab: Optional[Vocabulary],
+               name: str = "best") -> Path:
+    """:func:`save_experiment` of a state dict."""
     exp = Path(exp_dir)
     exp.mkdir(parents=True, exist_ok=True)
     _write_side_files(exp, conf, vocab)
     path = exp / f"{name}.pt"
-    _save({"state_dict": {k: v.detach().cpu()
-                          for k, v in model.state_dict().items()}}, path)
+    _save({"state_dict": state_dict}, path)
     return path
 
 
@@ -248,3 +260,27 @@ def load_weights(model: torch.nn.Module, exp_dir: str, name: str = "best") -> No
     ckpt = torch.load(_resolve_checkpoint_path(exp_dir, name),
                       map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["state_dict"], strict=True)
+
+
+def load_discriminator(exp_dir: str, vocab_size: int, name: str = "best",
+                       device=DEFAULT_DEVICE):
+    """The frozen ``DiscriminatorModel`` of a ``train_discriminator``
+    experiment (acvae_tpu/cli/main.py:439-459): built from its
+    ``config.json`` (``discriminator_audio_dim``, ``discriminator_args``),
+    the ``dscrm.`` weights of ``<name>.pt`` (``best`` falls back to
+    ``last``), every parameter with ``requires_grad`` off.  It stays in
+    train mode: it has no dropout or BatchNorm, and cuDNN's RNN backward,
+    which the generator's gradient runs through, needs it."""
+    from acvae_tpu_torch.models.discriminator import DiscriminatorModel
+
+    conf = json.loads((Path(exp_dir) / "config.json").read_text())
+    model = DiscriminatorModel(vocab_size,
+                               audio_dim=conf.get("discriminator_audio_dim", 512),
+                               device=device, **conf.get("discriminator_args", {}))
+    ckpt = torch.load(_resolve_checkpoint_path(exp_dir, name),
+                      map_location="cpu", weights_only=True)
+    model.load_state_dict({k[len("dscrm."):]: v for k, v in
+                           ckpt["state_dict"].items() if k.startswith("dscrm.")},
+                          strict=True)
+    model.requires_grad_(False)
+    return model

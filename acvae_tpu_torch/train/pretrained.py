@@ -23,6 +23,7 @@ a pickled flax tree reaches the port through the JAX side
 """
 from __future__ import annotations
 
+import pickle
 import re
 from pathlib import Path
 from typing import Any, Callable, Dict, Tuple
@@ -89,6 +90,12 @@ def unwrap_torch_state_dict(obj):
 def _looks_like_acvae(state_dict: Dict[str, Any]) -> bool:
     """A whole reference (or port) model: submodule-prefixed keys."""
     return any(k.startswith(("decoder.", "qnet.", "pnet.")) for k in state_dict)
+
+
+def _looks_like_global_vae(state_dict: Dict[str, Any]) -> bool:
+    """``cli global_vae``'s ``GlobalSentenceVAE``, which
+    ``pretrained_global`` merges by name as it is."""
+    return any(k.startswith("context_to_mu.") for k in state_dict)
 
 
 def _looks_like_pann(state_dict: Dict[str, Any]) -> bool:
@@ -211,7 +218,8 @@ def espnet_state_dict(sd: Dict[str, Any], inputdim: int = 64,
 def load_state_source(path: str, espnet_inputdim: int = 64,
                       log: Callable = print) -> Dict[str, Any]:
     """The flat state dict, in the port's names, that a ``pretrained*`` key
-    names: a whole AC-VAE model's as it is, a PANN or espnet encoder's
+    names: a whole AC-VAE model's or a global sentence VAE's as it is, a
+    PANN or espnet encoder's
     renamed (:func:`pann_state_dict`, :func:`espnet_state_dict`).  A
     missing file raises FileNotFoundError; a directory, a non-torch file or
     a torch file of none of these kinds ValueError, naming the JAX-side
@@ -231,14 +239,15 @@ def load_state_source(path: str, espnet_inputdim: int = 64,
     # a DistributedDataParallel save prefixes every name
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
-    if _looks_like_acvae(sd):
+    if _looks_like_acvae(sd) or _looks_like_global_vae(sd):
         return sd
     if _looks_like_espnet(sd):
         return espnet_state_dict(sd, espnet_inputdim, log)
     if _looks_like_pann(sd):
         return pann_state_dict(sd)
     raise ValueError(f"{path}: torch checkpoint is neither a full AC-VAE "
-                     f"model, an espnet encoder, nor a PANN backbone")
+                     f"model, a global sentence VAE, an espnet encoder, nor a "
+                     f"PANN backbone")
 
 
 def apply_pretrained(conf: Dict[str, Any], model: torch.nn.Module,
@@ -313,11 +322,42 @@ def from_gensim(vocabulary, model_path: str, seed: int = 0) -> np.ndarray:
     return out
 
 
+# the globals a pickled numpy array references (numpy 1 and 2 module paths)
+_ARRAY_GLOBALS = {(m, n) for m in ("numpy.core.multiarray",
+                                   "numpy._core.multiarray")
+                  for n in ("_reconstruct", "scalar")} | {
+    (m, "_frombuffer") for m in ("numpy.core.numeric", "numpy._core.numeric")} | {
+    ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode")}
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _ARRAY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"embedding pickle references disallowed global {module}.{name}; "
+            f"only a numpy matrix is accepted")
+
+
+def load_pickled_matrix(path: str) -> np.ndarray:
+    """A pickled [vocab, dim] numpy matrix, read by an unpickler that
+    admits numpy's array globals and nothing else."""
+    with open(path, "rb") as f:
+        matrix = np.asarray(_ArrayUnpickler(f).load())
+    if matrix.ndim != 2:
+        raise ValueError(f"{path}: expected a [vocab, dim] matrix, got shape "
+                         f"{matrix.shape}")
+    return matrix
+
+
 def load_word_embeddings(path: str, vocabulary=None) -> np.ndarray:
-    """``.npy`` loads as it is; ``.txt``/``.vec`` and gensim models need
-    the vocabulary to align rows."""
+    """``.npy`` and a pickled matrix (``.pkl``/``.pickle``) load as they
+    are; ``.txt``/``.vec`` and gensim models need the vocabulary to align
+    rows."""
     if path.endswith(".npy"):
         return np.load(path)
+    if path.endswith((".pkl", ".pickle")):
+        return load_pickled_matrix(path)
     if vocabulary is None:
         raise ValueError(f"{path}: word vectors other than a .npy matrix need "
                          f"the vocabulary")

@@ -9,12 +9,20 @@ otherwise (masked to valid tokens, unmasked for SimpleVAE's one latent a
 clip; with ``free_bits`` λ the KL becomes ``Σ_d max(KL_d, λ)`` and the
 unfloored one is logged as ``kl_raw``); + α · the global constraint where
 the model returns ``p_means_utt`` (``global_loss``: MSE of the utterance
-means, or the Normal KL between their halves) -> ``train/optim.py``'s
+means, or the Normal KL between their halves).  Three recipe terms apply
+to any family: ``use_aug_prob`` (the batch's ``keep_mask`` drops augmented
+captions from the CE, ``augment_loss``), ``embedding_loss`` (Cosine, MSE or
+MAE of the sentence head's ``seq_outputs``, else of the mean+max pooled
+decoder outputs, against the batch's ``cap_embeds``, times ``dec_par``) and
+``adverse_loss`` (+ α · BCE(D(raw ``audio_embeds``, a straight-through
+caption sample), 1) from a frozen discriminator that ``cli
+train_discriminator`` trained; gradients reach the captioner through the
+soft caption) -> ``train/optim.py``'s
 chain (clip, coupled L2, the optimizer, the plateau's factor; freezing;
 gradient accumulation).  BatchNorm statistics update during the forward,
 flax-style, every micro-batch.  Each phase is a ``record_function`` range
-(augment / forward / backward / optimizer) that a torch.profiler trace
-reads; the ranges cost nothing when no profiler runs.  The augment runs
+(augment / forward / backward / optimizer; the adverse term is
+``adverse`` inside ``forward``) that a torch.profiler trace reads; the ranges cost nothing when no profiler runs.  The augment runs
 before the loss and gradients are taken with respect to parameters only,
 so the warp needs no backward.
 """
@@ -26,11 +34,13 @@ import torch
 from torch.profiler import record_function
 
 from acvae_tpu_torch import DEFAULT_DEVICE
+from acvae_tpu_torch.losses.wrappers import (_sample_preds, augment_loss,
+                                             bce_logits_loss)
 from acvae_tpu_torch.models.build import build_model
 from acvae_tpu_torch.ops.losses import (cross_entropy, gmm_kl_loss,
                                         label_smoothing_loss, normal_kl_loss,
                                         normal_kl_per_dim)
-from acvae_tpu_torch.ops.masked import length_mask
+from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
 from acvae_tpu_torch.ops.specaug import build_augment
 from acvae_tpu_torch.train.optim import OptaxChain
 from acvae_tpu_torch.train.schedules import (build_schedule,
@@ -41,8 +51,7 @@ from acvae_tpu_torch.train.schedules import (build_schedule,
 # config keys of branches of the JAX train loop that this port leaves out,
 # with the ROADMAP item each waits for; setting one raises instead of being
 # silently ignored
-UNPORTED_KEYS = {"adverse_loss": "A17 part 2", "embedding_loss": "A17 part 2",
-                 "use_aug_prob": "A17 part 2", "distributed": "A19"}
+UNPORTED_KEYS = {"distributed": "A19"}
 # the schedule keys a recipe may leave out, at the JAX CLI's defaults
 # (acvae_tpu/cli/main.py:45-55)
 RATIO_DEFAULTS = {
@@ -67,7 +76,9 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
                  smoothing: Optional[float] = 0.1, kl_mask: str = "valid",
                  noise: Optional[Dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 global_loss: str = "MSE", free_bits: Optional[float] = None):
+                 global_loss: str = "MSE", free_bits: Optional[float] = None,
+                 embedding_loss: Optional[str] = None, dec_par: float = 1.0,
+                 adversarial: Optional[Dict[str, Any]] = None):
     """Forward + the family's loss mix; returns (loss, metrics).
 
     ``smoothing=None`` uses plain CE.  ``kl_mask`` is "valid" (mask the KL
@@ -77,14 +88,23 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
     only) floors each dimension's batch-mean KL at λ.  ``global_loss`` other
     than "MSE" is the Normal KL between the utterance moments: the two
     halves of ``q_means_utt`` (or it and ``q_logs_utt``) against the halves
-    of ``p_means_utt``."""
+    of ``p_means_utt``.  A ``keep_mask`` [N] in ``batch`` replaces the CE
+    with ``augment_loss``; ``embedding_loss`` applies where the batch has
+    ``cap_embeds``; ``adversarial`` (``dscrm``, a frozen DiscriminatorModel,
+    ``alpha``, ``sample_method``) adds the adverse term, its Gumbel noise
+    ``noise["adv_gumbel"]`` [N, L-1, V] or drawn from ``generator``."""
     caps, cap_lens = batch["caps"], batch["cap_lens"]
     out = model.train_forward(batch["feats"], batch["feat_lens"], caps,
                               cap_lens, ss_ratio=ss_ratio, dis_ratio=dis_ratio,
                               train=True, noise=noise, generator=generator)
     mask = length_mask(cap_lens - 1, caps.shape[1] - 1)
     targets = caps[:, 1:]
-    if smoothing is None:
+    keep = batch.get("keep_mask")
+    if keep is not None:
+        # AugmentLossWrapper (loss.py:72-94), the mask drawn on the host
+        ce = augment_loss(out["logits"], targets, cap_lens - 1, keep,
+                          smoothing or 0.0)
+    elif smoothing is None:
         ce = cross_entropy(out["logits"], targets, mask)
     else:
         ce = label_smoothing_loss(out["logits"], targets, smoothing, mask)
@@ -121,6 +141,16 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
                 kl = torch.sum(torch.clamp_min(kl_d, free_bits))
         loss = loss + kl_weight * kl
         metrics["kl"] = kl
+    if embedding_loss and "cap_embeds" in batch:
+        e_loss = _embedding_term(out, cap_lens, batch["cap_embeds"],
+                                 embedding_loss)
+        loss = loss + dec_par * e_loss
+        metrics["embed"] = e_loss
+    if adversarial is not None:
+        with record_function("adverse"):
+            adv = _adverse_term(out, cap_lens, adversarial, noise, generator)
+        loss = loss + adversarial.get("alpha", 1.0) * adv
+        metrics["adverse"] = adv
     if alpha is not None and "p_means_utt" in out:
         if global_loss == "MSE":
             g = torch.mean((out["q_means_utt"] - out["p_means_utt"]) ** 2)
@@ -134,8 +164,57 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
         loss = loss + alpha * g
         metrics["global"] = g
     metrics["loss"] = loss
-    metrics["ntokens"] = mask.sum()
+    # the CE of an augment batch is over the kept tokens: weight by those
+    metrics["ntokens"] = (mask.sum() if keep is None else
+                          (mask.float() * keep.float()[:, None]).sum())
     return loss, metrics
+
+
+def _embedding_term(out, cap_lens, target, kind: str) -> torch.Tensor:
+    """The caption-embedding regression (pytorch_runner.py:104-113,
+    324-333): the sentence head's ``seq_outputs``, else the mean+max pooled
+    decoder outputs, against ``target`` by Cosine, MAE or MSE."""
+    if "seq_outputs" in out:
+        pooled = out["seq_outputs"]
+    else:
+        pooled = (mean_with_lens(out["output"], cap_lens - 1)
+                  + max_with_lens(out["output"], cap_lens - 1))
+    if pooled.shape[-1] != target.shape[-1]:
+        raise ValueError(
+            f"embedding_loss dimension mismatch: decoder pooled "
+            f"output is {pooled.shape[-1]}-dim but the caption "
+            f"embeddings are {target.shape[-1]}-dim; either match "
+            f"decoder hidden_size to the embeddings or use a "
+            f"model with seq_output_size={target.shape[-1]} "
+            f"(the CaptionSentenceModel projection head, "
+            f"word_model.py:409-438)")
+    target = target.to(pooled.dtype)
+    if kind == "Cosine":
+        num = torch.sum(pooled * target, -1)
+        den = torch.clamp_min(torch.linalg.norm(pooled, dim=-1)
+                              * torch.linalg.norm(target, dim=-1), 1e-8)
+        return torch.mean(1.0 - num / den)
+    if kind == "MAE":
+        return torch.mean(torch.abs(pooled - target))
+    return torch.mean((pooled - target) ** 2)
+
+
+def _adverse_term(out, cap_lens, adversarial, noise, generator) -> torch.Tensor:
+    """AdverseLossWrapper's generator side (loss.py:279-319): BCE(D(the raw
+    ``audio_embeds``, a caption sample), 1) under the frozen discriminator;
+    the reference discards the combined loss when alpha > 0 (loss.py:
+    311-315), here the terms compose."""
+    if "audio_embeds" not in out:
+        raise ValueError(
+            "adverse_loss requires a model whose train forward "
+            "exposes audio_embeds (the VAECaptionModel family)")
+    method = adversarial.get("sample_method", "argmax")
+    preds = _sample_preds(out["logits"], method,
+                          (noise or {}).get("adv_gumbel"), generator)
+    probs = adversarial["dscrm"]({"audio_feats": out["audio_embeds"],
+                                  "feats_lens": out["audio_embeds_lens"],
+                                  "caps": preds, "lens": cap_lens - 1})
+    return bce_logits_loss(probs, torch.ones_like(probs))
 
 
 def frozen_paths(conf: Dict[str, Any]) -> Tuple[str, ...]:
@@ -211,6 +290,16 @@ class Trainer:
         self.total_iters = int(total_iters)
         self.optimizer = build_optimizer(conf, self.model.named_parameters(),
                                          self.total_iters)
+        # adverse_loss: the frozen discriminator of `cli train_discriminator`
+        # (acvae_tpu/cli/main.py:439-459)
+        self.adversarial = None
+        if conf.get("adverse_loss"):
+            from acvae_tpu_torch.train.checkpoints import load_discriminator
+            adv = dict(conf["adverse_loss"])
+            dscrm = load_discriminator(adv.pop("discriminator"), vocab_size,
+                                       adv.pop("checkpoint", "best"),
+                                       self.device)
+            self.adversarial = dict(adv, dscrm=dscrm)
         self.augment = None
         if conf.get("augments"):
             self.augment = build_augment(conf["augments"],
@@ -261,7 +350,8 @@ class Trainer:
              draws: Optional[Dict] = None,
              noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         """One train step on the micro-batch ``batch`` (``feats`` [N,T,F],
-        ``feat_lens``, ``caps`` [N,L], ``cap_lens``; arrays or tensors).
+        ``feat_lens``, ``caps`` [N,L], ``cap_lens``, optionally ``keep_mask``
+        [N] and ``cap_embeds`` [N,E]; arrays or tensors).
         ``draws`` / ``noise`` optionally fix the augment's and the model's
         random draws (the dropouts draw from torch's global generator).
         Returns detached 0-d metric tensors, left on the device; ``lr`` is
@@ -285,7 +375,9 @@ class Trainer:
                 kl_mask=c.get("kl_mask", "valid"), noise=noise,
                 generator=self.generator,
                 global_loss=c.get("global_loss", "MSE"),
-                free_bits=c.get("free_bits"))
+                free_bits=c.get("free_bits"),
+                embedding_loss=c.get("embedding_loss"),
+                dec_par=c.get("dec_par", 1.0), adversarial=self.adversarial)
         with record_function("backward"):
             loss.backward()
         lr = self.optimizer.lr()

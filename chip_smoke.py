@@ -145,12 +145,35 @@ Phases, each of which exits nonzero on failure:
    ``loaded 40/40`` line), ``evaluate --encoder_int8`` (120 + 50
    launches), and ``evaluate`` on the ``.npz`` manifest and on the same
    features as a kaldi ``.scp``/``.ark`` table: the same captions.
+15. aux: the auxiliary training stack on phase 10's corpus.  (a) Card vs
+   CPU from the same weights and noise (within 1e-4·(1 + |cpu|)): the
+   discriminator's aud2cap and cap2cap (id and soft captions), the GE2E
+   loss and ``get_cossim``, the global VAE's train forward, the sentence
+   head, ``adverse_loss`` (and the logits' gradient) and
+   ``augment_loss``; then one small ``Trainer.step`` each with
+   ``adverse_loss``, ``embedding_loss`` and a ``keep_mask`` batch (SGD:
+   metrics, gradients and updated parameters).  (b) ``configs/adverse.yaml``: ``train_discriminator
+   --mode=aud2cap`` for 1 epoch; 6 flagship train steps with
+   ``adverse_loss`` (a seeded discriminator at vocab 4981, gumbel) at
+   batch 32, T_mel 1024, L 22, the median of steps 2-6 beside phase 5's,
+   and 6 of the same recipe without the term (the term's cost);
+   1 CLI epoch of stage 2 and ``evaluate --encoder_int8`` of it (80 + 30
+   launches).  (c) ``configs/sentence.yaml``: ``stage1`` (2 epochs, embed
+   512), ``stage1_test`` (the EER), ``extract_embedding``, 6 timed
+   ``Seq2SeqAttnModel`` steps with ``embedding_loss: Cosine``, 1 CLI epoch
+   with ``embedding_path`` and ``evaluate``.  (d) ``global_vae`` (2
+   epochs at batch 64, latent 512), a ``configs/ac_vae.yaml`` epoch
+   warm-started by ``pretrained_global`` (its ``loaded N/M`` line) with
+   ``use_aug_prob: 0.5`` over aug-tagged caption copies,
+   ``extract_sentence_embedding`` from a seeded 512-dim matrix and
+   ``export_embeddings``; where the transformers package is installed,
+   ``extract_sentence_embedding`` from a seeded BERT directory, card vs CPU.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families, extras, encoders).  Prints a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all eight),
+serve, cli, diverse, families, extras, encoders, aux).  Prints a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all nine),
 then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
-more train steps and one full-width decode batch of each serving path and
+more train steps (phase 5's, and phase 15's adverse step) and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
 op tables into DIR.
 """
@@ -158,9 +181,11 @@ import argparse
 import concurrent.futures
 import copy
 import functools
+import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -203,11 +228,12 @@ CNN14_CONVS = [(128, 8, 512, 512, "sym"), (64, 4, 512, 1024, "sym"),
                (32, 2, 2048, 2048, "f32relu")]
 CNN14_POOLS = [(128, 8, 512), (64, 4, 1024)]
 PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
-         "extras", "encoders")
+         "extras", "encoders", "aux")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
 SMI = ""
+STEP_MS = {}   # median train step ms: phase 5's flagship, phase 15's recipes
 
 
 def kernel_fns():
@@ -690,6 +716,7 @@ def train_phase(steps, profile_dir=None):
     peak = torch.cuda.max_memory_allocated()
     check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
           "non-finite parameters after the steps")
+    STEP_MS["flagship"] = statistics.median(step_ms[1:] or step_ms)
     print(f"train: step ms median {statistics.median(step_ms):.1f} "
           f"(first {step_ms[0]:.1f}, steps 2-{steps} "
           f"{statistics.median(step_ms[1:] or step_ms):.1f}); "
@@ -703,19 +730,23 @@ def train_phase(steps, profile_dir=None):
 
 
 RANGES = ("augment", "forward", "encoder", "posterior", "decode_loop",
-          "backward", "optimizer")
+          "adverse", "backward", "optimizer")
 
 
-def profile_steps(trainer, rng, it, epoch, step_ms, out_dir):
+def profile_steps(trainer, rng, it, epoch, step_ms, out_dir, tag="train_step",
+                  extra=None):
     """Trace two more steps; split device (kernel) time by the trainer's
     record_function ranges.  Backward ops run on autograd's thread, outside
-    the "backward" range, so backward = all kernels - the other phases."""
+    the "backward" range, so backward = all kernels - the other phases.
+    ``extra`` adds arrays to each batch, as in ``_aux_steps``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     batches = [make_batch(rng) for _ in range(2)]
+    for b in batches:
+        b.update(extra(rng) if extra is not None else {})
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i, b in enumerate(batches):
@@ -732,17 +763,32 @@ def profile_steps(trainer, rng, it, epoch, step_ms, out_dir):
     # each range's span on the device timeline (kernels and the gaps between)
     spans = {e.key: e.self_device_time_total / 1e3 / 2 for e in events
              if e.key in RANGES and e.device_type == DeviceType.CUDA}
+    # host (CPU) wall of each range per step: launches, syncs, Python
+    host = {e.key: e.cpu_time_total / 1e3 / 2 for e in events
+            if e.key in RANGES and e.device_type == DeviceType.CPU}
+    # CUDA runtime calls per step: kernel launches, copies, syncs
+    api = {e.key: (e.count / 2, round(e.self_cpu_time_total / 1e3 / 2, 3))
+           for e in events if e.key.startswith("cuda")
+           and e.device_type == DeviceType.CPU}
     table = events.table(sort_by="self_device_time_total", row_limit=40)
-    (out / "profile_train_step.txt").write_text(table)
-    prof.export_chrome_trace(str(out / "trace_train_step.json"))
+    (out / f"profile_{tag}.txt").write_text(table)
+    host_table = events.table(sort_by="self_cpu_time_total", row_limit=40)
+    (out / f"profile_{tag}_host.txt").write_text(host_table)
+    prof.export_chrome_trace(str(out / f"trace_{tag}.json"))
     wall = statistics.median(step_ms[1:] or step_ms)
-    print(f"profile: kernel time per step {kernel_ms:.2f} ms vs step wall "
-          f"{wall:.2f} ms (unprofiled): device busy share {kernel_ms / wall:.3f}")
-    print("profile: kernel ms per step by phase " + json.dumps(
+    print(f"profile {tag}: kernel time per step {kernel_ms:.2f} ms vs step "
+          f"wall {wall:.2f} ms (unprofiled): device busy share "
+          f"{kernel_ms / wall:.3f}")
+    print(f"profile {tag}: kernel ms per step by phase " + json.dumps(
         {k: round(v, 3) for k, v in by_range.items()}))
-    print("profile: device-timeline span ms per step by phase " + json.dumps(
-        {k: round(v, 3) for k, v in spans.items()}))
+    print(f"profile {tag}: device-timeline span ms per step by phase "
+          + json.dumps({k: round(v, 3) for k, v in spans.items()}))
+    print(f"profile {tag}: host ms per step by phase " + json.dumps(
+        {k: round(v, 3) for k, v in host.items()}))
+    print(f"profile {tag}: CUDA runtime calls per step (count, host ms) "
+          + json.dumps(api))
     print("\n".join(table.splitlines()[:24]))
+    print("\n".join(host_table.splitlines()[:16]))
 
 
 def phase(name, fn, *args):
@@ -2572,6 +2618,475 @@ def encoders_phase(tmp):
     return total
 
 
+# phase 15: the auxiliary training stack.  configs/adverse.yaml's two stages
+# and configs/sentence.yaml at their own widths (Cnn10 512 bf16, decoder
+# 512, the discriminator's embed 256), the GE2E embedder at embed 512 and
+# the global VAE at its defaults (batch 64, latent 512), on phase 10's corpus
+AUX_STEPS = 6
+AUX_TOL = 1e-4     # card vs CPU, float32 with TF32 off: |d| <= tol·(1 + |cpu|)
+
+
+def aux_phase(tmp, profile_dir=None):
+    """Phase 15; returns the kernel launches of (b)-(d)."""
+    aux_parity()
+    aux_step_parity(tmp)
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(kernel_fns(), 0)
+    for counts in (aux_adverse(tmp, profile_dir), aux_sentence(tmp),
+                   aux_rest(tmp)):
+        for k, v in counts.items():
+            total[k] += v
+    print(f"aux: launches over the path {total} ({SMI})")
+    return total
+
+
+def _aux_close(errs, name, card, cpu):
+    a, b = card.detach().float().cpu(), cpu.detach().float()
+    check(a.shape == b.shape, f"aux parity {name}: shapes {a.shape} {b.shape}")
+    d = (a - b).abs()
+    errs[name] = max(errs.get(name, 0.0), d.max().item())
+    check(bool((d <= AUX_TOL * (1 + b.abs())).all()),
+          f"aux parity {name}: card vs CPU max |d| {d.max().item()}")
+
+
+def aux_parity():
+    """(a) The new modules on the card against the CPU, same weights and
+    noise: the discriminator's aud2cap and cap2cap (id and soft captions),
+    the GE2E loss and get_cossim, the global VAE's train forward, the
+    sentence head, adverse_loss (with the logits' gradient) and
+    augment_loss."""
+    from acvae_tpu_torch.core.config import load_config
+    from acvae_tpu_torch.losses import wrappers as tw
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.models.discriminator import DiscriminatorModel
+    from acvae_tpu_torch.models.global_vae import GlobalSentenceVAE
+    from acvae_tpu_torch.models.stage1 import GE2ELoss, get_centroids, get_cossim
+
+    rng = np.random.default_rng(61)
+    V, N, T, E = 40, 4, 9, 16
+    errs = {}
+    cpu_t = lambda a: torch.tensor(np.asarray(a))  # noqa: E731
+    gpu = lambda t: t.cuda()                          # noqa: E731
+    torch.manual_seed(61)
+    dm = DiscriminatorModel(V, audio_dim=E, word_dim=16, hidden_size=8,
+                            embed_size=12, device="cpu")
+    dg = copy.deepcopy(dm).cuda()
+    audio = cpu_t(rng.normal(size=(N, 7, E)).astype(np.float32))
+    alens, lens = torch.tensor([7, 5, 3, 1]), torch.tensor([9, 6, 4, 2])
+    ids = torch.tensor(rng.integers(0, V, size=(N, T)))
+    logits = cpu_t(rng.normal(size=(N, T, V)).astype(np.float32))
+    for name, caps in (("ids", ids), ("soft", torch.softmax(logits, -1))):
+        b = {"audio_feats": audio, "feats_lens": alens, "caps": caps,
+             "lens": lens}
+        _aux_close(errs, f"aud2cap {name}",
+                   dg({k: gpu(v) for k, v in b.items()}), dm(b))
+        other = (caps.flip(0), lens.flip(0))
+        _aux_close(errs, f"cap2cap {name}",
+                   dg.cap2cap(gpu(caps), gpu(lens), *map(gpu, other)),
+                   dm.cap2cap(caps, lens, *other))
+    emb = cpu_t(rng.normal(size=(4, 5, E)).astype(np.float32))
+    ge2e = GE2ELoss(device="cpu")
+    _aux_close(errs, "ge2e", copy.deepcopy(ge2e).cuda()(gpu(emb)), ge2e(emb))
+    cent = get_centroids(emb)
+    _aux_close(errs, "get_cossim", get_cossim(gpu(emb), gpu(cent)),
+               get_cossim(emb, cent))
+    vae = GlobalSentenceVAE(V, word_dim=16, hidden_size=12, latent_size=8,
+                            device="cpu")
+    caps = ids.clone()
+    caps[:, 0] = 1
+    eps = cpu_t(rng.normal(size=(N, 8)).astype(np.float32))
+    coins = torch.tensor(rng.uniform(size=(N, T - 1)) < 0.3)
+    a = copy.deepcopy(vae).cuda()(gpu(caps), gpu(lens), eps=gpu(eps),
+                                  coins=gpu(coins))
+    b = vae(caps, lens, eps=eps, coins=coins)
+    for k in ("logits", "mu", "logvar", "z"):
+        _aux_close(errs, f"global_vae {k}", a[k], b[k])
+    conf = load_config(str(CONFIGS / "sentence.yaml"))
+    conf.update(encoder_args={"embed_size": E, "channels": [4, 8, 8, 16],
+                              "conv_dropout": 0.0, "head_dropout": 0.0},
+                decoder_args={"embed_size": E, "hidden_size": E, "dropout": 0.0},
+                model_args={"seq_output_size": 12})
+    head = build_model(conf, V, DATA_DIM, device="cpu")
+    feats = cpu_t(rng.normal(size=(N, 64, DATA_DIM)).astype(np.float32))
+    flens = torch.tensor([64, 48, 40, 33])
+    noise = {"ss_coins": torch.ones(T - 1, dtype=torch.bool)}
+    a = copy.deepcopy(head).cuda().train_forward(
+        gpu(feats), gpu(flens), gpu(caps), gpu(lens), noise=noise)
+    b = head.train_forward(feats, flens, caps, lens, noise=noise)
+    _aux_close(errs, "sentence head", a["seq_outputs"], b["seq_outputs"])
+    tg = torch.tensor(rng.integers(0, V, size=(N, T)))
+    qm, ql, pm, pl = (cpu_t(rng.normal(size=(N, T, 4)).astype(np.float32))
+                      for _ in range(4))
+    g = cpu_t(rng.gumbel(size=(N, T, V)).astype(np.float32))
+    mask = torch.arange(T)[None] < (lens - 1)[:, None]
+    grads = []
+    for dev, d in (("cuda", dg), ("cpu", dm)):
+        x = logits.to(dev).requires_grad_(True)
+        out = tw.adverse_loss(x, tg.to(dev), qm.to(dev), ql.to(dev), pm.to(dev),
+                              pl.to(dev), x, torch.ones(N, device=dev),
+                              lens.to(dev), d, 0.5, 0.8, "gumbel", mask.to(dev),
+                              audio.to(dev), alens.to(dev), gumbel=g.to(dev))
+        out[0].backward()
+        grads.append((out, x.grad))
+    for i, name in enumerate(("loss", "ce", "kl", "dscrm")):
+        _aux_close(errs, f"adverse_loss {name}", grads[0][0][i], grads[1][0][i])
+    _aux_close(errs, "adverse_loss logits grad", grads[0][1], grads[1][1])
+    keep = torch.tensor([1.0, 0.0, 1.0, 1.0])
+    _aux_close(errs, "augment_loss",
+               tw.augment_loss(gpu(logits), gpu(tg), gpu(lens), gpu(keep), 0.1),
+               tw.augment_loss(logits, tg, lens, keep, 0.1))
+    print("aux parity: max |card - cpu| " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+
+def aux_step_parity(tmp):
+    """(a') One small ``Trainer.step`` on the card and one on the CPU from
+    the same weights, batch and noise, for each recipe term of the training
+    path: ``adverse_loss`` (a seeded discriminator experiment read back by
+    ``load_discriminator``, gumbel samples from ``noise["adv_gumbel"]``),
+    ``embedding_loss: Cosine`` (``cap_embeds``) and a ``keep_mask`` batch.
+    SGD at a constant lr 0.1, so each update is lr times the clipped
+    gradient and the parameters after the step hold the gradients' parity.
+    Metrics within phase 5's rtol 1e-3; every gradient and parameter within
+    AUX_TOL·(1 + |cpu|)."""
+    from acvae_tpu_torch.models.discriminator import DiscriminatorRNNModel
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    V, N, T, F, L, E = 25, 3, 64, 16, 8, 16
+    rng = np.random.default_rng(62)
+    torch.manual_seed(62)
+    wrapper = torch.nn.Module()
+    args = {"word_dim": 16, "hidden_size": 8, "embed_size": 12}
+    wrapper.dscrm = DiscriminatorRNNModel(V, audio_dim=E, **args)
+    dsc = Path(tmp) / "dscrm_small"
+    save_experiment(str(dsc), wrapper, {"discriminator_audio_dim": E,
+                                        "discriminator_args": args}, None)
+    batch = {"feats": rng.normal(size=(N, T, F)).astype(np.float32),
+             "feat_lens": np.array([64, 48, 33], np.int32),
+             "caps": rng.integers(3, V, size=(N, L)).astype(np.int32),
+             "cap_lens": np.array([8, 5, 3], np.int32)}
+    g = torch.Generator().manual_seed(2)
+    noise = {"q_eps": torch.randn((N, L - 1, E), generator=g),
+             "p_eps": torch.randn((L - 1, N, E), generator=g),
+             "ss_coins": torch.ones(L - 1, dtype=torch.bool),
+             "dis_coins": torch.rand(L - 1, generator=g) < 0.5,
+             "adv_gumbel": torch.tensor(rng.gumbel(size=(N, L - 1, V)),
+                                        dtype=torch.float32)}
+    cases = {
+        "adverse": ({"adverse_loss": {"discriminator": str(dsc), "alpha": 1.0,
+                                      "sample_method": "gumbel"}}, {}, "adverse"),
+        "embedding": ({"embedding_loss": "Cosine", "dec_par": 0.5},
+                      {"cap_embeds": rng.normal(size=(N, E)).astype(np.float32)},
+                      "embed"),
+        "keep_mask": ({}, {"keep_mask": np.array([1.0, 0.0, 1.0], np.float32)},
+                      "ce")}
+    errs = {}
+    for case, (over, more, term) in cases.items():
+        conf = small_conf()
+        conf.update(augments=[], optimizer="SGD", optimizer_args={"lr": 0.1},
+                    scheduler="constant", scheduler_args={}, **over)
+        gpu = Trainer(conf, V, F, device="cuda", total_iters=100)
+        cpu = Trainer(conf, V, F, device="cpu", total_iters=100)
+        cpu.model.load_state_dict({k: v.cpu() for k, v in
+                                   gpu.model.state_dict().items()})
+        b = dict(batch, **more)
+        m_gpu = gpu.step(b, 1, 12, noise=noise)
+        m_cpu = cpu.step(b, 1, 12, noise=noise)
+        check(term in m_cpu, f"aux step {case}: no {term!r} metric in {sorted(m_cpu)}")
+        vals = {}
+        for k in m_cpu:
+            a, c = float(m_gpu[k]), float(m_cpu[k])
+            vals[k] = (round(a, 6), round(c, 6))
+            check(math.isfinite(a) and abs(a - c) <= 1e-3 * abs(c) + 1e-6,
+                  f"aux step {case}: card and CPU disagree on {k}: {a} vs {c}")
+        for (name, pg), pc in zip(gpu.model.named_parameters(),
+                                  cpu.model.parameters()):
+            check((pg.grad is None) == (pc.grad is None),
+                  f"aux step {case}: {name} has a gradient on one side only")
+            if pc.grad is not None:
+                _aux_close(errs, f"{case} grads", pg.grad, pc.grad)
+            _aux_close(errs, f"{case} params", pg, pc)
+        print(f"aux step parity {case}: card, cpu {json.dumps(vals)}")
+    print("aux step parity: max |card - cpu| " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in errs.items()}))
+
+
+def _aux_steps(tag, conf, extra=None, profile_dir=None):
+    """AUX_STEPS Trainer steps of ``conf`` at batch 32, T_mel 1024, L 22,
+    vocab 4981 (phase 5's batches; ``extra`` adds arrays to each); prints
+    the median ms of steps 2-6 beside phase 5's; with ``profile_dir``,
+    traces two more (``profile_steps``)."""
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    torch.manual_seed(7)
+    trainer = Trainer(conf, VOCAB, DATA_DIM, device="cuda",
+                      total_iters=ITERS_PER_EPOCH * EPOCHS)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    rng = np.random.default_rng(1)
+    epoch = 12
+    it0 = ITERS_PER_EPOCH * (epoch - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(AUX_STEPS):
+        batch = make_batch(rng)
+        if extra is not None:
+            batch.update(extra(rng))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step(batch, it0 + 1 + i, epoch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        vals = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f"aux {tag} step {i + 1}: non-finite metric {vals}")
+    check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
+          f"aux {tag}: non-finite parameters after the steps")
+    med = statistics.median(step_ms[1:])
+    STEP_MS[tag] = med
+    term = {k: round(vals[k], 4) for k in ("adverse", "embed") if k in vals}
+    print(f"aux {tag} train: {n_params} params, batch {BATCH}, T_mel {T_MEL}, "
+          f"L {CAP_LEN}, vocab {VOCAB}: step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of steps "
+          f"2-{AUX_STEPS} {med:.1f} against phase 5's flagship step "
+          f"{STEP_MS.get('flagship', float('nan')):.1f}; loss "
+          f"{vals['loss']:.4f} {term}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({SMI})")
+    if profile_dir:
+        profile_steps(trainer, rng, it0 + AUX_STEPS, epoch, step_ms,
+                      profile_dir, tag=f"{tag}_step", extra=extra)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _cli_args(tmp, out):
+    return [f"--h5_csv={tmp}/mels.csv", f"--caption_file={tmp}/text.json",
+            f"--vocab_file={tmp}/vocab.pkl", f"--outputpath={tmp}/{out}"]
+
+
+def _epoch_line(exp):
+    m = json.loads((Path(exp) / "metrics.jsonl").read_text().splitlines()[-1])
+    check(math.isfinite(m["train_loss"]), f"aux: {exp}: {m}")
+    return (f"epoch wall {m['epoch_wall_s']:.2f} s, loss {m['train_loss']:.4f}, "
+            f"val CIDEr {m['val_cider']:.4f}")
+
+
+def aux_adverse(tmp, profile_dir=None):
+    """(b) configs/adverse.yaml: ``train_discriminator --mode=aud2cap`` (1
+    epoch), AUX_STEPS timed train steps with ``adverse_loss`` (a seeded
+    discriminator at vocab 4981, gumbel samples) and AUX_STEPS of the
+    same recipe without the term (both traced with ``profile_dir``), 1 CLI
+    epoch of stage 2
+    with the trained discriminator, ``evaluate --encoder_int8`` of it (8
+    ``conv3x3_i8`` + 3 ``avgpool2x2_i8`` a batch).  Returns the launches."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.core.config import load_config
+    from acvae_tpu_torch.models.discriminator import DiscriminatorRNNModel
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+
+    config = str(CONFIGS / "adverse.yaml")
+    reset_counts()
+    t0 = time.perf_counter()
+    dsc = Path(cli.main(["train_discriminator", config, "--mode=aud2cap",
+                         "--epochs=1"] + _cli_args(tmp, "dscrm")))
+    dsc_s = time.perf_counter() - t0
+    rows = [line.split("] - ", 1)[-1] for line in
+            (dsc / "train_dscrm.log").read_text().splitlines()][-1:]
+    check((dsc / "best.pt").exists() and (dsc / "last.pt").exists(),
+          f"aux: train_discriminator wrote {sorted(os.listdir(dsc))}")
+    print(f"aux train_discriminator aud2cap: 1 epoch ({CLI_ITERS} iterations, "
+          f"Cnn10 512 bf16 + discriminator embed 256) {dsc_s:.1f} s; "
+          f"epoch/train loss/acc/val loss {rows} ({SMI})")
+    torch.manual_seed(3)
+    wrapper = torch.nn.Module()
+    args = {"embed_size": 256}
+    wrapper.dscrm = DiscriminatorRNNModel(VOCAB, audio_dim=512, **args)
+    seeded = Path(tmp) / "dscrm_4981"
+    save_experiment(str(seeded), wrapper, {"discriminator_audio_dim": 512,
+                                           "discriminator_args": args}, None)
+    conf = json.loads(json.dumps(load_config(config)))
+    conf.update(data_dim=DATA_DIM, adverse_loss=dict(
+        conf["adverse_loss"], discriminator=str(seeded)))
+    _aux_steps("adverse", conf, profile_dir=profile_dir)
+    # the same recipe, batches and draws without the term: the term's cost
+    off = {k: v for k, v in conf.items() if k != "adverse_loss"}
+    _aux_steps("adverse_off", off, profile_dir=profile_dir)
+    t0 = time.perf_counter()
+    exp = Path(cli.main(["train", config, "--epochs=1",
+                         f"--adverse_loss.discriminator={dsc}"]
+                        + _cli_args(tmp, "adverse")))
+    train_s = time.perf_counter() - t0
+    check("adverse_loss: discriminator from" in
+          (exp / "train_caption.log").read_text(), "aux: no adverse_loss line")
+    line = (f"aux adverse CLI: train 1 epoch {train_s:.1f} s, {_epoch_line(exp)}")
+    before = read_counts()
+    t0 = time.perf_counter()
+    scores = cli.main(["evaluate", str(exp), "--encoder_int8"])
+    wall = time.perf_counter() - t0
+    got = {k: v - before[k] for k, v in read_counts().items()}
+    want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES)
+    check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want,
+          f"aux evaluate --encoder_int8: launches {got}, expected {want}")
+    check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+          f"aux evaluate --encoder_int8: {scores}")
+    print(line + f"; evaluate --encoder_int8 {wall:.2f} s ({CLI_AUDIOS / wall:.1f} "
+          f"clips/s with load and scoring), CIDEr {scores['CIDEr']:.4f}, "
+          f"launches {got} ({SMI})")
+    return read_counts()
+
+
+def aux_sentence(tmp):
+    """(c) configs/sentence.yaml: ``stage1`` (2 epochs, embed 512),
+    ``stage1_test`` (the EER), ``extract_embedding`` (the 512-dim tree),
+    AUX_STEPS timed Seq2SeqAttnModel steps with ``embedding_loss: Cosine``,
+    1 CLI epoch with ``embedding_path``, then ``evaluate``."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.core.config import load_config
+
+    text, vocab = f"{tmp}/text.json", f"{tmp}/vocab.pkl"
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["stage1", text, vocab, f"--output_dir={tmp}/stage1", "--epochs=2",
+              "--embed_size=512"])
+    s1_s = time.perf_counter() - t0
+    losses = re.findall(r"GE2E loss ([-\d.]+)",
+                        (Path(tmp) / "stage1" / "stage1.log").read_text())
+    check(len(losses) == 2 and all(math.isfinite(float(v)) for v in losses),
+          f"aux stage1: losses {losses}")
+    t0 = time.perf_counter()
+    eer = cli.main(["stage1_test", f"{tmp}/stage1", text, vocab,
+                    "--embed_size=512"])
+    test_s = time.perf_counter() - t0
+    check(0.0 <= eer <= 1.0, f"aux stage1_test: EER {eer}")
+    t0 = time.perf_counter()
+    cli.main(["extract_embedding", f"{tmp}/stage1", text, vocab, f"{tmp}/emb",
+              "--embed_size=512"])
+    ext_s = time.perf_counter() - t0
+    files = list((Path(tmp) / "emb").rglob("*.npy"))
+    check(len(files) == CLI_AUDIOS * 6 and np.load(files[0]).shape == (512,),
+          f"aux extract_embedding: {len(files)} files")
+    print(f"aux stage1: 2 epochs {s1_s:.1f} s, GE2E loss {losses}; stage1_test "
+          f"{test_s:.1f} s, EER {eer:.4f}; extract_embedding {ext_s:.1f} s, "
+          f"{len(files)} files ({SMI})")
+    config = str(CONFIGS / "sentence.yaml")
+    conf = json.loads(json.dumps(load_config(config)))
+    conf["data_dim"] = DATA_DIM
+    _aux_steps("sentence", conf, lambda rng: {"cap_embeds": rng.normal(
+        size=(BATCH, 512)).astype(np.float32)})
+    t0 = time.perf_counter()
+    exp = Path(cli.main(["train", config, "--epochs=1",
+                         f"--embedding_path={tmp}/emb"]
+                        + _cli_args(tmp, "sentence")))
+    train_s = time.perf_counter() - t0
+    line = f"aux sentence CLI: train 1 epoch {train_s:.1f} s, {_epoch_line(exp)}"
+    t0 = time.perf_counter()
+    scores = cli.main(["evaluate", str(exp)])
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
+          f"aux sentence evaluate: {scores}")
+    print(line + f"; evaluate {wall:.2f} s ({CLI_AUDIOS / wall:.1f} clips/s), "
+          f"CIDEr {scores['CIDEr']:.4f} ({SMI})")
+    return read_counts()
+
+
+def aux_rest(tmp):
+    """(d) ``global_vae`` (2 epochs at its defaults), one epoch of
+    configs/ac_vae.yaml warm-started from it (``pretrained_global``: the
+    loaded N/M line) with ``use_aug_prob: 0.5`` on a caption file whose
+    copies are tagged "aug", ``extract_sentence_embedding`` from a seeded
+    512-dim .npy matrix and ``export_embeddings``."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.data.vocab import Vocabulary
+
+    text, vocab = f"{tmp}/text.json", f"{tmp}/vocab.pkl"
+    reset_counts()
+    t0 = time.perf_counter()
+    gv = Path(cli.main(["global_vae", text, vocab, f"--output_dir={tmp}/gvae",
+                        "--epochs=2"]))
+    gv_s = time.perf_counter() - t0
+    losses = re.findall(r"loss ([-\d.]+)", (gv / "global_vae.log").read_text())
+    check(len(losses) == 2 and all(math.isfinite(float(v)) for v in losses),
+          f"aux global_vae: losses {losses}")
+    info = json.loads(Path(text).read_text())
+    for audio in info["audios"]:
+        audio["captions"] += [dict(c, cap_id=f"aug_{i}")
+                              for i, c in enumerate(audio["captions"][:2])]
+    Path(f"{tmp}/text_aug.json").write_text(json.dumps(info))
+    t0 = time.perf_counter()
+    exp = Path(cli.main(["train", str(CONFIGS / "ac_vae.yaml"), "--epochs=1",
+                         f"--pretrained_global={gv}/global_vae_params.pt",
+                         "--use_aug_prob=0.5"] + _cli_args(tmp, "aug")
+                        + [f"--caption_file={tmp}/text_aug.json"]))
+    train_s = time.perf_counter() - t0
+    loaded = re.findall(r"pretrained_global\[params\]: loaded \d+/\d+ tensors",
+                        (exp / "train_caption.log").read_text())
+    check(len(loaded) == 1, "aux: no pretrained_global line in the train log")
+    n_vocab = len(Vocabulary.load(vocab))
+    np.save(f"{tmp}/wv512.npy", np.random.default_rng(5).normal(
+        size=(n_vocab, 512)).astype(np.float32))
+    t0 = time.perf_counter()
+    cli.main(["extract_sentence_embedding", text, vocab, f"{tmp}/wv512.npy",
+              f"{tmp}/semb"])
+    cli.main(["export_embeddings", f"{tmp}/semb", f"{tmp}/proj"])
+    emb_s = time.perf_counter() - t0
+    rows = Path(f"{tmp}/proj_vectors.tsv").read_text().splitlines()
+    check(len(rows) == CLI_AUDIOS * 5 and len(rows[0].split("\t")) == 512,
+          f"aux export_embeddings: {len(rows)} rows")
+    hf = aux_hf_embedding(tmp, text)
+    print(f"aux global_vae: 2 epochs (batch 64, latent 512) {gv_s:.1f} s, loss "
+          f"{losses}; ac_vae.yaml 1 epoch with use_aug_prob 0.5 (7 captions a "
+          f"clip, 2 tagged aug) {train_s:.1f} s, {_epoch_line(exp)}, "
+          f"{loaded[0]}; extract_sentence_embedding + export_embeddings "
+          f"{emb_s:.1f} s, {len(rows)} rows; {hf} ({SMI})")
+    return read_counts()
+
+
+def aux_hf_embedding(tmp, text):
+    """``extract_sentence_embedding`` from a local HuggingFace directory (a
+    seeded 2-layer BERT, hidden 256, over the corpus's words) on the card
+    and on the CPU for 16 clips: the same files within AUX_TOL.  Needs the
+    transformers package; without it the branch raises ImportError, and
+    this says it was not driven."""
+    if importlib.util.find_spec("transformers") is None:
+        return "HF extract_sentence_embedding not driven: no transformers package"
+    from transformers import BertConfig, BertModel, BertTokenizerFast
+
+    from acvae_tpu_torch.cli import main as cli
+
+    info = json.loads(Path(text).read_text())["audios"][:16]
+    Path(f"{tmp}/text16.json").write_text(json.dumps({"audios": info}))
+    words = sorted({w for a in info for c in a["captions"]
+                    for w in c["tokens"].split()})
+    mdir = Path(tmp) / "bert"
+    mdir.mkdir()
+    (mdir / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words))
+    tok = BertTokenizerFast(vocab_file=str(mdir / "vocab.txt"))
+    tok.save_pretrained(str(mdir))
+    torch.manual_seed(8)
+    BertModel(BertConfig(vocab_size=len(tok), hidden_size=256,
+                         num_hidden_layers=2, num_attention_heads=4,
+                         intermediate_size=1024)).save_pretrained(str(mdir))
+    t0 = time.perf_counter()
+    cli.main(["extract_sentence_embedding", f"{tmp}/text16.json", "unused",
+              str(mdir), f"{tmp}/hf_card"])
+    card_s = time.perf_counter() - t0
+    cli.main(["extract_sentence_embedding", f"{tmp}/text16.json", "unused",
+              str(mdir), f"{tmp}/hf_cpu", "--device=cpu"])
+    files = sorted(p.relative_to(f"{tmp}/hf_cpu")
+                   for p in Path(f"{tmp}/hf_cpu").rglob("*.npy"))
+    check(len(files) == 16 * 6, f"aux HF embedding: {len(files)} files")
+    errs = {}
+    for rel in files:
+        _aux_close(errs, "hf embedding",
+                   torch.tensor(np.load(Path(f"{tmp}/hf_card") / rel)),
+                   torch.tensor(np.load(Path(f"{tmp}/hf_cpu") / rel)))
+    return (f"HF extract_sentence_embedding (BERT 2x256) on the card "
+            f"{card_s:.2f} s for 16 clips, {len(files)} files, max |card - cpu| "
+            f"{errs['hf embedding']:.3g}")
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -2625,7 +3140,8 @@ def sass_counts():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="trace two more train steps and one full-width "
+                    help="trace two more train steps (phase 5's flagship "
+                         "and phase 15's adverse step) and one full-width "
                          "decode batch of each serving path and of the int8 "
                          "dbs decode into DIR")
     args = ap.parse_args()
@@ -2651,6 +3167,7 @@ def main():
         by_path["families"] = phase("families", families_phase, tmp)
         by_path["extras"] = phase("extras", extras_phase, tmp, exp)
         by_path["encoders"] = phase("encoders", encoders_phase, tmp)
+        by_path["aux"] = phase("aux", aux_phase, tmp, args.profile)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

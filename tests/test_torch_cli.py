@@ -258,12 +258,15 @@ def test_resume_is_bit_identical(ws, tmp_path, monkeypatch):
 RUNS = "runs"
 LATER = [("distributed", "true", "A19"), ("model_parallel", "2", "A19"),
          ("kl_anneal", "{mode: cyclical, cycles: 1, floor: 0.2}", RUNS),
-         ("adverse_loss", "{discriminator: d}", "A17 part 2"),
-         ("use_aug_prob", "0.5", "A17 part 2"),
+         # the discriminator dir is read as the JAX CLI reads its config
+         ("adverse_loss", "{discriminator: d}", (FileNotFoundError, "config")),
+         ("use_aug_prob", "0.5", RUNS),
          # a missing file raises as the JAX CLI's torch.load does
          ("pretrained_encoder", "x.pth", (FileNotFoundError, "x.pth")),
          ("checkpoint_every_steps", "2", RUNS),
-         ("fault_abort_step", "3", RUNS), ("embedding_path", "e", "A17 part 2"),
+         ("fault_abort_step", "3", RUNS),
+         # the first train batch reads its captions' embeddings
+         ("embedding_path", "e", (FileNotFoundError, r"e/.*\.npy")),
          ("profile_dir", "p", RUNS),
          # no train of the JAX package reads decode_dtype: accepted, ignored
          ("decode_dtype", "bfloat16", None),
@@ -316,6 +319,11 @@ def _check_later_run(key, exp, stopped):
         traces = list((exp.parents[2] / "prof").glob("*.json"))
         assert len(traces) == 2
         assert "traceEvents" in json.loads(traces[0].read_text())
+    elif key == "use_aug_prob":
+        # no caption of this corpus is tagged "aug": every one kept, so the
+        # loss is the label-smoothed CE over every token, and finite
+        conf = json.loads((exp / "config.json").read_text())
+        assert conf["use_aug_prob"] == 0.5 and math.isfinite(metrics["train_loss"])
     elif key == "scheduler":
         # the first epoch always improves on no score at all
         assert meta["plateau_scale"] == 1.0 and meta["plateau_num_bad"] == 0

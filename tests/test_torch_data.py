@@ -181,19 +181,43 @@ def test_loader_unsorted_and_stage(corpus):
 
 
 def test_later_items_raise(corpus, monkeypatch):
-    """Caption embeddings and a multi-host loader raise naming their ROADMAP
-    items; kaldi ``.scp``/``.ark`` tables (written by the JAX package's
-    writer) read through ``_feature_source`` into the clips' arrays, and
-    the port's writer writes the same bytes; without h5py an HDF5 store
-    names h5py and the .npz route."""
+    """Caption embeddings (``embedding_path``, with and without the
+    standard scaler) load as JAX loads them: the same arrays a caption and
+    the same ``cap_embeds`` a batch.  A multi-host loader raises naming its
+    ROADMAP item; kaldi ``.scp``/``.ark`` tables (written by the JAX
+    package's writer) read through ``_feature_source`` into the clips'
+    arrays, and the port's writer writes the same bytes; without h5py an
+    HDF5 store names h5py and the .npz route."""
     import sys
 
     from acvae_tpu.data.kaldi import write_mat_ark as j_write
     from acvae_tpu_torch.data.kaldi import write_mat_ark
 
     root, info, vocab = corpus
-    with pytest.raises(NotImplementedError, match="A17"):
-        tds.CaptionDataset(caption_info=info, features={}, embedding_path="e")
+    rng = np.random.default_rng(4)
+    for a in info:
+        (root / "emb" / a["audio_id"]).mkdir(parents=True, exist_ok=True)
+        for ci in range(len(a["captions"])):
+            np.save(root / "emb" / a["audio_id"] / f"{ci}.npy",
+                    rng.normal(2.0, 3.0, size=6).astype(np.float32))
+    tv = tvocab.Vocabulary.load(_save_vocab(vocab, root))
+    for scaler in (False, True):
+        kw = dict(caption_info=info, embedding_path=str(root / "emb"),
+                  embedding_scaler=scaler)
+        got = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")),
+                                 vocabulary=tv, **kw)
+        want = jds.CaptionDataset(_read_manifest(str(root / "h5.csv")),
+                                  vocabulary=vocab, **kw)
+        for i in (0, 7, len(got) - 1):
+            np.testing.assert_array_equal(got.get(i)[3], want.get(i)[3])
+        for gb, wb in zip(tds.CaptionLoader(got, 16, shuffle=True, seed=3),
+                          jds.CaptionLoader(want, 16, shuffle=True, seed=3)):
+            assert gb.cap_embeds.dtype == np.float32
+            np.testing.assert_array_equal(gb.cap_embeds, wb.cap_embeds)
+            np.testing.assert_array_equal(gb.arrays()["cap_embeds"],
+                                          wb.arrays()["cap_embeds"])
+    plain = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")), info, tv)
+    assert "cap_embeds" not in next(iter(tds.CaptionLoader(plain, 4))).arrays()
     ds = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")), info,
                             tvocab.Vocabulary())
     with pytest.raises(NotImplementedError, match="A19"):

@@ -43,15 +43,19 @@ TINY = {"vae": ["--decoder_args={embed_size: 16, hidden_size: 16, dropout: 0.0}"
 
 def test_every_recipe_builds_in_the_port():
     """Each recipe builds its family at its own widths (no ``ln``: encoder
-    and decoder are 512 wide); the CLI's defaults are JAX's."""
+    and decoder are 512 wide); the CLI's defaults are JAX's.  sentence.yaml
+    builds the Seq2SeqAttnModel with its CaptionSentenceModel head, whose
+    512 equals the decoder's hidden size: no projection."""
     assert cli.DEFAULTS == J_DEFAULTS
-    for recipe, kind in dict(RECIPES, ac_vae="VAECaptionModel").items():
+    for recipe, kind in dict(RECIPES, ac_vae="VAECaptionModel",
+                             adverse="VAECaptionModel",
+                             sentence="AttnCaptionModel").items():
         model = build_model(load_config(f"configs/{recipe}.yaml"), 4981, 64,
                             device="meta")
         assert type(model).__name__ == kind
         assert model.ln is None
-    with pytest.raises(NotImplementedError, match="A17 part 2"):
-        build_model(load_config("configs/sentence.yaml"), V, FDIM, device="cpu")
+    model = build_model(load_config("configs/sentence.yaml"), V, FDIM, device="cpu")
+    assert model.seq_output_size == 512 and model.output_transform is None
 
 
 @pytest.mark.parametrize("recipe", ["xe_baseline", "attn_rnn_xe", "simple_vae"])

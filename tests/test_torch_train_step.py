@@ -266,11 +266,41 @@ def _cnn14_like_jax(trainer):
             == sum(p.numel() for p in enc.parameters()))
 
 
-# keys the port now runs, with what their Trainer shows of them
+def _frozen_discriminator(t):
+    d = t.adversarial["dscrm"]
+    return (type(d).__name__ == "DiscriminatorModel"
+            and not any(p.requires_grad for p in d.parameters())
+            and t.adversarial["alpha"] == 0.5)
+
+
+# keys the port now runs, with what their Trainer shows of them, and the
+# metric of the term each adds to the step
 PORTED = {"free_bits": lambda t: t.conf["free_bits"] == 0.1,
           "optimizer": lambda t: t.optimizer.name == "SGD",
           "global_loss": lambda t: t.conf["global_loss"] == "kl",
-          "encodermodel": _cnn14_like_jax}
+          "encodermodel": _cnn14_like_jax,
+          "adverse_loss": _frozen_discriminator,
+          "embedding_loss": lambda t: t.conf["embedding_loss"] == "MSE",
+          "use_aug_prob": lambda t: t.conf["use_aug_prob"] == 0.5}
+TERM_METRIC = {"free_bits": "kl_raw", "adverse_loss": "adverse",
+               "embedding_loss": "embed"}
+
+
+@pytest.fixture
+def discriminator_dir(tmp_path):
+    """A train_discriminator experiment of a seeded aud2cap discriminator
+    over the SMALL encoder's 16-wide embeddings."""
+    from acvae_tpu_torch.models.discriminator import DiscriminatorRNNModel
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+
+    args = {"word_dim": 8, "hidden_size": 4, "embed_size": 8}
+    torch.manual_seed(0)
+    wrapper = torch.nn.Module()
+    wrapper.dscrm = DiscriminatorRNNModel(V, audio_dim=E, device="cpu", **args)
+    save_experiment(str(tmp_path), wrapper, {"discriminator_audio_dim": E,
+                                             "discriminator_args": args},
+                    None, "best")
+    return str(tmp_path)
 
 
 @pytest.mark.parametrize("key,value", [
@@ -278,12 +308,17 @@ PORTED = {"free_bits": lambda t: t.conf["free_bits"] == 0.1,
     ("embedding_loss", "MSE"), ("use_aug_prob", 0.5),
     ("optimizer", "SGD"), ("global_loss", "kl"), ("model", "GlobalVAEModel"),
     ("encodermodel", "Cnn14")])
-def test_unported_branches_raise(key, value):
+def test_unported_branches_raise(key, value, request):
     """Branches outside the port raise instead of being silently ignored;
-    free_bits, the optimizers, global_loss: kl and the Cnn14 encoder (at
-    its fixed width, on 64 mel bins) build and take a step
-    (``tests/test_torch_train_extras.py`` and
-    ``tests/test_torch_encoders.py`` hold them against JAX)."""
+    free_bits, the optimizers, global_loss: kl, the Cnn14 encoder (at its
+    fixed width, on 64 mel bins), adverse_loss (a frozen discriminator),
+    embedding_loss (on the batch's cap_embeds) and use_aug_prob (the batch's
+    keep mask) build and take a step that adds their term
+    (``tests/test_torch_train_extras.py``, ``tests/test_torch_encoders.py``
+    and ``tests/test_torch_aux.py`` hold them against JAX)."""
+    if key == "adverse_loss":
+        value = dict(value, discriminator=request.getfixturevalue(
+            "discriminator_dir"), alpha=0.5)
     conf = _port_conf(dict(SMALL, **{key: value}))
     fdim = FDIM
     if key == "encodermodel":
@@ -292,9 +327,17 @@ def test_unported_branches_raise(key, value):
     if key in PORTED:
         trainer = Trainer(conf, V, fdim, device="cpu", total_iters=10)
         assert PORTED[key](trainer)
-        m = trainer.step(_batch(fdim=fdim), iteration=1, epoch=1)
+        b = _batch(fdim=fdim)
+        if key == "embedding_loss":
+            b["cap_embeds"] = np.ones((N, E), np.float32)
+        if key == "use_aug_prob":
+            b["keep_mask"] = np.array([1.0, 0.0, 1.0], np.float32)
+        m = trainer.step(b, iteration=1, epoch=1)
         assert all(torch.isfinite(v).all() for v in m.values())
-        assert ("kl_raw" in m) == (key == "free_bits")
+        for k, metric in TERM_METRIC.items():
+            assert (metric in m) == (k == key), metric
+        if key == "use_aug_prob":     # the kept rows' tokens only
+            assert float(m["ntokens"]) == (L - 1) + (3 - 1)
         return
     with pytest.raises(NotImplementedError):
         Trainer(conf, V, FDIM, device="cpu", total_iters=10)
