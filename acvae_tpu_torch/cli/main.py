@@ -19,6 +19,9 @@
     python -m acvae_tpu_torch.cli global_vae <text.json> <vocab.pkl> [--output_dir=...]
     python -m acvae_tpu_torch.cli export_embeddings <embedding_dir> <output_prefix>
     python -m acvae_tpu_torch.cli extract_sentence_embedding <text.json> <vocab.pkl> <source> <out_dir>
+    python -m acvae_tpu_torch.cli export_model <exp_dir> [--encoder_int8] [--decode_dtype=bfloat16] [...]
+    python -m acvae_tpu_torch.cli serve <exp_dir> | --exported=<export_dir> [--port=...]
+    python -m acvae_tpu_torch.cli prepare_data <wav_dir> <mels.npz> <mels.csv> [--sr=32000]
 
 Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
@@ -64,6 +67,10 @@ The auxiliary stack: ``train_discriminator`` (aud2cap or cap2cap),
 ``extract_sentence_embedding`` (the tree from word vectors),
 ``export_embeddings`` (projector TSVs) and ``global_vae`` (the sentence VAE
 that ``pretrained_global`` merges).
+Deployment: ``export_model`` writes a ``torch.export`` decode artifact
+(``export.py``; f32, ``--decode_dtype=bfloat16`` or ``--encoder_int8``),
+``serve`` runs the HTTP server over an experiment or an artifact
+(``serve.py``), ``prepare_data`` computes log-mels from wavs.
 """
 from __future__ import annotations
 
@@ -73,6 +80,7 @@ import dataclasses
 import json
 import logging
 import random
+import shutil
 import sys
 import time
 from functools import partial
@@ -782,6 +790,139 @@ def diagnose(experiment_path: str, eval_h5_csv: Optional[str] = None,
 
 
 # ---------------------------------------------------------------------- #
+# deployment: the exported decode, its server, features from wavs
+def export_model(experiment_path: str, checkpoint: str = "best",
+                 decode_method: str = "beam", beam_size: int = 3,
+                 max_length: int = 20, t_mel: int = 1024,
+                 batch_size: Optional[int] = None,
+                 output_dir: Optional[str] = None,
+                 platforms: Optional[str] = None,
+                 encoder_int8: bool = False,
+                 int8_scheme: str = DEFAULT_INT8_SCHEME,
+                 decode_dtype: Optional[str] = None, device=DEFAULT_DEVICE,
+                 **decode_kwargs) -> str:
+    """Export the trained decode to a self-contained ``torch.export``
+    artifact (``export.py``; ``acvae_tpu/cli/main.py:1271-1348``):
+    ``decode.pt2``, ``meta.json`` and ``vocab.pkl`` in ``output_dir``
+    (``<exp>/export`` by default), weights baked in.  Without
+    ``batch_size`` the batch is symbolic where the program allows it.
+    ``encoder_int8`` bakes the int8 serving encoder of ``int8_scheme``
+    (calibrated from bn0's statistics), ``decode_dtype=bfloat16`` the bf16
+    decode.  ``platforms`` (``cpu``, ``cuda``; meta.json lists the
+    export's device when none is named): a torch artifact is not lowered
+    per platform, so each one named is checked by loading the artifact
+    there."""
+    from torch.export.passes import move_to_device_pass
+
+    from acvae_tpu_torch.export import (build_decode_fn, build_decode_fn_int8,
+                                        export_decode, save_exported)
+
+    device = _device(device)
+    if isinstance(platforms, str):
+        platforms = [p.strip() for p in platforms.split(",") if p.strip()]
+    for p in platforms or ():
+        if p not in ("cpu", "cuda"):
+            raise ValueError(f"platform {p!r} is not a torch device of this "
+                             f"port; an artifact loads on cpu and cuda")
+        _device(p)
+    exp = Path(experiment_path)
+    conf, _, model = load_experiment(str(exp), checkpoint, device=device)
+    data_dim = int(conf.get("data_dim", 64))
+    kwargs = dict(decode_method=decode_method, beam_size=beam_size,
+                  max_length=max_length, **decode_kwargs)
+    if encoder_int8:
+        quant = quant_encoder_for(conf, model, **scheme_kwargs(int8_scheme))
+        fn = build_decode_fn_int8(model, quant, **kwargs)
+    else:
+        fn = build_decode_fn(model, resolve_decode_dtype(decode_dtype), **kwargs)
+    t0 = time.perf_counter()
+    exported, batch_desc = export_decode(
+        fn, t_mel=t_mel, n_mels=data_dim,
+        batch=None if batch_size is None else int(batch_size))
+    out = output_dir or str(exp / "export")
+    path = save_exported(exported, out, {
+        "decode_method": decode_method, "beam_size": beam_size,
+        "max_length": max_length, "t_mel": t_mel, "n_mels": data_dim,
+        "batch": batch_desc, "platforms": list(platforms or [device.type]),
+        "encoder_int8": bool(encoder_int8),
+        "int8_scheme": int8_scheme if encoder_int8 else None,
+        "decode_dtype": str(decode_dtype or "float32"),
+        "decode_kwargs": decode_kwargs or None, "noise": fn.noise,
+        "checkpoint": checkpoint, "experiment": str(exp)})
+    shutil.copy(str(exp / "vocab.pkl"), str(Path(out) / "vocab.pkl"))
+    for p in platforms or ():    # the artifact must load there
+        move_to_device_pass(torch.export.load(path), _device(p))
+    print(f"exported {decode_method}-{beam_size} decode (batch={batch_desc}, "
+          f"T={t_mel}) -> {path} in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def serve(experiment_path: Optional[str] = None, device=DEFAULT_DEVICE,
+          **kwargs) -> None:
+    """The micro-batching caption server (``serve.py::serve``;
+    ``acvae_tpu/cli/main.py:1146-1206``) over an experiment dir (several
+    joined by commas: the ensemble) or, with ``--exported=<dir>``, over an
+    ``export_model`` artifact, whose decode flags are baked: changing one
+    raises.  ``kwargs``: ``--host``, ``--port``, ``--max_wait_ms`` and
+    ``CaptionService``'s arguments (``--batch_size``, ``--decode_method``,
+    ``--encoder_int8``, ``--seed``, the decode kwargs, ...), each at its
+    default when absent."""
+    from acvae_tpu_torch.serve import serve as serve_http
+
+    serve_http(experiment_path, device=_device(device), **kwargs)
+
+
+def prepare_data(wav_dir: str, output_npz: str, output_csv: str,
+                 sr: int = 32000, n_fft: int = 1024, hop_length: int = 320,
+                 n_mels: int = 64, fmin: float = 50.0,
+                 batch_seconds: float = 40.0, device=DEFAULT_DEVICE) -> str:
+    """A directory of wavs -> log-mels in ``output_npz`` (one array a clip,
+    named by its file) and the TSV manifest ``output_csv``, the layout of
+    ``make_synthetic`` (``acvae_tpu/cli/main.py:1987-2029``, which writes
+    HDF5).  Integer samples become floats, channels are averaged, another
+    rate is resampled by linear interpolation, and each clip, padded to the
+    hop, goes through ``ops/audio.py::log_mel_spectrogram`` on ``device``
+    (no ``top_db`` floor), cut to ``1 + len // hop`` frames.
+    ``batch_seconds`` is accepted, unused, as in the JAX package."""
+    from scipy.io import wavfile
+
+    from acvae_tpu_torch.ops.audio import log_mel_spectrogram
+
+    if not str(output_npz).endswith(".npz"):
+        raise ValueError(f"output_npz must end in .npz (the port's feature "
+                         f"files are numpy archives), got {output_npz!r}")
+    device = _device(device)
+    wavs = sorted(Path(wav_dir).glob("*.wav"))
+    if not wavs:
+        raise FileNotFoundError(f"no .wav files in {wav_dir}")
+    mels = {}
+    for path in wavs:
+        file_sr, data = wavfile.read(str(path))
+        if data.dtype.kind == "i":
+            data = data.astype(np.float32) / np.iinfo(data.dtype).max
+        if data.ndim > 1:
+            data = data.mean(axis=1)
+        if file_sr != sr:
+            new_len = int(len(data) / file_sr * sr)
+            data = np.interp(np.linspace(0, len(data) - 1, new_len),
+                             np.arange(len(data)), data)
+        n_frames = 1 + len(data) // hop_length
+        wave = np.pad(data.astype(np.float32), (0, (-len(data)) % hop_length))
+        mel = log_mel_spectrogram(
+            torch.from_numpy(wave)[None].to(device), sr=sr, n_fft=n_fft,
+            hop_length=hop_length, n_mels=n_mels, fmin=fmin, top_db=None)
+        mels[path.name] = mel[0, :n_frames].cpu().numpy()
+    Path(output_npz).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(output_npz, **mels)
+    with open(output_csv, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(["audio_id", "hdf5_path"])
+        w.writerows([aid, str(output_npz)] for aid in mels)
+    print(f"wrote {len(mels)} clips to {output_npz}")
+    return output_csv
+
+
+# ---------------------------------------------------------------------- #
 # the auxiliary training stack: the discriminator of adverse_loss, the GE2E
 # caption embedder, the global sentence VAE and the embedding trees
 def _discriminator_model(mode: str, conf: Config, vocab_size: int,
@@ -1260,11 +1401,14 @@ COMMANDS = {"train": train, "evaluate": evaluate, "predict": predict,
             "train_discriminator": train_discriminator, "stage1": stage1,
             "stage1_test": stage1_test, "extract_embedding": extract_embedding,
             "global_vae": global_vae, "export_embeddings": export_embeddings,
-            "extract_sentence_embedding": extract_sentence_embedding}
+            "extract_sentence_embedding": extract_sentence_embedding,
+            "export_model": export_model, "serve": serve,
+            "prepare_data": prepare_data}
 # the commands that compute on the device (the others only check --device)
 ON_DEVICE = ("train", "evaluate", "predict", "ensemble", "scst", "diagnose",
              "train_discriminator", "stage1", "stage1_test",
-             "extract_embedding", "global_vae", "extract_sentence_embedding")
+             "extract_embedding", "global_vae", "extract_sentence_embedding",
+             "export_model", "serve", "prepare_data")
 
 
 def main(argv: Optional[List[str]] = None) -> Any:

@@ -10,8 +10,10 @@ the requantize in its epilogue, a stem kernel for Ci = 1 that stages its
 input halo once and writes 16-byte vectors, and a vectorised pool; see the
 source for the bounds and the design.
 
-On a CPU tensor each wrapper runs its plain version from ``ops/int8.py``.
-On a CUDA tensor it launches the kernel or raises.  Conv weights are OHWI
+Each kernel is an operator (``torch.ops.acvae_tpu_torch.conv3x3_i8`` and
+``.avgpool2x2_i8``), so an exported decode (``export.py``) calls it.  On a
+CPU tensor it runs its plain version from ``ops/int8.py``; on a CUDA tensor
+it launches the kernel or raises.  Conv weights are OHWI
 [Co, 3, 3, Ci] (:func:`pack_conv3x3_weight`, once at bake time).
 """
 from __future__ import annotations
@@ -45,12 +47,109 @@ def _lib():
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: unsupported device {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     if tensors[0].data_ptr() % 16:
         raise ValueError(f"{name}: the activation must be 16-byte aligned")
+
+
+def _check_device(name: str, *tensors: torch.Tensor) -> None:
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: inputs on different devices")
+    if tensors[0].device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+
+
+def _conv_out_dtype(mode: str) -> torch.dtype:
+    return torch.int8 if mode in ("sym", "offset") else torch.float32
+
+
+# The kernels as operators of their own (namespace ``acvae_tpu_torch``), so
+# that ``torch.export`` records a call where a ctypes launch could not be
+# traced: the CPU implementation is the plain version, the CUDA one the
+# launch, and the fake one gives the output's shape and dtype to a trace
+# with a symbolic batch.  The checks that read the batch size (the 2^31
+# pixel limit, the empty output) live in the implementations, where the
+# batch is a number, so that a trace does not pin it.
+@torch.library.custom_op("acvae_tpu_torch::conv3x3_i8", mutates_args=())
+def conv3x3_i8_op(x_i8: torch.Tensor, w_ohwi: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, mode: str, pad_code: int) -> torch.Tensor:
+    raise NotImplementedError(f"conv3x3_i8: unsupported device {x_i8.device}")
+
+
+@conv3x3_i8_op.register_fake
+def _(x_i8, w_ohwi, A, B, mode, pad_code):
+    N, H, W, _ = x_i8.shape
+    return x_i8.new_empty((N, H, W, w_ohwi.shape[0]), dtype=_conv_out_dtype(mode))
+
+
+@conv3x3_i8_op.register_kernel("cpu")
+def _(x_i8, w_ohwi, A, B, mode, pad_code):
+    return conv3x3_i8_ref(x_i8, w_ohwi.permute(1, 2, 3, 0), A, B, mode, pad_code)
+
+
+@conv3x3_i8_op.register_kernel("cuda")
+def _(x_i8, w_ohwi, A, B, mode, pad_code):
+    _check_cuda("conv3x3_i8", x_i8, w_ohwi, A, B)
+    N, H, W, Ci = x_i8.shape
+    Co = w_ohwi.shape[0]
+    if not (Ci == 1 or Ci % 64 == 0) or Co % 64 or (Ci == 1 and Co > 512):
+        raise ValueError(f"conv3x3_i8: the kernel takes Ci = 1 or a multiple "
+                         f"of 64 and Co a multiple of 64 (at most 512 for "
+                         f"Ci = 1); got Ci={Ci}, Co={Co}")
+    if N * H * W * (Co // 16 if Ci == 1 else 1) >= 2**31:
+        raise ValueError("conv3x3_i8: too many pixels for one launch")
+    out = torch.empty((N, H, W, Co), dtype=_conv_out_dtype(mode),
+                      device=x_i8.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x_i8.device):
+        stream = torch.cuda.current_stream(x_i8.device).cuda_stream
+        err = _lib().conv3x3_i8_launch(
+            x_i8.data_ptr(), w_ohwi.data_ptr(), A.data_ptr(), B.data_ptr(),
+            out.data_ptr(), N, H, W, Ci, Co, MODES.index(mode), pad_code, stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_i8 launch failed: cudaError {err}")
+    conv3x3_i8.launches += 1
+    return out
+
+
+@torch.library.custom_op("acvae_tpu_torch::avgpool2x2_i8", mutates_args=())
+def avgpool2x2_i8_op(x_i8: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError(f"avgpool2x2_i8: unsupported device {x_i8.device}")
+
+
+@avgpool2x2_i8_op.register_fake
+def _(x_i8):
+    N, H, W, C = x_i8.shape
+    return x_i8.new_empty((N, H // 2, W // 2, C))
+
+
+@avgpool2x2_i8_op.register_kernel("cpu")
+def _(x_i8):
+    return avgpool2x2_i8_ref(x_i8)
+
+
+@avgpool2x2_i8_op.register_kernel("cuda")
+def _(x_i8):
+    _check_cuda("avgpool2x2_i8", x_i8)
+    N, H, W, C = x_i8.shape
+    if C % 16:
+        raise ValueError(f"avgpool2x2_i8: the kernel takes C a multiple of 16, "
+                         f"got {C}")
+    if N * (H // 2) * (W // 2) * (C // 16) >= 2**31:
+        raise ValueError("avgpool2x2_i8: too many pixels for one launch")
+    out = torch.empty((N, H // 2, W // 2, C), dtype=torch.int8, device=x_i8.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x_i8.device):
+        stream = torch.cuda.current_stream(x_i8.device).cuda_stream
+        err = _lib().avgpool2x2_i8_launch(x_i8.data_ptr(), out.data_ptr(), N, H,
+                                          W, C, stream)
+    if err != 0:
+        raise RuntimeError(f"avgpool2x2_i8 launch failed: cudaError {err}")
+    avgpool2x2_i8.launches += 1
+    return out
 
 
 def conv3x3_i8(x_i8: torch.Tensor, w_ohwi: torch.Tensor, A: torch.Tensor,
@@ -70,38 +169,14 @@ def conv3x3_i8(x_i8: torch.Tensor, w_ohwi: torch.Tensor, A: torch.Tensor,
     if x_i8.ndim != 4 or w_ohwi.ndim != 4 or w_ohwi.shape[1:3] != (3, 3):
         raise ValueError(f"conv3x3_i8: x {tuple(x_i8.shape)} must be [N,H,W,Ci] "
                          f"and w {tuple(w_ohwi.shape)} [Co,3,3,Ci]")
-    N, H, W, Ci = x_i8.shape
-    Co = w_ohwi.shape[0]
+    Ci, Co = x_i8.shape[3], w_ohwi.shape[0]
     if w_ohwi.shape[3] != Ci or A.shape != (Co,) or B.shape != (Co,):
         raise ValueError(f"conv3x3_i8: x has Ci={Ci}, w {tuple(w_ohwi.shape)}, "
                          f"A {tuple(A.shape)}, B {tuple(B.shape)}")
     if not -128 <= pad_code <= 127:
         raise ValueError(f"conv3x3_i8: pad_code {pad_code} is not an int8 code")
-    if len({t.device for t in (x_i8, w_ohwi, A, B)}) != 1:
-        raise ValueError("conv3x3_i8: inputs on different devices")
-    if x_i8.device.type == "cpu":
-        return conv3x3_i8_ref(x_i8, w_ohwi.permute(1, 2, 3, 0), A, B, mode,
-                              pad_code)
-    _check_cuda("conv3x3_i8", x_i8, w_ohwi, A, B)
-    if not (Ci == 1 or Ci % 64 == 0) or Co % 64 or (Ci == 1 and Co > 512):
-        raise ValueError(f"conv3x3_i8: the kernel takes Ci = 1 or a multiple "
-                         f"of 64 and Co a multiple of 64 (at most 512 for "
-                         f"Ci = 1); got Ci={Ci}, Co={Co}")
-    if N * H * W * (Co // 16 if Ci == 1 else 1) >= 2**31:
-        raise ValueError("conv3x3_i8: too many pixels for one launch")
-    dtype = torch.int8 if mode in ("sym", "offset") else torch.float32
-    out = torch.empty((N, H, W, Co), dtype=dtype, device=x_i8.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(x_i8.device):
-        stream = torch.cuda.current_stream(x_i8.device).cuda_stream
-        err = _lib().conv3x3_i8_launch(
-            x_i8.data_ptr(), w_ohwi.data_ptr(), A.data_ptr(), B.data_ptr(),
-            out.data_ptr(), N, H, W, Ci, Co, MODES.index(mode), pad_code, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_i8 launch failed: cudaError {err}")
-    conv3x3_i8.launches += 1
-    return out
+    _check_device("conv3x3_i8", x_i8, w_ohwi, A, B)
+    return conv3x3_i8_op(x_i8, w_ohwi, A, B, mode, pad_code)
 
 
 def avgpool2x2_i8(x_i8: torch.Tensor) -> torch.Tensor:
@@ -113,26 +188,8 @@ def avgpool2x2_i8(x_i8: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"avgpool2x2_i8 takes int8 codes, got {x_i8.dtype}")
     if x_i8.ndim != 4:
         raise ValueError(f"avgpool2x2_i8: x {tuple(x_i8.shape)} must be [N,H,W,C]")
-    if x_i8.device.type == "cpu":
-        return avgpool2x2_i8_ref(x_i8)
-    _check_cuda("avgpool2x2_i8", x_i8)
-    N, H, W, C = x_i8.shape
-    if C % 16:
-        raise ValueError(f"avgpool2x2_i8: the kernel takes C a multiple of 16, "
-                         f"got {C}")
-    if N * (H // 2) * (W // 2) * (C // 16) >= 2**31:
-        raise ValueError("avgpool2x2_i8: too many pixels for one launch")
-    out = torch.empty((N, H // 2, W // 2, C), dtype=torch.int8, device=x_i8.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(x_i8.device):
-        stream = torch.cuda.current_stream(x_i8.device).cuda_stream
-        err = _lib().avgpool2x2_i8_launch(x_i8.data_ptr(), out.data_ptr(), N, H,
-                                          W, C, stream)
-    if err != 0:
-        raise RuntimeError(f"avgpool2x2_i8 launch failed: cudaError {err}")
-    avgpool2x2_i8.launches += 1
-    return out
+    _check_device("avgpool2x2_i8", x_i8)
+    return avgpool2x2_i8_op(x_i8)
 
 
 conv3x3_i8.launches = 0

@@ -32,3 +32,14 @@ def max_with_lens(features: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     mask = _expand(length_mask(lens, features.shape[1]), features.ndim)
     neg = torch.finfo(features.dtype).min
     return torch.amax(features.masked_fill(~mask, neg), dim=1)
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor,
+                   axis: int = -1) -> torch.Tensor:
+    """Softmax over ``axis`` with the invalid entries (mask False) at
+    ``NEG_INF``, so their weight is ~0 (``acvae_tpu/ops/masked.py:38-43``;
+    no module of either package calls it)."""
+    scores = torch.where(mask, scores, NEG_INF)
+    scores = scores - torch.amax(scores, dim=axis, keepdim=True)
+    e = torch.exp(scores)
+    return e / torch.sum(e, dim=axis, keepdim=True)

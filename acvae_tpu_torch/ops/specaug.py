@@ -1,5 +1,5 @@
 """Batched SpecAugment on the device (counterpart of
-``acvae_tpu/ops/specaug.py:34-193``).
+``acvae_tpu/ops/specaug.py:34-218``).
 
 The reference runs SpecAugment per sample in NumPy on *unpadded* [T, F]
 samples (``datasets/augment.py``).  Here every transform is a batched op on
@@ -18,9 +18,11 @@ the reference's unpadded semantics:
   it is longer than ``size`` AND wins the p-coin; the window moves to the
   front, the buffer keeps its static time size, zeros beyond the new length.
 * :func:`time_roll` — augment.py:103-111, rolling within the valid frames.
+* :func:`gaussian_noise` — augment.py:85-91, additive noise at an SNR over
+  the valid frames (no augment list names it).
 
 Randomness: every transform takes its draws as optional tensors (``spans``,
-``anchors``, ``u``, ``shift``, or a ``draws`` dict for the combinators) and
+``anchors``, ``u``, ``shift``, ``noise``, or a ``draws`` dict for the combinators) and
 draws them from ``generator`` when they are not given, so tests can feed
 the JAX package's exact draws.
 """
@@ -185,6 +187,37 @@ def time_roll(x: torch.Tensor, mean: float = 0.0, std: float = 10.0,
     idx = torch.where(t < size[:, None], idx, t)
     return torch.take_along_dim(x, idx.reshape(idx.shape + (1,) * (x.ndim - 2)),
                                 dim=1)
+
+
+def gaussian_noise(x: torch.Tensor, snr: float = 30.0, mean: float = 0.0,
+                   lens: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Additive noise at the given SNR (augment.py:85-91;
+    ``acvae_tpu/ops/specaug.py:196-218``): the energies are over each
+    sample's valid frames, divided by its length, and the noise stays in
+    them.  ``noise`` is the standard normal draw of ``x``'s shape (from
+    ``generator`` when not given).  No augment list reaches it, in either
+    package."""
+    N, T = x.shape[0], x.shape[1]
+    dev = x.device
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=dev)
+    if lens is None:
+        valid = torch.ones(x.shape, dtype=torch.bool, device=dev)
+        denom = torch.full((N,), T, dtype=x.dtype, device=dev)
+    else:
+        valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        valid = valid.reshape(valid.shape + (1,) * (x.ndim - 2))
+        denom = lens.to(x.dtype)
+    denom = denom.reshape((-1,) + (1,) * (x.ndim - 1))
+    dims = tuple(range(1, x.ndim))
+    e_x = torch.sum(torch.where(valid, x, 0.0) ** 2, dim=dims,
+                    keepdim=True) / denom
+    noise = torch.where(valid, noise.to(dev) + mean, 0.0)
+    e_n = torch.sum(noise ** 2, dim=dims, keepdim=True) / denom
+    alpha = torch.sqrt(e_x / torch.clamp_min(e_n * 10.0 ** (snr / 10.0), 1e-12))
+    return x + alpha * noise
 
 
 def build_augment(augment_list: List[str], crop_size: int = 1000,

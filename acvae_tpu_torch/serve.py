@@ -1,5 +1,5 @@
 """Caption serving (counterpart of ``acvae_tpu/serve.py:42-603`` and
-``acvae_tpu/cli/main.py:1146-1205``).
+``acvae_tpu/cli/main.py:1146-1206``).
 
 * :class:`CaptionService` loads an experiment dir (``config.json``,
   ``vocab.pkl``, ``<checkpoint>.pt``; see ``train/checkpoints.py``), pads
@@ -31,26 +31,41 @@ serves the probability-averaged ensemble of its experiments
 (``decoding/ensemble.py``; beam or greedy, float32, one vocabulary and mel
 dim).
 
+With ``exported=<dir>`` (``--exported``) it serves an ``export_model``
+artifact (``export.py``) without the experiment: the vocabulary, the mel
+bucket and the mel dim are the artifact's, a pinned batch overrides
+``batch_size``, uint8 requests are dequantized on the host, and each batch
+draws its noise from a uint32 seed counter that starts at ``seed + 2``.  The
+decode flags are baked into the artifact: changing one from its default,
+or passing a decode kwarg, raises.
+
 Run it as ``python -m acvae_tpu_torch.serve <exp_dir>[,<exp_dir>...]
 [--port ...] [--encoder_int8 [--int8_scheme v2sym]] [--decode_method dbs
---group_size 4 ...] [--decode_dtype bfloat16] [--upload_dtype bfloat16]``.
+--group_size 4 ...] [--decode_dtype bfloat16] [--upload_dtype bfloat16]``,
+or ``python -m acvae_tpu_torch.serve --exported <export_dir>``; the CLI's
+``serve`` command takes the same arguments.  Both go through :func:`serve`.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import inspect
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from acvae_tpu_torch import DEFAULT_DEVICE
+from acvae_tpu_torch.data.vocab import Vocabulary
 from acvae_tpu_torch.decoding.ensemble import check_step_api, ensemble_decode
+from acvae_tpu_torch.export import load_exported
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, SCHEMES,
                                           int8_decode_fn, quant_encoder_for,
                                           scheme_kwargs)
@@ -62,7 +77,7 @@ from acvae_tpu_torch.train.checkpoints import load_experiment
 class CaptionService:
     """Fixed-shape batched decoding over an experiment dir."""
 
-    def __init__(self, experiment_path, checkpoint: str = "best",
+    def __init__(self, experiment_path=None, checkpoint: str = "best",
                  decode_method: str = "beam", beam_size: int = 3,
                  max_length: int = 20, batch_size: int = 16,
                  mel_bucket: int = 1024, seed: int = 1,
@@ -74,6 +89,8 @@ class CaptionService:
         """``decode_kwargs``: the decode's extra knobs (dbs: ``group_size``,
         ``diversity_lambda``, ``temperature``, ``group_nbest``; sampling:
         ``temp``)."""
+        if exported is None and experiment_path is None:
+            raise ValueError("serve needs an experiment dir or --exported")
         if upload_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"upload_dtype must be float32 or bfloat16, "
                              f"got {upload_dtype!r}")
@@ -108,8 +125,22 @@ class CaptionService:
                     f"(the reference ensemble's surface), got "
                     f"{decode_method!r}")
         elif exported is not None:
-            raise NotImplementedError("serving an exported artifact is not "
-                                      "ported (ROADMAP A18, torch.export)")
+            # the artifact bakes the decode in: a flag changed from its
+            # default, or any decode kwarg, raises rather than be ignored
+            # (``acvae_tpu/cli/main.py:1173-1196``)
+            baked = dict(decode_method=decode_method, beam_size=beam_size,
+                         max_length=max_length, mel_bucket=mel_bucket,
+                         checkpoint=checkpoint, encoder_int8=encoder_int8,
+                         int8_scheme=int8_scheme, decode_dtype=decode_dtype)
+            defaults = inspect.signature(CaptionService).parameters
+            changed = [k for k, v in baked.items() if v != defaults[k].default]
+            changed += [f"{k}(decode kwarg)" for k in decode_kwargs]
+            if changed:
+                raise ValueError(
+                    f"flag(s) --{', --'.join(changed)} do not apply to an "
+                    f"exported artifact: the decode config and precision "
+                    f"are fixed at export time — set them on "
+                    f"`export_model` and re-export")
         check_decode_method("CaptionService", decode_method)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -120,7 +151,10 @@ class CaptionService:
         self.batch_size = batch_size
         self.bucket = mel_bucket
         self.quant = None
-        if paths is not None and len(paths) > 1:
+        self.exported = None
+        if exported is not None:
+            self._load_exported(exported, batch_size, seed)
+        elif paths is not None and len(paths) > 1:
             self._load_ensemble(paths, checkpoint)
             self._decode_kwargs = dict(decode_method=decode_method,
                                        beam_size=beam_size,
@@ -146,7 +180,24 @@ class CaptionService:
         # does not pay the set-up (cuDNN algorithm choice, the kernels'
         # build and load, allocator growth)
         self.caption([np.zeros((64, self.data_dim), np.float32)])
-        self.caption([(np.zeros((64, self.data_dim), np.uint8), 1.0, 0.0)])
+        if self.exported is None:   # an artifact's uint8 batches are f32 ones
+            self.caption([(np.zeros((64, self.data_dim), np.uint8), 1.0, 0.0)])
+
+    def _load_exported(self, export_dir: str, batch_size: int, seed: int) -> None:
+        """An ``export_model`` artifact (``acvae_tpu/serve.py:127-145``):
+        its vocabulary, mel bucket and mel dim; a pinned batch overrides
+        ``batch_size``.  Each batch's noise comes from a uint32 seed counter
+        that starts at ``seed + 2``, so a new service repeats its captions."""
+        self.exported, meta = load_exported(export_dir, self.device)
+        self.vocab = Vocabulary.load(str(Path(export_dir) / "vocab.pkl"))
+        self.bucket = int(meta["t_mel"])
+        self.data_dim = int(meta["n_mels"])
+        if meta["batch"] != "symbolic":
+            if batch_size != int(meta["batch"]):
+                print(f"[serve] exported artifact pins batch={meta['batch']}; "
+                      f"ignoring --batch_size={batch_size}", file=sys.stderr)
+            self.batch_size = int(meta["batch"])
+        self._seed = np.uint32(seed + 2)
 
     def _load_ensemble(self, paths: List[str], checkpoint: str) -> None:
         """The members' experiments: one vocabulary and one mel dim."""
@@ -222,7 +273,8 @@ class CaptionService:
             raise ValueError(f"batch too large: {len(mels)} > "
                              f"{self.batch_size}")
         lens = np.ones((self.batch_size,), np.int64)
-        if mels and all(isinstance(m, tuple) for m in mels):
+        if mels and self.exported is None and all(isinstance(m, tuple)
+                                                   for m in mels):
             q = np.zeros((self.batch_size, self.bucket, self.data_dim), np.uint8)
             scales = np.ones((self.batch_size,), np.float32)
             offsets = np.zeros((self.batch_size,), np.float32)
@@ -253,7 +305,11 @@ class CaptionService:
     def _decode(self, feats: torch.Tensor, lens: np.ndarray, n: int) -> List[str]:
         lens = torch.from_numpy(lens).to(self.device)
         with self._lock:
-            if self.members is not None:
+            if self.exported is not None:
+                seed = int(self._seed)
+                self._seed = np.uint32((seed + 1) % 2**32)
+                out = self.exported(feats, lens.to(torch.int32), seed)
+            elif self.members is not None:
                 out = ensemble_decode(self.members, feats, lens,
                                       generator=self._gen,
                                       **self._decode_kwargs)
@@ -453,56 +509,54 @@ def run_server(service: CaptionService, host: str = "127.0.0.1",
     return server
 
 
+def serve(experiment_path: Optional[str] = None, **kwargs) -> None:
+    """Build a :class:`CaptionService` and serve it until interrupted: the
+    front end of ``python -m acvae_tpu_torch.serve`` and of the CLI's
+    ``serve``.  ``kwargs`` are :func:`run_server`'s ``host``, ``port`` and
+    ``max_wait_ms`` and the service's arguments, each at its default when
+    absent."""
+    server = {k: kwargs.pop(k) for k in ("host", "port", "max_wait_ms")
+              if k in kwargs}
+    run_server(CaptionService(experiment_path, **kwargs), **server)
+
+
 def main(argv=None):
+    # the service's flags are passed only when given, so that their
+    # defaults are CaptionService's, written once
     ap = argparse.ArgumentParser(
-        description="Serve captions over HTTP from a port experiment dir.")
-    ap.add_argument("experiment_path",
+        description="Serve captions over HTTP from a port experiment dir.",
+        argument_default=argparse.SUPPRESS)
+    ap.add_argument("experiment_path", nargs="?", default=None,
                     help="an experiment dir, or several joined by commas "
-                         "(an ensemble)")
+                         "(an ensemble); not with --exported")
+    ap.add_argument("--exported",
+                    help="serve an export_model artifact directory instead")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8976)
-    ap.add_argument("--checkpoint", default="best")
-    ap.add_argument("--decode_method", default="beam",
-                    choices=("beam", "greedy", "gumbel", "sample", "dbs"))
-    ap.add_argument("--beam_size", type=int, default=3)
-    ap.add_argument("--max_length", type=int, default=20)
-    ap.add_argument("--batch_size", type=int, default=16)
-    ap.add_argument("--mel_bucket", type=int, default=1024)
     ap.add_argument("--max_wait_ms", type=float, default=20.0)
-    ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--device", default=DEFAULT_DEVICE)
+    ap.add_argument("--checkpoint")
+    ap.add_argument("--decode_method",
+                    choices=("beam", "greedy", "gumbel", "sample", "dbs"))
+    for name in ("beam_size", "max_length", "batch_size", "mel_bucket", "seed"):
+        ap.add_argument(f"--{name}", type=int)
+    ap.add_argument("--device")
     ap.add_argument("--encoder_int8", action="store_true",
                     help="encode with the int8 serving encoder, calibrated "
                          "from bn0's running statistics")
-    ap.add_argument("--int8_scheme", default=DEFAULT_INT8_SCHEME,
-                    choices=sorted(SCHEMES),
+    ap.add_argument("--int8_scheme", choices=sorted(SCHEMES),
                     help="quantization scheme of --encoder_int8 "
                          f"(default {DEFAULT_INT8_SCHEME})")
-    ap.add_argument("--decode_dtype", default=None,
+    ap.add_argument("--decode_dtype",
                     help="decode with the parameters in this dtype "
                          "(bfloat16)")
-    ap.add_argument("--upload_dtype", default="float32",
-                    choices=("float32", "bfloat16"))
+    ap.add_argument("--upload_dtype", choices=("float32", "bfloat16"))
     knobs = ap.add_argument_group("decode knobs (passed only when given)")
     for name, typ in (("group_size", int), ("diversity_lambda", float),
                       ("temperature", float), ("temp", float)):
-        knobs.add_argument(f"--{name}", type=typ, default=None)
-    knobs.add_argument("--group_nbest", default=None,
+        knobs.add_argument(f"--{name}", type=typ)
+    knobs.add_argument("--group_nbest",
                        type=lambda v: v.lower() in ("1", "true", "yes"))
-    args = ap.parse_args(argv)
-    decode_kwargs = {k: getattr(args, k) for k in (
-        "group_size", "diversity_lambda", "temperature", "temp",
-        "group_nbest") if getattr(args, k) is not None}
-    service = CaptionService(
-        args.experiment_path, checkpoint=args.checkpoint,
-        decode_method=args.decode_method, beam_size=args.beam_size,
-        max_length=args.max_length, batch_size=args.batch_size,
-        mel_bucket=args.mel_bucket, seed=args.seed, device=args.device,
-        encoder_int8=args.encoder_int8, int8_scheme=args.int8_scheme,
-        decode_dtype=args.decode_dtype, upload_dtype=args.upload_dtype,
-        **decode_kwargs)
-    run_server(service, host=args.host, port=args.port,
-               max_wait_ms=args.max_wait_ms)
+    serve(**vars(ap.parse_args(argv)))
 
 
 if __name__ == "__main__":

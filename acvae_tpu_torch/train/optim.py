@@ -12,7 +12,9 @@ defaults, update for update:
   ``weight_decay`` 1e-4, scaled by the lr), ``sgd`` (no momentum by
   default; the trace is ``g + μ·t``, optionally Nesterov), ``rmsprop``
   (decay 0.9, ``eps`` inside the square root, ``initial_scale`` 0, the
-  momentum trace after the lr) and ``adagrad`` (accumulator from 0.1,
+  momentum trace after the lr; ``centered`` divides by the variance,
+  ``scale_by_stddev``, and ``bias_correction`` corrects the moments by
+  ``1 - decay^count``) and ``adagrad`` (accumulator from 0.1,
   ``eps`` 1e-7 inside the square root, no update where the sum is 0);
 * freezing is ``multi_transform`` + ``set_to_zero``: a frozen parameter
   (its name holds one of ``frozen``, as ``freeze_mask`` reads flax paths)
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 # optimizer name -> (the optax function, the keyword arguments it takes
@@ -48,9 +51,13 @@ OPTAX_ARGS: Dict[str, Tuple[str, Dict[str, Any]]] = {
                             "bias_correction": False}),
     "Adagrad": ("adagrad", {"initial_accumulator_value": 0.1, "eps": 1e-7}),
 }
-# arguments optax takes whose other values the port leaves out
-_DEFAULT_ONLY = {"mu_dtype": None, "mask": None, "accumulator_dtype": None,
-                 "centered": False, "bias_correction": False}
+# arguments optax takes whose other values the port leaves out, and why
+_DEFAULT_ONLY = {
+    "mu_dtype": (None, "the optimizer state keeps the parameters' dtype"),
+    "accumulator_dtype": (None, "the optimizer state keeps the parameters' "
+                                "dtype"),
+    "mask": (None, "the port masks by name: freeze_word_embedding and "
+                   "model_args.freeze_encoder")}
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -88,11 +95,11 @@ class OptaxChain:
             if k not in defaults:
                 raise TypeError(f"{fn}() got an unexpected keyword argument {k!r}")
         self.name, self.args = name, dict(defaults, **kwargs)
-        for k, v in _DEFAULT_ONLY.items():
+        for k, (v, why) in _DEFAULT_ONLY.items():
             if k in self.args and self.args[k] != v:
                 raise NotImplementedError(
                     f"optimizer_args {k}={self.args[k]!r} is not ported "
-                    f"(only optax's default {v!r})")
+                    f"(only optax's default {v!r}: {why})")
         self.schedule, self.max_grad_norm = schedule, max_grad_norm
         self.accum_steps = max(1, int(accum_steps or 1))
         named = list(named_params)
@@ -110,6 +117,8 @@ class OptaxChain:
             st.update(mu=z(), nu=z())
         elif self.name == "RMSprop":
             st["nu"] = torch.full_like(p, a["initial_scale"])
+            if a["centered"]:
+                st["mu"] = z()
         elif self.name == "Adagrad":
             st["sum_of_squares"] = torch.full_like(p, a["initial_accumulator_value"])
         if a.get("momentum") is not None:
@@ -185,11 +194,22 @@ class OptaxChain:
         if self.name == "SGD":
             return self._trace(g, st) * -lr
         if self.name == "RMSprop":
-            st["nu"].mul_(a["decay"]).add_(g * g * (1 - a["decay"]))
+            d = a["decay"]
+            nu = st["nu"].mul_(d).add_(g * g * (1 - d))
+            mu = st["mu"].mul_(d).add_(g * (1 - d)) if a["centered"] else None
+            if a["bias_correction"]:
+                # 1 - decay^count in float32, as optax computes it: at the
+                # first centered step nu_hat - mu_hat^2 is 0 but for
+                # rounding, so the update follows these bits
+                bc = float(np.float32(1) - np.float32(d) ** np.float32(c))
+                nu = nu / bc
+                mu = None if mu is None else mu / bc
+            if mu is not None:   # scale_by_stddev: the variance
+                nu = nu - mu * mu
             if a["eps_in_sqrt"]:
-                u = torch.rsqrt(st["nu"] + a["eps"]) * g
+                u = torch.rsqrt(nu + a["eps"]) * g
             else:
-                u = g / (torch.sqrt(st["nu"]) + a["eps"])
+                u = g / (torch.sqrt(nu) + a["eps"])
             return self._trace(u * -lr, st)
         # Adagrad
         s = st["sum_of_squares"].add_(g * g)

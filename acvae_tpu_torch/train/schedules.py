@@ -1,5 +1,5 @@
 """Learning-rate and recipe schedules (counterpart of
-``acvae_tpu/train/schedules.py:32-57`` and ``acvae_tpu/train/trainer.py:402-488``).
+``acvae_tpu/train/schedules.py:31-97`` and ``acvae_tpu/train/trainer.py:402-488``).
 
 Schedules map the optimizer step (0 for the first update) to a learning
 rate; the reference counts from 1, so ``it = step + 1``.  With gradient
@@ -36,18 +36,64 @@ def exponential_decay_schedule(base_lr: float, total_iters: int, final_lr: float
     return schedule
 
 
-def build_schedule(name: str, base_lr: float, total_iters: int,
-                   **kwargs) -> Schedule:
-    """The named schedule.  ``ReduceLROnPlateau`` is an epoch scheduler
-    stepped with the validation score (``train/optim.py``); under it the
-    learning rate is the constant ``base_lr`` (acvae_tpu/cli/main.py:251-252),
-    and its ``scheduler_args`` are the plateau's, not the schedule's."""
-    if name == "ExponentialDecayScheduler":
-        kwargs.setdefault("total_iters", max(1, total_iters))
-        return exponential_decay_schedule(base_lr, **kwargs)
-    if name in ("constant", "ReduceLROnPlateau"):
-        return lambda step: base_lr
-    raise NotImplementedError(f"scheduler {name!r} is not ported")
+def noam_schedule(base_lr: float, model_size: int = 512,
+                  warmup_iters: int = 3000) -> Schedule:
+    """``NoamScheduler`` (lr_scheduler.py:39-56): inverse-square-root decay
+    after a linear warmup, scaled so that the peak is ``base_lr``."""
+    factor = base_lr / (model_size ** -0.5 * warmup_iters ** -0.5)
+
+    def schedule(step: int) -> float:
+        it = step + 1.0
+        return factor * model_size ** -0.5 * min(it ** -0.5,
+                                                 it * warmup_iters ** -1.5)
+    return schedule
+
+
+def warmup_linear_schedule(base_lr: float, warmup_steps: int, gamma: float,
+                           update_epoch: int) -> Schedule:
+    """``WarmupLinearSchedule`` (lr_scheduler.py:58-85): a linear warmup,
+    then ``base_lr`` times ``gamma`` once more every ``update_epoch``
+    steps."""
+    def schedule(step: int) -> float:
+        it = step + 1
+        if it < warmup_steps:
+            return it / warmup_steps * base_lr
+        return base_lr * gamma ** ((it - warmup_steps) // update_epoch)
+    return schedule
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int, t_total: int,
+                           cycles: float = 0.5) -> Schedule:
+    """``WarmupCosineSchedule`` (runners/schedule.py:5-22): a linear warmup,
+    then ``cycles`` cosine periods over the remaining ``t_total`` steps,
+    floored at 0."""
+    def schedule(step: int) -> float:
+        it = step + 1.0
+        if it < warmup_steps:
+            return base_lr * it / max(1.0, warmup_steps)
+        progress = (it - warmup_steps) / max(1.0, t_total - warmup_steps)
+        return base_lr * max(0.0, 0.5 * (1.0 + math.cos(
+            math.pi * cycles * 2.0 * progress)))
+    return schedule
+
+
+# the registered schedules (acvae_tpu/train/schedules.py:31-97)
+SCHEDULES = {"ExponentialDecayScheduler": exponential_decay_schedule,
+             "NoamScheduler": noam_schedule,
+             "WarmupLinearSchedule": warmup_linear_schedule,
+             "WarmupCosineSchedule": warmup_cosine_schedule,
+             "constant": lambda base_lr: lambda step: base_lr}
+
+
+def build_schedule(name: str, base_lr: float, **kwargs) -> Schedule:
+    """The named schedule with its ``scheduler_args``.  Any other name (an
+    epoch scheduler such as ``ReduceLROnPlateau``, stepped with the
+    validation score in ``train/optim.py``) trains at the constant
+    ``base_lr``, its arguments not the schedule's
+    (acvae_tpu/cli/main.py:249-252)."""
+    if name in SCHEDULES:
+        return SCHEDULES[name](base_lr, **kwargs)
+    return lambda step: base_lr
 
 
 def ss_ratio_at(iteration: int, ss0: float, mode: str, total_iters: int,

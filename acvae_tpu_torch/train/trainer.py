@@ -234,17 +234,16 @@ def build_optimizer(conf: Dict[str, Any], named_params, total_iters: int
     """The recipe's optimizer chain: ``optimizer``, ``optimizer_args``
     (``lr`` the base rate), ``scheduler``/``scheduler_args``, the clip,
     the freezing and ``accum_steps``.  ``ExponentialDecayScheduler`` decays
-    over the applied updates, ``total_iters // accum_steps``
-    (acvae_tpu/cli/main.py:237-280)."""
+    over the applied updates, ``total_iters // accum_steps``, unless its
+    ``scheduler_args`` set ``total_iters`` (acvae_tpu/cli/main.py:237-280)."""
     opt_args = dict(conf.get("optimizer_args", {}))
     base_lr = opt_args.pop("lr", 5e-4)
     accum = int(conf.get("accum_steps", 1) or 1)
     sched_args = dict(conf.get("scheduler_args", {}))
     name = conf.get("scheduler", "constant")
-    if name == "ReduceLROnPlateau":
-        sched_args = {}
-    schedule = build_schedule(name, base_lr, max(1, int(total_iters) // accum),
-                              **sched_args)
+    if name == "ExponentialDecayScheduler":
+        sched_args.setdefault("total_iters", max(1, int(total_iters) // accum))
+    schedule = build_schedule(name, base_lr, **sched_args)
     return OptaxChain(named_params, conf.get("optimizer", "Adam"), schedule,
                       max_grad_norm=conf.get("max_grad_norm"),
                       frozen=frozen_paths(conf), accum_steps=accum, **opt_args)

@@ -168,10 +168,25 @@ Phases, each of which exits nonzero on failure:
    ``extract_sentence_embedding`` from a seeded 512-dim matrix and
    ``export_embeddings``; where the transformers package is installed,
    ``extract_sentence_embedding`` from a seeded BERT directory, card vs CPU.
+16. export: the deployment surface on phase 9's seeded flagship.  (a) ``cli
+   export_model`` of the beam-3 decode (T_mel 1024, max_length 20, a
+   symbolic batch) with the int8 v2sym encoder (``--platforms=cuda,cpu``:
+   the artifact loads on both) and with bf16 parameters: the export's wall
+   time and ``decode.pt2``'s bytes; no kernel launches while tracing.  (b)
+   Each artifact in a new ``load_exported`` on the card against the eager
+   decode, in turns, one warm-up and 5 timed batches of 512 on the same
+   noise: tokens identical, scores within 1e-6·(1 + |score|), captions/s of
+   both; 8 ``conv3x3_i8`` and 3 ``avgpool2x2_i8`` an int8 batch from the
+   exported program's operators, as from the eager decode.  (c) ``cli serve
+   --exported=<int8>`` as a process of its own: /health, and a float32
+   JSON mel, a binary uint8 mel and a wav captioned.  (d) ``cli
+   prepare_data`` on seeded wavs (32 kHz mono and stereo, 16 kHz) on the
+   card and with ``--device=cpu``: the mels within atol 1e-4 dB.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families, extras, encoders, aux).  Prints a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all nine),
+serve, cli, diverse, families, extras, encoders, aux, export).  Prints a
+``{"kernels": [...]}`` JSON line (``launches`` on each kernel's own path,
+``launches_by_path`` on all ten),
 then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps (phase 5's, and phase 15's adverse step) and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
@@ -228,7 +243,7 @@ CNN14_CONVS = [(128, 8, 512, 512, "sym"), (64, 4, 512, 1024, "sym"),
                (32, 2, 2048, 2048, "f32relu")]
 CNN14_POOLS = [(128, 8, 512), (64, 4, 1024)]
 PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
-         "extras", "encoders", "aux")
+         "extras", "encoders", "aux", "export")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -972,11 +987,11 @@ def beam_topk_times():
           f"per step; torch.topk {k_ms:.4f} ms (not used: tie order)")
 
 
-def _http(url, data=None, headers=None):
+def _http(url, data=None, headers=None, timeout=300):
     """(status, JSON reply) of one request."""
     req = urllib.request.Request(url, data=data, headers=headers or {})
     try:
-        with urllib.request.urlopen(req, timeout=300) as r:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
@@ -3087,6 +3102,244 @@ def aux_hf_embedding(tmp, text):
             f"{errs['hf embedding']:.3g}")
 
 
+# phase 16: the seeded wavs of prepare_data (name -> rate, seconds,
+# channels): 32 kHz mono and stereo, and 16 kHz (resampled), int16
+EXPORT_WAVS = {"mono.wav": (32000, 10.0, 1), "stereo.wav": (32000, 7.3, 2),
+               "rate16k.wav": (16000, 5.1, 1)}
+
+
+def export_phase(tmp):
+    """Phase 16, the deployment path; returns the kernel launches over all
+    of it."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+
+    reset_counts()
+    torch.manual_seed(7)    # phase 9's seeded weights
+    exp = f"{tmp}/export_exp"
+    conf = copy.deepcopy(FLAGSHIP_CONF)
+    save_experiment(exp, build_model(conf, VOCAB, DATA_DIM, device="cuda"),
+                    conf, flagship_vocab())
+    arts = {}
+    for tag, flags in (("int8", ["--encoder_int8", "--platforms=cuda,cpu"]),
+                       ("bf16", ["--decode_dtype=bfloat16"])):
+        before = read_counts()
+        t0 = time.perf_counter()
+        arts[tag] = cli.main(["export_model", exp, f"--t_mel={T_MEL}",
+                              f"--max_length={MAX_LEN}", f"--beam_size={BEAM}",
+                              f"--output_dir={tmp}/export_{tag}", *flags])
+        secs = time.perf_counter() - t0
+        meta = json.load(open(f"{arts[tag]}/meta.json"))
+        check(meta["batch"] == "symbolic", f"export {tag}: batch {meta['batch']}")
+        check(read_counts() == before, f"export {tag}: the trace launched kernels")
+        print(f"export {tag}: cli export_model {secs:.1f} s (calibration, trace, "
+              f"save{', load on cpu and cuda' if tag == 'int8' else ''}); "
+              f"decode.pt2 {meta['artifact_bytes']} bytes; noise "
+              f"{meta['noise']} ({SMI})")
+    counts = export_decodes(exp, conf, arts)
+    export_service(arts["int8"])
+    export_prepare_data(cli, tmp)
+    total = read_counts()
+    print(f"export: launches over the path {total} ({SMI})")
+    check(total == {k: counts[k] for k in total},
+          f"export: launches outside the decodes {total} vs {counts}")
+    return total
+
+
+def export_decodes(exp, conf, arts):
+    """Each artifact in a new ``load_exported`` on the card against the
+    eager decode of the same experiment: one warm-up and DEC_TIMED timed
+    batches of 512 each, in turns, on the same noise; tokens identical,
+    scores within 1e-6 (float32 on the same kernels).  Returns the
+    launches of these batches: 8 + 3 an int8 batch, either way."""
+    from acvae_tpu_torch.export import load_exported
+    from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
+                                              scheme_kwargs)
+    from acvae_tpu_torch.ops.amp import cast_floats_for_decode
+    from acvae_tpu_torch.train.checkpoints import load_experiment
+
+    _, vocab, model = load_experiment(exp, device="cuda")
+    g = torch.Generator("cuda").manual_seed(17)
+    feats = torch.randn((DEC_BATCH, T_MEL, DATA_DIM), generator=g, device="cuda")
+    lens = torch.randint(T_MEL // 2, T_MEL + 1, (DEC_BATCH,), generator=g,
+                         device="cuda").to(torch.int32)
+    counts = dict.fromkeys(kernel_fns(), 0)
+    for tag, art in arts.items():
+        t0 = time.perf_counter()
+        decode, meta = load_exported(art)       # the card by default
+        load_s = time.perf_counter() - t0
+        check(decode.device.type == "cuda", f"load_exported: {decode.device}")
+        if tag == "int8":
+            eager = int8_decode_fn(model, quant_encoder_for(
+                conf, model, **scheme_kwargs("v2sym")), **BEAM_KW)
+        else:
+            cast = cast_floats_for_decode(model, torch.bfloat16)
+            eager = functools.partial(cast.inference_forward, **BEAM_KW)
+        ms = {"exported": [], "eager": []}
+        got = {arm: dict.fromkeys(kernel_fns(), 0) for arm in ms}
+        for i in range(1 + DEC_TIMED):
+            noise = decode.noise(DEC_BATCH, seed=100 + i)
+            outs = {}
+            for arm, run in (("exported", lambda: decode.program(feats, lens,
+                                                                 *noise)),
+                             ("eager", lambda: eager(feats, lens, eps=noise[0]))):
+                before = read_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                outs[arm] = run()
+                torch.cuda.synchronize()
+                ms[arm].append((time.perf_counter() - t1) * 1e3)
+                got[arm] = {k: got[arm][k] + v - before[k]
+                            for k, v in read_counts().items()}
+            a, b = outs["exported"], outs["eager"]
+            check(tuple(a["seqs"].shape) == (DEC_BATCH, BEAM, MAX_LEN),
+                  f"export {tag}: seqs {tuple(a['seqs'].shape)}")
+            differ = int((a["seqs"] != b["seqs"]).any(-1).any(-1).sum())
+            check(differ == 0, f"export {tag}: batch {i}: {differ} clips' "
+                               f"tokens differ from the eager decode's")
+            err = (a["scores"] - b["scores"]).abs().max().item()
+            check(err <= 1e-6 * (1 + b["scores"].abs().max().item()),
+                  f"export {tag}: scores differ by {err}")
+        n = 1 + DEC_TIMED
+        want = (8 * n, 3 * n, 0) if tag == "int8" else (0, 0, 0)
+        for arm, c in got.items():
+            check((c["conv3x3_i8"], c["avgpool2x2_i8"], c["time_warp_1d"])
+                  == want, f"export {tag} {arm}: launches {c} in {n} batches "
+                           f"(expected {want})")
+            counts = {k: counts[k] + c[k] for k in counts}
+        rates = {arm: DEC_BATCH * DEC_TIMED / (sum(v[1:]) / 1e3)
+                 for arm, v in ms.items()}
+        RATES[f"export {tag}"] = rates["exported"]
+        top = a["seqs"][:2, 0].cpu().numpy()
+        print(f"export {tag}: load_exported {load_s:.1f} s; batch {DEC_BATCH} "
+              f"beam {BEAM} T_mel {T_MEL} max_length {MAX_LEN}, tokens identical "
+              f"in {1 + DEC_TIMED} batches, scores max |diff| {err:.3g}; "
+              f"exported {rates['exported']:.1f} captions/s (batch ms "
+              f"{', '.join(f'{t:.1f}' for t in ms['exported'])}), eager "
+              f"{rates['eager']:.1f} ({', '.join(f'{t:.1f}' for t in ms['eager'])}"
+              f"); launches of the exported program {got['exported']}; first "
+              f"captions: "
+              + " | ".join(" ".join(vocab.decode(s)) for s in top) + f" ({SMI})")
+        del decode, eager
+        torch.cuda.empty_cache()
+    return counts
+
+
+def export_service(art):
+    """``cli serve --exported=<the int8 artifact>`` as a process of its own
+    (its output in ``<art>/serve.log``): /health, then POST /caption with a
+    float32 JSON mel, a binary uint8 one and a wav; the process is stopped
+    after."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    log = open(f"{art}/serve.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "acvae_tpu_torch.cli", "serve",
+         f"--exported={art}", f"--port={port}", "--batch_size=16"],
+        cwd=str(Path(__file__).resolve().parent), stdout=log,
+        stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(proc.poll() is None,
+                  f"cli serve --exported exited {proc.returncode}: "
+                  f"{open(f'{art}/serve.log').read()[-2000:]}")
+            check(time.perf_counter() - t0 < 300, "cli serve: no /health in 300 s")
+            try:
+                code, health = _http(base + "/health", timeout=10)
+                break
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                time.sleep(0.5)
+        ready = time.perf_counter() - t0
+        check(code == 200 and health["status"] == "ok"
+              and health["mel_bucket"] == T_MEL, f"/health: {health}")
+        rng = np.random.default_rng(8)
+        mel = rng.normal(size=(T_MEL, DATA_DIM)).astype(np.float32)
+        lo, hi = float(mel.min()), float(mel.max())
+        scale = (hi - lo) / 255.0
+        q = np.clip(np.round((mel - lo) / scale), 0, 255).astype(np.uint8)
+        wav = (rng.normal(size=96000) * 0.1).astype(np.float32)
+        js = {"Content-Type": "application/json"}
+        for name, data, headers in (
+                ("json f32 mel", json.dumps({"mel": mel.tolist()}).encode(), js),
+                ("binary uint8 mel", q.tobytes(), {
+                    "Content-Type": "application/octet-stream",
+                    "X-Mel-Frames": str(T_MEL), "X-Mel-Bins": str(DATA_DIM),
+                    "X-Mel-Dtype": "uint8", "X-Mel-Scale": str(scale),
+                    "X-Mel-Offset": str(lo)}),
+                ("json wav 3 s", json.dumps({"wav": wav.tolist(),
+                                             "sr": 32000}).encode(), js)):
+            t1 = time.perf_counter()
+            code, reply = _http(base + "/caption", data, headers)
+            check(code == 200 and isinstance(reply.get("caption"), str),
+                  f"cli serve --exported: {name}: {code} {reply}")
+            print(f"export serve: {name}: 200 in "
+                  f"{(time.perf_counter() - t1) * 1e3:.1f} ms: "
+                  f"{reply['caption'][:60]!r}")
+        code, stats = _http(base + "/stats")
+        check(code == 200 and stats["ok"] == 3 and stats["server_errors"] == 0,
+              f"cli serve --exported /stats: {stats}")
+        print(f"export serve: cli serve --exported ready in {ready:.1f} s "
+              f"(process start, load, warm-up); /stats "
+              + json.dumps({k: stats.get(k) for k in ("requests", "ok",
+                                                      "latency_ms_p50")}))
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+
+
+def export_prepare_data(cli, tmp):
+    """``cli prepare_data`` on seeded wavs, on the card and with
+    ``--device=cpu``: the same clips and frames; mels within atol 1e-4 dB
+    (the frontend computes in float64), the largest gap printed apart for
+    the bands more than 60 dB below their frame's peak."""
+    from scipy.io import wavfile
+
+    wav_dir = Path(tmp) / "wavs"
+    wav_dir.mkdir()
+    rng = np.random.default_rng(9)
+    for i, (name, (sr, dur, ch)) in enumerate(EXPORT_WAVS.items()):
+        t = np.arange(int(sr * dur)) / sr
+        wave = (0.4 * np.sin(2 * np.pi * (300 + 200 * i) * t)[:, None]
+                + 0.05 * rng.normal(size=(len(t), ch)))
+        data = (wave * 32767).astype(np.int16)
+        wavfile.write(str(wav_dir / name), sr, data[:, 0] if ch == 1 else data)
+    secs, mels = [], []
+    for i, dev in enumerate(("cuda", "cpu")):
+        t0 = time.perf_counter()
+        cli.main(["prepare_data", str(wav_dir), f"{tmp}/mels{i}.npz",
+                  f"{tmp}/mels{i}.csv", f"--device={dev}"])
+        secs.append(time.perf_counter() - t0)
+        mels.append(np.load(f"{tmp}/mels{i}.npz"))
+    card, cpu = mels
+    check(sorted(card.files) == sorted(cpu.files) == sorted(EXPORT_WAVS),
+          f"prepare_data clips {card.files} {cpu.files}")
+    errs = []
+    for name in EXPORT_WAVS:
+        a, b = card[name], cpu[name]
+        check(a.shape == b.shape and a.shape[1] == DATA_DIM,
+              f"prepare_data {name}: {a.shape} vs {b.shape}")
+        floor = b < b.max(axis=1, keepdims=True) - 60.0
+        d = np.abs(a - b)
+        e = (float(d[~floor].max()), float(d[floor].max()) if floor.any() else 0.0)
+        check(max(e) <= 1e-4, f"prepare_data {name}: card vs cpu {e[0]:.3g} "
+                              f"dB, {e[1]:.3g} at the noise floor (1e-4)")
+        errs.append(f"{name} {a.shape[0]} frames {e[0]:.3g}/{e[1]:.3g}")
+    print(f"export prepare_data: card {secs[0]:.2f} s, cpu {secs[1]:.2f} s; "
+          f"max |card - cpu| dB (above / at the noise floor): " + ", ".join(errs))
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -3168,6 +3421,7 @@ def main():
         by_path["extras"] = phase("extras", extras_phase, tmp, exp)
         by_path["encoders"] = phase("encoders", encoders_phase, tmp)
         by_path["aux"] = phase("aux", aux_phase, tmp, args.profile)
+        by_path["export"] = phase("export", export_phase, tmp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

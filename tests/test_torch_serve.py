@@ -222,15 +222,15 @@ def test_uint8_paths_agree_with_f32(experiments, fixed_eps):
         svc.validate_q(q.astype(np.int32) + 300, 1.0, 0.0)
 
 
-LEFT_OUT = (NotImplementedError, "ROADMAP")
-
-
 @pytest.mark.parametrize("kwargs,error", [
     # what JAX refuses, the port refuses with the same error
     ({"encoder_int8": True, "decode_dtype": "bfloat16"},
      (ValueError, "decode_dtype")),
     ({"encoder_int8": True, "int8_scheme": "v9"}, (ValueError, "int8_scheme")),
-    ({"exported": "artifact"}, LEFT_OUT),
+    # at the baked flags' defaults, so that the missing artifact is what
+    # raises (a changed one raises first: test_torch_export_serve.py)
+    ({"exported": "artifact", "mel_bucket": 1024, "max_length": 20},
+     (FileNotFoundError, "artifact")),
     ({"decode_dtype": "bfloat16"}, None),
     ({"upload_dtype": "float16"}, (ValueError, "upload_dtype must be")),
     ({"decode_method": "dbs", "beam_size": 2, "group_size": 4},
@@ -245,8 +245,8 @@ def test_left_out_options_raise(experiments, kwargs, error):
     from acvae_tpu.serve import CaptionService as JCaptionService
 
     jax_exp, port_exp, _ = experiments
-    kw = dict(device="cpu", batch_size=2, mel_bucket=BUCKET, max_length=MAXLEN,
-              **kwargs)
+    kw = {"device": "cpu", "batch_size": 2, "mel_bucket": BUCKET,
+          "max_length": MAXLEN, **kwargs}
     kw.setdefault("experiment_path", port_exp)
     pair = kw["experiment_path"] == "PAIR"
     if pair:

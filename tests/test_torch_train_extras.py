@@ -145,7 +145,10 @@ SHAPES = {"encoder/conv/kernel": (3, 4), "decoder/word_embeddings/embedding": (6
 OPTIMIZERS = [("Adam", {}), ("AdamW", {}), ("SGD", {}),
               ("SGD", {"momentum": 0.9}), ("SGD", {"momentum": 0.9, "nesterov": True}),
               ("RMSprop", {}), ("RMSprop", {"momentum": 0.5, "eps_in_sqrt": False}),
-              ("Adagrad", {}), ("Adam", {"b1": 0.8, "nesterov": True})]
+              ("Adagrad", {}), ("Adam", {"b1": 0.8, "nesterov": True}),
+              ("RMSprop", {"centered": True}),
+              ("RMSprop", {"bias_correction": True}),
+              ("RMSprop", {"centered": True, "bias_correction": True})]
 
 
 def _tree(flat):
