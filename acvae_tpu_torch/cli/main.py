@@ -22,6 +22,14 @@
     python -m acvae_tpu_torch.cli export_model <exp_dir> [--encoder_int8] [--decode_dtype=bfloat16] [...]
     python -m acvae_tpu_torch.cli serve <exp_dir> | --exported=<export_dir> [--port=...]
     python -m acvae_tpu_torch.cli prepare_data <wav_dir> <mels.npz> <mels.csv> [--sr=32000]
+    python -m acvae_tpu_torch.cli sweep <config.yaml> --param=beta --values=0.3,0.5 | --space=<yaml> [--mode=tpe]
+    python -m acvae_tpu_torch.cli import_torch <best.pth> <config.yaml> <out_dir> <vocab.pkl>
+    python -m acvae_tpu_torch.cli report_results <experiment_root> [--score_file=...]
+    python -m acvae_tpu_torch.cli split_dataset <text.json> <output_prefix>
+    python -m acvae_tpu_torch.cli concat_json <text.json> ... --output=<text.json>
+    python -m acvae_tpu_torch.cli concat_csv <mels.csv> ... --output=<mels.csv>
+    python -m acvae_tpu_torch.cli tsne <embedding_dir> ... [--output_prefix=tsne]
+    python -m acvae_tpu_torch.cli doctor [--probe_timeout=120]
 
 Any ``--key=value`` of ``train`` overrides the YAML, dotted keys reaching
 nested mappings (``--ss_args.ss_mode=linear``); values are read as YAML
@@ -71,18 +79,33 @@ Deployment: ``export_model`` writes a ``torch.export`` decode artifact
 (``export.py``; f32, ``--decode_dtype=bfloat16`` or ``--encoder_int8``),
 ``serve`` runs the HTTP server over an experiment or an artifact
 (``serve.py``), ``prepare_data`` computes log-mels from wavs.
+The rest: ``sweep`` trains a grid, random, TPE or anneal search of recipe
+keys (``--assessor=median`` stops poor trials early, ``--isolate_trials``
+runs each as its own ``train`` process on ``--device``), ``import_torch``
+makes a port experiment of a reference-trained ``.pth``,
+``report_results`` writes the mean ± std of the scores over ``seed_*``
+dirs, ``split_dataset``/``concat_json``/``concat_csv`` split and join
+corpus files, ``tsne`` plots embedding trees (scikit-learn and matplotlib)
+and ``doctor`` checks the device in a bounded probe.
 """
 from __future__ import annotations
 
 import copy
 import csv
 import dataclasses
+import itertools
 import json
 import logging
+import math
+import os
 import random
+import re
 import shutil
+import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from functools import partial
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -91,7 +114,8 @@ import numpy as np
 import torch
 
 from acvae_tpu_torch import DEFAULT_DEVICE, END_IDX, START_IDX
-from acvae_tpu_torch.core.config import Config, load_config
+from acvae_tpu_torch.core.config import (Config, _coerce, _fix_yaml11_floats,
+                                         load_config)
 from acvae_tpu_torch.core.miniyaml import safe_load
 from acvae_tpu_torch.data.dataset import (CaptionDataset, CaptionLoader,
                                           refs_of)
@@ -329,6 +353,21 @@ def _validate(model, loader: CaptionLoader, vocab: Vocabulary,
     return float(score)
 
 
+def _experiment_dir(conf: Dict[str, Any]) -> Path:
+    """``<outputpath>/<model>/<remark>_<beta>[_<alpha>]/seed_<N>``, the
+    directory ``train`` writes for the merged config ``conf``."""
+    remark = f"{conf['remark']}_{conf['beta']}"
+    if "alpha" in conf:
+        remark += f"_{conf['alpha']}"
+    return (Path(conf["outputpath"]) / conf.get("model", "Hybrid_VAEModel")
+            / remark / f"seed_{conf['seed']}")
+
+
+# the running sweep trial's early-stop rule: ``sweep`` sets it around an
+# in-process trial, and ``train`` asks it after each epoch's saves
+_TRIAL_ASSESSOR = None
+
+
 # ---------------------------------------------------------------------- #
 def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     """Train the recipe in ``config`` (``--key=value`` overrides); returns
@@ -343,14 +382,12 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    remark = f"{conf['remark']}_{conf['beta']}"
-    if "alpha" in conf:
-        remark += f"_{conf['alpha']}"
-    outputdir = (Path(conf["outputpath"]) / conf.get("model", "Hybrid_VAEModel")
-                 / remark / f"seed_{seed}")
+    outputdir = _experiment_dir(conf)
     outputdir.mkdir(parents=True, exist_ok=True)
     logger = _setup_logger(str(outputdir / "train_caption.log"))
     logger.info(f"Storing files in: {outputdir}")
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                       if device.type == "cuda" else ""))
 
     vocab = Vocabulary.load(conf["vocab_file"])
     train_ds, _, train_loader, val_loader = _build_dataloaders(conf, vocab)
@@ -480,6 +517,12 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                 write_ckpt_step(str(outputdir), "last", iteration, **extra)
                 for stale in ("step_0", "step_1", "step"):  # superseded by last
                     remove_checkpoint(str(outputdir), stale)
+                if _TRIAL_ASSESSOR is not None and _TRIAL_ASSESSOR.assess(score):
+                    # the sweep's median rule: this trial's best score is
+                    # below the completed trials' at this epoch
+                    logger.info(f"assessor: trial stopped early at epoch "
+                                f"{epoch} (below median of completed trials)")
+                    break
     finally:
         if prof is not None:
             _stop_trace(prof, device)
@@ -1332,6 +1375,497 @@ def _extract_hf_sentence_embedding(caption_file: str, model_dir: str,
 
 
 # ---------------------------------------------------------------------- #
+# the hyper-parameter sweep
+TRIAL_POLL_S = 5.0   # an isolated trial's metrics.jsonl is read this often
+
+
+def _sweep_space(space) -> Dict[str, List[Any]]:
+    """A search space: a mapping already read, a YAML file or inline YAML;
+    each value must be a candidate list."""
+    if isinstance(space, dict):
+        sp = space
+    elif Path(str(space)).exists():
+        with open(str(space)) as f:
+            sp = safe_load(f)
+    else:
+        sp = safe_load(str(space))
+    sp = _fix_yaml11_floats(sp)
+    if not isinstance(sp, dict) or not all(isinstance(v, list)
+                                           for v in sp.values()):
+        raise ValueError("search space must be a mapping of config key -> "
+                         f"candidate list, got: {sp!r}")
+    return sp
+
+
+def _sweep_trials(param, values, space, mode: str, n_trials, seed: int):
+    """(trials, advisor): the overrides of each trial, None where the
+    sequential advisor suggests it once the earlier trials have run."""
+    from acvae_tpu_torch.train.sweep_advisor import AnnealAdvisor, TPEAdvisor
+
+    if space is None:
+        if param is None or values is None:
+            raise ValueError("either --space or --param/--values")
+        if mode in ("tpe", "anneal"):
+            raise ValueError(f"--mode={mode} needs a --space search space; "
+                             "--param/--values runs the literal list")
+        raws = (values if isinstance(values, (list, tuple))
+                else str(values).split(","))
+        return [{param: _fix_yaml11_floats(_coerce(r))} for r in raws], None
+    sp = _sweep_space(space)
+    names = list(sp)
+    if mode == "random":
+        rng = np.random.default_rng(seed)
+        combos = [tuple(sp[n][int(rng.integers(len(sp[n])))] for n in names)
+                  for _ in range(int(n_trials or 10))]
+        return [dict(zip(names, c)) for c in combos], None
+    if mode in ("tpe", "anneal"):
+        k = int(n_trials or 10)
+        advisor = (TPEAdvisor(sp, seed=seed) if mode == "tpe"
+                   else AnnealAdvisor(sp, seed=seed, n_trials=k))
+        return [None] * k, advisor
+    combos = list(itertools.product(*[sp[n] for n in names]))
+    if n_trials:
+        combos = combos[:int(n_trials)]
+    return [dict(zip(names, c)) for c in combos], None
+
+
+def _trial_subprocess(config: str, opts: Dict[str, Any], stopper, metric: str,
+                      device) -> str:
+    """One sweep trial as its own ``python -m acvae_tpu_torch.cli train``
+    process in the repo root, given ``--device`` (a CPU trial is also hidden
+    from every card): memory returns to the system when it exits.  The
+    trial's new ``metrics.jsonl`` lines feed ``stopper`` as the in-process
+    hook does, read every ``TRIAL_POLL_S`` and when the child ends; a stop
+    terminates the child (its ``best``/``last`` are saved before the
+    question is asked).  Returns the trial's experiment dir."""
+    repo_root = Path(__file__).resolve().parents[2]
+    merged = Config(copy.deepcopy(DEFAULTS))
+    merged.update(load_config(config, **opts))
+    # train resolves a relative outputpath against its own cwd
+    exp_dir = repo_root / _experiment_dir(merged)
+    metrics_path = exp_dir / "metrics.jsonl"
+    # metrics.jsonl appends across runs: only this trial's lines count
+    seen = (len(metrics_path.read_text().splitlines())
+            if metrics_path.exists() else 0)
+    argv = [sys.executable, "-m", "acvae_tpu_torch.cli", "train",
+            str(Path(config).resolve())]
+    for k, v in opts.items():
+        argv.append(f"--{k}=" + (json.dumps(v) if isinstance(v, (dict, list, bool))
+                                 else str(v)))
+    argv.append(f"--device={device}")
+    env = dict(os.environ)
+    if torch.device(device).type == "cpu":
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(argv, cwd=str(repo_root), env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+        stopped = False
+        try:
+            while True:
+                try:
+                    rc = proc.wait(timeout=TRIAL_POLL_S)
+                except subprocess.TimeoutExpired:
+                    rc = None
+                if metrics_path.exists():
+                    # whole lines only: the child may be writing the next
+                    lines = metrics_path.read_text().split("\n")[:-1]
+                    for line in lines[seen:]:
+                        rec = json.loads(line)
+                        if metric in rec and stopper is not None \
+                                and stopper.assess(rec[metric]):
+                            print(f"assessor: trial stopped early at epoch "
+                                  f"{rec.get('epoch')} (below median of "
+                                  f"completed trials)")
+                            proc.terminate()
+                            try:
+                                proc.wait(timeout=60)
+                            except subprocess.TimeoutExpired:
+                                proc.kill()
+                            stopped = True
+                            break
+                    seen = len(lines)
+                if stopped or rc is not None:
+                    break
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if not stopped and proc.returncode != 0:
+            err.seek(0)
+            tail = "\n".join(err.read().splitlines()[-20:])
+            raise RuntimeError(f"sweep trial exited {proc.returncode}; see "
+                               f"{exp_dir}/train_caption.log\n{tail}")
+    return str(exp_dir)
+
+
+def sweep(config: str, param: Optional[str] = None, values=None, space=None,
+          mode: str = "grid", n_trials: Optional[int] = None,
+          metric: str = "val_cider", seed: int = 0,
+          assessor: Optional[str] = None, assessor_min_trials: int = 3,
+          assessor_min_epochs: int = 2, isolate_trials: bool = False,
+          device=DEFAULT_DEVICE, **kwargs) -> Dict[str, Any]:
+    """Hyper-parameter sweep over ``train`` (acvae_tpu/cli/main.py:2272-2454,
+    the reference's NNI search made local).  ``--param=beta
+    --values=0.3,0.5`` runs the listed values; ``--space`` (a YAML file or
+    inline YAML mapping each config key, dotted keys reaching nested ones,
+    to its candidates) runs ``--mode=grid`` (the cartesian product, cut to
+    ``--n_trials``), ``random`` (``--n_trials`` joint draws with
+    ``--seed``), ``tpe`` or ``anneal`` (``train/sweep_advisor.py``: each
+    trial's best ``--metric`` feeds the next suggestion).
+    ``--assessor=median`` stops a trial whose best score at an epoch is
+    below the median of the completed trials' running means there (from
+    ``--assessor_min_epochs``, after ``--assessor_min_trials`` completed);
+    a stopped trial is marked ``"stopped_early"``.  ``--isolate_trials``
+    runs each trial as its own ``train`` process on ``--device``.  Other
+    ``--key=value`` flags override the recipe of every trial.  Prints the
+    JSON summary (each trial's best, experiment dir and overrides; the best
+    trial) and returns the results."""
+    from acvae_tpu_torch.train.sweep_advisor import MedianStopAssessor
+
+    global _TRIAL_ASSESSOR
+    trials, advisor = _sweep_trials(param, values, space, mode, n_trials,
+                                    int(seed))
+    # a swept key the config never reads varies nothing: warn (keys read
+    # with .get(), such as free_bits, legitimately miss from the file)
+    try:
+        merged = Config(copy.deepcopy(DEFAULTS))
+        merged.update(load_config(config, **kwargs))
+    except OSError:
+        merged = None   # train raises its own error
+    swept = ({param} if param is not None
+             else set().union(*[set(t) for t in trials if t]) if trials
+             else set())
+    for k in sorted(swept) if merged is not None else ():
+        sentinel = object()
+        if merged.get_path(k, sentinel) is sentinel:
+            print(f"# WARNING: swept key {k!r} is not present in the merged "
+                  f"config — if it is a typo (e.g. 'lr' vs "
+                  f"'optimizer_args.lr') every trial will train identically",
+                  file=sys.stderr)
+    stopper = None
+    if assessor == "median":
+        stopper = MedianStopAssessor(min_trials=int(assessor_min_trials),
+                                     min_epochs=int(assessor_min_epochs))
+    elif assessor is not None:
+        raise ValueError(f"unknown --assessor={assessor!r} (median)")
+    results: Dict[str, Any] = {}
+    history = []   # (overrides, best metric) for the sequential advisors
+    for t, overrides in enumerate(trials):
+        if overrides is None:
+            overrides = advisor.suggest(history)
+        tag = "t{}_{}".format(t, "_".join(f"{k.split('.')[-1]}={v}"
+                                          for k, v in overrides.items()))
+        print(f"=== sweep trial {t}: {overrides} ===")
+        opts = {**overrides, "remark": f"sweep_{tag}", **kwargs}
+        if stopper is not None:
+            stopper.trial_begin()
+        if isolate_trials:
+            exp_dir = _trial_subprocess(config, opts, stopper, metric, device)
+        else:
+            _TRIAL_ASSESSOR = stopper
+            try:
+                exp_dir = train(config, device=device, **opts)
+            finally:
+                _TRIAL_ASSESSOR = None
+        recs = [json.loads(line) for line in
+                (Path(exp_dir) / "metrics.jsonl").read_text().splitlines()]
+        if not recs or metric not in recs[-1]:
+            raise ValueError(f"--metric={metric!r} not in {exp_dir}/"
+                             f"metrics.jsonl; available: "
+                             f"{sorted(recs[-1]) if recs else []}")
+        best = max(r[metric] for r in recs)
+        history.append((overrides, best))
+        results[tag] = {"best": best, "exp_dir": exp_dir, "params": overrides}
+        if stopper is not None:
+            if stopper.last_stop:
+                results[tag]["stopped_early"] = True
+            stopper.trial_end()
+    _warn_identical_trials(results)
+    best_tag = max(results, key=lambda k: results[k]["best"])
+    print(json.dumps({"results": results, "best": best_tag,
+                      "best_params": results[best_tag]["params"]}, indent=1))
+    return results
+
+
+def _warn_identical_trials(results: Dict[str, Any]) -> None:
+    """Warn when trials with different overrides wrote byte-identical
+    metric trajectories (the swept keys never reached training)."""
+    trajs = {}
+    for tag, r in results.items():
+        try:
+            lines = [json.loads(line) for line in
+                     (Path(r["exp_dir"]) / "metrics.jsonl").read_text().splitlines()]
+        except OSError:
+            continue
+        for rec in lines:    # wall time differs between identical runs
+            rec.pop("epoch_wall_s", None)
+        trajs[tag] = json.dumps(lines, sort_keys=True)
+    if len(trajs) > 1 and len(set(trajs.values())) == 1 and len(
+            {json.dumps(r["params"], sort_keys=True, default=str)
+             for r in results.values()}) > 1:
+        print("# WARNING: all trials produced byte-identical metric "
+              "trajectories despite different overrides — the swept key(s) "
+              "likely never reach training (check the config path, e.g. "
+              "optimizer_args.lr not lr)", file=sys.stderr)
+
+
+# ---------------------------------------------------------------------- #
+# reference checkpoints, results across seeds, corpus files, the device
+def import_torch(pth_path: str, config: str, output_dir: str, vocab_file: str,
+                 data_dim: Optional[int] = None, mel_bucket: int = 64,
+                 device=DEFAULT_DEVICE) -> Dict[str, int]:
+    """A reference-trained torch checkpoint (``{"model": state_dict}`` or a
+    bare state dict, DDP's ``module.`` prefix or not) as a port experiment
+    (``config.json``, ``vocab.pkl``, ``best.pt``) that ``evaluate``,
+    ``predict``, ``serve`` and ``export_model`` read
+    (acvae_tpu/cli/main.py:1031-1097).  The port's modules keep the
+    reference's torch names, so the tensors merge by name and shape,
+    parameters and buffers apart; a key the model lacks or a shape that
+    differs is logged and skipped (the reference's policy), and the rest of
+    the model keeps its seeded initialisation.  The encoder's
+    ``stem_pad_lanes`` (the port's zero lanes of a one-lane stem, which no
+    reference dict holds) is not counted.  ``data_dim``: the flag, else the
+    config's, else 64; ``vocab_file`` is this package's pickle (``cli
+    build_vocab`` on the same text.json).  ``mel_bucket`` is read and
+    ignored: the JAX package initialises on a batch of that many frames,
+    the port needs none.  Returns the four counts."""
+    from acvae_tpu_torch.models.build import build_model
+    from acvae_tpu_torch.train.checkpoints import save_experiment
+    from acvae_tpu_torch.train.pretrained import (merge_pretrained,
+                                                  read_torch_state_dict)
+
+    device = _device(device)
+    conf = load_config(config)
+    conf.setdefault("seed", 1)
+    vocab = Vocabulary.load(vocab_file)
+    log = logging.getLogger("acvae_tpu_torch").info
+    sd = read_torch_state_dict(pth_path)
+    conf["data_dim"] = int(data_dim if data_dim is not None
+                           else conf.get("data_dim", 64))
+    cuda = [device] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(conf["seed"])
+        model = build_model(conf, len(vocab), conf["data_dim"], device=device)
+    state = model.state_dict()
+    params = {n for n, _ in model.named_parameters()}
+    counts = {}
+    for col, names in (("params", [k for k in state if k in params]),
+                       ("stats", [k for k in state if k not in params
+                                  and not k.endswith("stem_pad_lanes")])):
+        merged, n, total = merge_pretrained({k: state[k] for k in names}, sd, log)
+        state.update(merged)
+        counts[col] = (n, total)
+    for k in sorted(set(sd) - set(state)):
+        log(f"unmapped key {k} (dropped)")
+    model.load_state_dict(state, strict=True)
+    save_experiment(output_dir, model, conf, vocab, "best")
+    (n_p, t_p), (n_s, t_s) = counts["params"], counts["stats"]
+    print(f"imported {pth_path}: params {n_p}/{t_p}, batch_stats {n_s}/{t_s} "
+          f"-> {output_dir}/best")
+    if n_p < t_p:
+        print(f"warning: {t_p - n_p} param tensors kept their fresh init "
+              f"(see log for unmapped/shape-mismatched keys)")
+    return {"params_loaded": n_p, "params_total": t_p,
+            "stats_loaded": n_s, "stats_total": t_s}
+
+
+def report_results(experiment_root: str,
+                   score_file: str = "scores_beam_3.txt") -> Dict[str, List[float]]:
+    """Mean ± population std of each score over the ``seed_*`` dirs of an
+    experiment root (utils/report_results.py; acvae_tpu/cli/main.py:
+    1880-1912), printed and written to ``aggregated_scores.txt`` (for the
+    default ``score_file``, else ``aggregated_<score_file>``) in the root.
+    Returns each score's values."""
+    root = Path(experiment_root)
+    values: Dict[str, List[float]] = {}
+    for seed_dir in sorted(root.glob("seed_*")):
+        path = seed_dir / score_file
+        if not path.exists():
+            continue
+        for line in path.read_text().splitlines():
+            m = re.match(r"(\S+):\s+([-\d.]+)", line)
+            if m:
+                values.setdefault(m.group(1), []).append(float(m.group(2)))
+    text = "\n".join(f"{name}: {np.mean(v):.3f} ± {np.std(v):.3f} (n={len(v)})"
+                     for name, v in values.items())
+    print(text)
+    out_name = ("aggregated_scores.txt" if score_file == "scores_beam_3.txt"
+                else f"aggregated_{score_file}")
+    with open(root / out_name, "w") as f:
+        f.write(text + "\n")
+    return values
+
+
+def split_dataset(caption_file: str, output_prefix: str) -> str:
+    """``<output_prefix>_hard.json`` and ``_easy.json``: the audios split in
+    half by the mean bag-of-words cosine between their captions, the less
+    alike half hard (utils/split_dataset.py with the JAX package's TF-IDF
+    stand-in for BERT; acvae_tpu/cli/main.py:2089-2120)."""
+    info = load_caption_info(caption_file)
+
+    def cosine(a: str, b: str) -> float:
+        ca, cb = Counter(a.split()), Counter(b.split())
+        num = sum(ca[w] * cb[w] for w in ca)
+        na = math.sqrt(sum(v * v for v in ca.values()))
+        nb = math.sqrt(sum(v * v for v in cb.values()))
+        return num / (na * nb + 1e-8)
+
+    sims = []
+    for a in info:
+        caps = [c["tokens"] for c in a["captions"]]
+        pair = [cosine(caps[i], caps[j])
+                for i in range(len(caps)) for j in range(i + 1, len(caps))]
+        sims.append(np.mean(pair) if pair else 0.0)
+    order = np.argsort(sims)    # numpy's default kind, as the JAX package
+    half = len(order) // 2
+    for name, idxs in (("hard", order[:half]), ("easy", order[half:])):
+        with open(f"{output_prefix}_{name}.json", "w") as f:
+            json.dump({"audios": [info[i] for i in idxs]}, f, indent=1)
+    print(f"wrote {output_prefix}_hard.json / _easy.json "
+          f"({half}/{len(order) - half} audios)")
+    return output_prefix
+
+
+def concat_json(*inputs: str, output: str) -> str:
+    """One text.json of the audios of every input, in order
+    (utils/concat_json.py)."""
+    audios = [a for path in inputs for a in load_caption_info(path)]
+    with open(output, "w") as f:
+        json.dump({"audios": audios}, f, indent=1)
+    return output
+
+
+def concat_csv(*inputs: str, output: str) -> str:
+    """One TSV of the rows of every input TSV (utils/concat_csv.py), written
+    as pandas' ``read_csv`` + ``concat`` + ``to_csv`` write it
+    (``core/tsv.py``; the card's machine has no pandas)."""
+    from acvae_tpu_torch.core.tsv import concat_tsv
+
+    concat_tsv(inputs, output)
+    return output
+
+
+def tsne(*embedding_dirs: str, output_prefix: str = "tsne",
+         num_audios: int = 20, seed: int = 0) -> List[str]:
+    """A t-SNE scatter of each ``<dir>/<audio_id>/<i>.npy`` caption
+    embedding tree (utils/show_tsne.py; acvae_tpu/cli/main.py:1936-1985):
+    ``num_audios`` audio ids sampled from the first dir with ``seed``, one
+    ``<output_prefix>_<dir name>.png`` per dir, points coloured by audio.
+    Needs scikit-learn and matplotlib (the card's machine has neither)."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from sklearn.manifold import TSNE
+    except ImportError as e:
+        raise ImportError(f"tsne needs scikit-learn and matplotlib, and "
+                          f"{e.name} is not installed") from e
+    if not embedding_dirs:
+        raise ValueError("pass at least one embedding directory")
+    rng = np.random.default_rng(seed)
+    roots = [Path(d) for d in embedding_dirs]
+    audio_ids = sorted(p.name for p in roots[0].iterdir() if p.is_dir())
+    if len(audio_ids) > num_audios:
+        audio_ids = list(rng.choice(audio_ids, num_audios, replace=False))
+    outputs = []
+    for root in roots:
+        vecs, labels = [], []
+        for li, aid in enumerate(audio_ids):
+            adir = root / aid
+            if not adir.is_dir():
+                continue   # an id sampled from the first dir may be absent
+            for npy in sorted(adir.glob("[0-9]*.npy")):
+                vecs.append(np.load(npy).ravel())
+                labels.append(li)
+        if len(vecs) < 3:
+            print(f"skipping {root}: only {len(vecs)} embeddings for the "
+                  f"sampled audio ids (need >= 3 for t-SNE)")
+            continue
+        x = np.stack(vecs)
+        emb = TSNE(n_components=2, init="pca", random_state=seed,
+                   perplexity=max(1.0, min(30.0, len(x) - 1))).fit_transform(x)
+        fig, ax = plt.subplots(figsize=(6, 5))
+        ax.scatter(emb[:, 0], emb[:, 1], c=labels, cmap="hsv", s=18)
+        ax.set_title(f"t-SNE caption embeddings — {root.name}")
+        out = f"{output_prefix}_{root.name}.png"
+        fig.savefig(out, dpi=200, bbox_inches="tight")
+        plt.close(fig)
+        outputs.append(out)
+        print(f"wrote {out} ({len(vecs)} points, {len(audio_ids)} audios)")
+    return outputs
+
+
+# the device probe of ``doctor``, run in a process of its own: one 128x128
+# matmul and its time, synchronised, then 5 more
+_PROBE = """\
+import json, sys, time, torch
+dev = torch.device(sys.argv[1])
+cuda = dev.type == "cuda"
+if cuda and not torch.cuda.is_available():
+    sys.exit(f"device {dev} needs a CUDA card and none is visible")
+sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+t0 = time.perf_counter()
+x = torch.ones((128, 128), device=dev)
+y = x @ x
+sync()
+first = time.perf_counter() - t0
+if float(y[0, 0]) != 128.0:
+    sys.exit(f"the probe's matmul gave {float(y[0, 0])}, not 128")
+ts = []
+for _ in range(5):
+    t = time.perf_counter()
+    x @ x
+    sync()
+    ts.append(time.perf_counter() - t)
+print(json.dumps({"type": dev.type,
+                  "name": torch.cuda.get_device_name(dev) if cuda else "cpu",
+                  "count": torch.cuda.device_count() if cuda else 1,
+                  "first_call_s": round(first, 3),
+                  "matmul_ms_p50": round(sorted(ts)[2] * 1000, 3)}))
+"""
+
+
+def _probe_device(device, timeout: float) -> Dict[str, Any]:
+    """``{"ok": True, "device": {...}}``, or ``{"ok": False, "error": ...}``
+    when the probe fails or runs past ``timeout`` seconds."""
+    try:
+        r = subprocess.run([sys.executable, "-c", _PROBE, str(device)],
+                           capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"ok": False, "error": f"device probe of {device} hung for "
+                                      f"{timeout:.0f} s"}
+    if r.returncode != 0:
+        lines = (r.stderr or "").splitlines()
+        return {"ok": False, "error": lines[-1] if lines else
+                f"probe exited {r.returncode} with no stderr"}
+    return {"ok": True, "device": json.loads(r.stdout.splitlines()[-1])}
+
+
+def doctor(probe_timeout: float = 120.0, device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """A bounded check of ``device`` (acvae_tpu/cli/main.py:2139-2186):
+    torch's version and CUDA runtime, the kernel build directory
+    (``ops/cuda/build.py``; the port's counterpart of the compilation
+    cache) and its entries, and a probe in a process of its own, cut at
+    ``probe_timeout`` seconds: the device's name and count, one small
+    matmul's time, synchronised.  Prints the JSON report; exits with code 1
+    when the probe fails or times out."""
+    from acvae_tpu_torch.ops.cuda.build import BUILD_DIR
+
+    report: Dict[str, Any] = {"torch_version": torch.__version__,
+                              "cuda_runtime": torch.version.cuda}
+    report["kernel_build"] = {
+        "path": str(BUILD_DIR),
+        "entries": len(os.listdir(BUILD_DIR)) if BUILD_DIR.is_dir() else 0}
+    t0 = time.perf_counter()
+    report.update(_probe_device(device, float(probe_timeout)))
+    report["probe_wall_s"] = round(time.perf_counter() - t0, 1)
+    print(json.dumps(report, indent=1))
+    if not report["ok"]:
+        sys.exit(1)
+    return report
+
+
+# ---------------------------------------------------------------------- #
 def make_synthetic(output_dir: str, num_audios: int = 3000,
                    captions_per_audio: int = 5, mel_frames: int = 1024,
                    rich: bool = False, seed: int = 0) -> str:
@@ -1403,12 +1937,16 @@ COMMANDS = {"train": train, "evaluate": evaluate, "predict": predict,
             "global_vae": global_vae, "export_embeddings": export_embeddings,
             "extract_sentence_embedding": extract_sentence_embedding,
             "export_model": export_model, "serve": serve,
-            "prepare_data": prepare_data}
+            "prepare_data": prepare_data, "sweep": sweep,
+            "import_torch": import_torch, "report_results": report_results,
+            "split_dataset": split_dataset, "concat_json": concat_json,
+            "concat_csv": concat_csv, "tsne": tsne, "doctor": doctor}
 # the commands that compute on the device (the others only check --device)
 ON_DEVICE = ("train", "evaluate", "predict", "ensemble", "scst", "diagnose",
              "train_discriminator", "stage1", "stage1_test",
              "extract_embedding", "global_vae", "extract_sentence_embedding",
-             "export_model", "serve", "prepare_data")
+             "export_model", "serve", "prepare_data", "sweep", "import_torch",
+             "doctor")
 
 
 def main(argv: Optional[List[str]] = None) -> Any:

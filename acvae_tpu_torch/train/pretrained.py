@@ -87,6 +87,18 @@ def unwrap_torch_state_dict(obj):
     return obj
 
 
+def read_torch_state_dict(path) -> Dict[str, Any]:
+    """The flat state dict of a torch checkpoint file, unwrapped
+    (:func:`unwrap_torch_state_dict`) and without the ``module.`` prefix a
+    DistributedDataParallel save puts on every name."""
+    # the reference's checkpoints pickle their vocabulary beside the
+    # weights, so this reads them as the reference and the JAX package do
+    sd = unwrap_torch_state_dict(torch.load(path, map_location="cpu",
+                                            weights_only=False))
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
 def _looks_like_acvae(state_dict: Dict[str, Any]) -> bool:
     """A whole reference (or port) model: submodule-prefixed keys."""
     return any(k.startswith(("decoder.", "qnet.", "pnet.")) for k in state_dict)
@@ -232,13 +244,7 @@ def load_state_source(path: str, espnet_inputdim: int = 64,
     if p.suffix not in (".pth", ".pt"):
         raise ValueError(f"{path}: not a torch checkpoint (.pth/.pt); a "
                          f"pickled flax tree is the JAX package's; {route}")
-    # the reference's checkpoints pickle their vocabulary beside the
-    # weights, so this reads them as the reference and the JAX package do
-    sd = unwrap_torch_state_dict(torch.load(p, map_location="cpu",
-                                            weights_only=False))
-    # a DistributedDataParallel save prefixes every name
-    sd = {k[len("module."):] if k.startswith("module.") else k: v
-          for k, v in sd.items()}
+    sd = read_torch_state_dict(p)
     if _looks_like_acvae(sd) or _looks_like_global_vae(sd):
         return sd
     if _looks_like_espnet(sd):

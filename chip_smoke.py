@@ -182,12 +182,31 @@ Phases, each of which exits nonzero on failure:
    JSON mel, a binary uint8 mel and a wav captioned.  (d) ``cli
    prepare_data`` on seeded wavs (32 kHz mono and stereo, 16 kHz) on the
    card and with ``--device=cpu``: the mels within atol 1e-4 dB.
+17. tools: the rest of the CLI on phase 10's corpus and experiment, at the
+   flagship's full width.  (a) ``sweep configs/ac_vae.yaml --param=beta
+   --values=0.5,0.4 --epochs=1 --isolate_trials=true``: each trial a ``cli
+   train`` process of its own, whose log must name the card; the wall of
+   each trial and of the sweep.  (b) ``sweep --mode=tpe --n_trials=3
+   --space={beta: [0.3, 0.5], smoothing: [0.05, 0.1]} --assessor=median
+   --assessor_min_trials=1 --assessor_min_epochs=1`` in process, 2 epochs on
+   96 of the 320 clips: the suggestions and every ``stopped_early`` (the
+   assessor's log line after the last epoch a stopped trial wrote).  (c) Phase
+   10's ``best`` weights as a reference ``.pth`` (``{"model": ...}`` with
+   DDP's ``module.`` prefix) through ``cli import_torch`` (every tensor
+   loaded, equal to the source's), then ``evaluate --encoder_int8`` of the
+   import and of its source in turns: identical captions and scores, 8
+   ``conv3x3_i8`` and 3 ``avgpool2x2_i8`` an eval batch (calibration
+   apart).  (d) ``report_results`` over two ``seed_*`` dirs holding (c)'s
+   scores, ``split_dataset``, ``concat_json`` (the halves join to the
+   corpus), ``concat_csv`` and ``tsne`` (its PNG, or its refusal naming
+   scikit-learn and matplotlib).  (e) ``doctor`` on the card: the probe
+   names the card, the build directory holds the kernels' libraries.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families, extras, encoders, aux, export).  Prints a
-``{"kernels": [...]}`` JSON line (``launches`` on each kernel's own path,
-``launches_by_path`` on all ten),
-then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
+serve, cli, diverse, families, extras, encoders, aux, export, tools).
+Prints the whole script's wall time, a ``{"kernels": [...]}`` JSON line
+(``launches`` on each kernel's own path, ``launches_by_path`` on all
+eleven), then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps (phase 5's, and phase 15's adverse step) and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
 op tables into DIR.
@@ -243,7 +262,7 @@ CNN14_CONVS = [(128, 8, 512, 512, "sym"), (64, 4, 512, 1024, "sym"),
                (32, 2, 2048, 2048, "f32relu")]
 CNN14_POOLS = [(128, 8, 512), (64, 4, 1024)]
 PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
-         "extras", "encoders", "aux", "export")
+         "extras", "encoders", "aux", "export", "tools")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -3340,6 +3359,252 @@ def export_prepare_data(cli, tmp):
           f"max |card - cpu| dB (above / at the noise floor): " + ", ".join(errs))
 
 
+# phase 17: (b)'s subset of phase 10's clips (96 of 320: 14 train iterations
+# of 32 an epoch at train_percent 90, one validation batch) and epochs
+TOOLS_AUDIOS, TOOLS_EPOCHS = 96, 2
+
+
+def tools_phase(tmp, exp):
+    """Phase 17, the rest of the CLI on phase 10's corpus and experiment;
+    returns the kernel launches over all of it."""
+    from acvae_tpu_torch.cli import main as cli
+
+    reset_counts()
+    torch.cuda.empty_cache()
+    root = Path(tmp) / "tools"
+    root.mkdir()
+    config = str(CONFIGS / "ac_vae.yaml")
+    data = [f"--h5_csv={tmp}/mels.csv", f"--caption_file={tmp}/text.json",
+            f"--vocab_file={tmp}/vocab.pkl"]
+    tools_isolated_sweep(cli, config, data, root)
+    tools_tpe_sweep(cli, config, data, tmp, root)
+    counts = tools_import(cli, config, tmp, exp, root)
+    tools_host(cli, tmp, exp, root)
+    tools_doctor(cli)
+    total = read_counts()
+    print(f"tools: launches over the path {total} ({SMI})")
+    check(total == counts, f"tools: launches outside the evaluates {total} "
+                           f"vs {counts}")
+    return total
+
+
+def _timed_calls(owner, name, log):
+    """Wrap ``owner.<name>`` to append each call's wall seconds to ``log``;
+    returns the undo."""
+    real = getattr(owner, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        log.append(time.perf_counter() - t0)
+        return out
+    setattr(owner, name, timed)
+    return lambda: setattr(owner, name, real)
+
+
+def tools_isolated_sweep(cli, config, data, root):
+    """(a) ``sweep --param=beta --values=0.5,0.4 --epochs=1
+    --isolate_trials=true``: each trial a ``cli train`` process of its own
+    on the card (its log names the card), one epoch of 45 iterations."""
+    walls = []
+    undo = _timed_calls(cli, "_trial_subprocess", walls)
+    t0 = time.perf_counter()
+    try:
+        res = cli.main(["sweep", config, "--param=beta", "--values=0.5,0.4",
+                        "--epochs=1", "--isolate_trials=true", *data,
+                        f"--outputpath={root}/iso"])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    check(len(res) == 2, f"isolated sweep: {len(res)} trials")
+    for (tag, r), secs in zip(res.items(), walls):
+        exp = Path(r["exp_dir"])
+        log = (exp / "train_caption.log").read_text()
+        check("device: cuda" in log and "H100" in log,
+              f"isolated sweep {tag}: the trial did not train on the card: "
+              + "".join(line for line in log.splitlines(True) if "device" in line))
+        m = [json.loads(line) for line in
+             (exp / "metrics.jsonl").read_text().splitlines()]
+        check(len(m) == 1 and math.isfinite(m[0]["train_loss"])
+              and (exp / "last.pt").exists(), f"isolated sweep {tag}: {m}")
+        print(f"tools sweep --isolate_trials {tag}: process {secs:.1f} s "
+              f"(start, load, {CLI_ITERS} iterations, validation, saves); "
+              f"epoch wall {m[0]['epoch_wall_s']:.2f} s, loss "
+              f"{m[0]['train_loss']:.4f}, val CIDEr {r['best']:.4f} ({SMI})")
+    print(f"tools sweep --isolate_trials: {wall:.1f} s for 2 trials ({SMI})")
+
+
+def tools_tpe_sweep(cli, config, data, tmp, root):
+    """(b) the in-process TPE sweep with the median assessor on a subset of
+    phase 10's clips, at full width."""
+    info = json.loads(Path(f"{tmp}/text.json").read_text())["audios"]
+    sub = root / "sub_text.json"
+    sub.write_text(json.dumps({"audios": info[:TOOLS_AUDIOS]}))
+    walls = []
+    undo = _timed_calls(cli, "train", walls)
+    t0 = time.perf_counter()
+    try:
+        res = cli.main(["sweep", config, "--mode=tpe", "--n_trials=3",
+                        "--space={beta: [0.3, 0.5], smoothing: [0.05, 0.1]}",
+                        "--assessor=median", "--assessor_min_trials=1",
+                        "--assessor_min_epochs=1", f"--epochs={TOOLS_EPOCHS}",
+                        *data[:1], f"--caption_file={sub}", *data[2:],
+                        f"--outputpath={root}/tpe"])
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    check(len(res) == 3 and len(walls) == 3, f"tpe sweep: {len(res)} trials")
+    for (tag, r), secs in zip(res.items(), walls):
+        exp = Path(r["exp_dir"])
+        n = len((exp / "metrics.jsonl").read_text().splitlines())
+        stopped = bool(r.get("stopped_early"))
+        check(math.isfinite(r["best"]) and (exp / "last.pt").exists()
+              and (n <= TOOLS_EPOCHS if stopped else n == TOOLS_EPOCHS),
+              f"tpe sweep {tag}: {r}, {n} epochs")
+        if stopped:   # after epoch n's saves
+            check(f"assessor: trial stopped early at epoch {n} "
+                  in (exp / "train_caption.log").read_text(),
+                  f"tpe sweep {tag}: no assessor line for epoch {n} in the log")
+        print(f"tools sweep tpe {tag}: suggested {r['params']}, {secs:.1f} s, "
+              f"{n} epochs, best val CIDEr {r['best']:.4f}, stopped_early "
+              f"{stopped} ({SMI})")
+    print(f"tools sweep tpe: {wall:.1f} s for 3 trials of {TOOLS_AUDIOS} "
+          f"clips ({SMI})")
+
+
+def tools_import(cli, config, tmp, exp, root):
+    """(c) phase 10's best weights as a reference ``.pth`` (``{"model":
+    ...}``, DDP's ``module.`` prefix) through ``cli import_torch``, then
+    ``evaluate --encoder_int8`` of the import and of its source in turns:
+    the same captions and scores, 8 + 3 launches an eval batch (calibration
+    apart).  Returns the launches of the two evaluates."""
+    sd = torch.load(Path(exp) / "best.pt", map_location="cpu",
+                    weights_only=True)["state_dict"]
+    pth = root / "best.pth"
+    torch.save({"model": {"module." + k: v for k, v in sd.items()
+                          if not k.endswith("stem_pad_lanes")}}, pth)
+    t0 = time.perf_counter()
+    counts = cli.main(["import_torch", str(pth), config, f"{root}/imported",
+                       f"{tmp}/vocab.pkl", f"--data_dim={DATA_DIM}"])
+    secs = time.perf_counter() - t0
+    check(counts["params_loaded"] == counts["params_total"]
+          and counts["stats_loaded"] == counts["stats_total"],
+          f"import_torch: {counts}")
+    ours = torch.load(f"{root}/imported/best.pt", map_location="cpu",
+                      weights_only=True)["state_dict"]
+    check(ours.keys() == sd.keys() and all(torch.equal(ours[k], sd[k]) for k in sd),
+          "import_torch: the imported weights differ from the source's")
+    print(f"tools import_torch: {counts} in {secs:.1f} s, every tensor equal "
+          f"to the source's ({SMI})")
+    real, calib = cli.quant_encoder_for, []
+
+    def quant(*a, **k):
+        before = read_counts()
+        q = real(*a, **k)
+        calib.append({n: c - before[n] for n, c in read_counts().items()})
+        return q
+    cli.quant_encoder_for = quant
+    outs, total = {}, dict.fromkeys(kernel_fns(), 0)
+    try:
+        for tag, path in (("imported", f"{root}/imported"), ("source", str(exp))):
+            before = read_counts()
+            t0 = time.perf_counter()
+            scores = cli.main(["evaluate", path, f"--eval_h5_csv={tmp}/mels.csv",
+                               f"--eval_caption_file={tmp}/text.json",
+                               "--encoder_int8", "--tag=tools"])
+            secs = time.perf_counter() - t0
+            got = {k: v - before[k] for k, v in read_counts().items()}
+            total = {k: total[k] + got[k] for k in total}
+            want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES, 0)
+            c = calib[-1]
+            check((got["conv3x3_i8"] - c["conv3x3_i8"],
+                   got["avgpool2x2_i8"] - c["avgpool2x2_i8"],
+                   got["time_warp_1d"]) == want,
+                  f"evaluate {tag}: launches {got} (calibration {c}), "
+                  f"expected {want} in {CLI_EVAL_BATCHES} batches")
+            outs[tag] = [(Path(path) / f"{kind}_beam_3_int8_tools.{ext}").read_text()
+                         for kind, ext in (("eval_output", "json"), ("scores", "txt"))]
+            print(f"tools evaluate --encoder_int8 {tag}: {secs:.2f} s for "
+                  f"{CLI_AUDIOS} clips; CIDEr {scores['CIDEr']:.4f}; launches "
+                  f"{got}, of which calibration {c} ({SMI})")
+    finally:
+        cli.quant_encoder_for = real
+    check(outs["imported"] == outs["source"],
+          "the imported experiment's int8 captions or scores differ from its "
+          "source's")
+    preds = json.loads(outs["source"][0])["predictions"]
+    check(len(preds) == CLI_AUDIOS, f"evaluate: {len(preds)} captions")
+    print(f"tools: the import and its source wrote identical captions "
+          f"({len(preds)}) and scores; first: {preds[0]['caption']!r}")
+    return total
+
+
+def tools_host(cli, tmp, exp, root):
+    """(d) report_results over two seed dirs holding (c)'s scores,
+    split_dataset, concat_json and concat_csv on the corpus files, and tsne
+    (which needs scikit-learn and matplotlib)."""
+    score = "scores_beam_3_int8_tools.txt"
+    t0 = time.perf_counter()
+    for i, src in enumerate((f"{root}/imported", exp)):
+        d = root / "report" / f"seed_{i + 1}"
+        d.mkdir(parents=True)
+        (d / score).write_text((Path(src) / score).read_text())
+    values = cli.main(["report_results", str(root / "report"),
+                       f"--score_file={score}"])
+    check(values and all(len(v) == 2 and v[0] == v[1] for v in values.values())
+          and (root / "report" / f"aggregated_{score}").exists(),
+          f"report_results: {values}")
+    cli.main(["split_dataset", f"{tmp}/text.json", f"{root}/split"])
+    halves = [json.loads(Path(f"{root}/split_{h}.json").read_text())["audios"]
+              for h in ("hard", "easy")]
+    check([len(h) for h in halves] == [CLI_AUDIOS // 2] * 2,
+          f"split_dataset: {[len(h) for h in halves]}")
+    cli.main(["concat_json", f"{root}/split_hard.json", f"{root}/split_easy.json",
+              f"--output={root}/joined.json"])
+    joined = json.loads((root / "joined.json").read_text())["audios"]
+    check(sorted(a["audio_id"] for a in joined)
+          == sorted(a["audio_id"] for a in json.loads(
+              Path(f"{tmp}/text.json").read_text())["audios"]),
+          "concat_json: the halves do not join to the corpus")
+    cli.main(["concat_csv", f"{tmp}/mels.csv", f"{tmp}/mels.csv",
+              f"--output={root}/joined.csv"])
+    lines = (root / "joined.csv").read_text().splitlines()
+    check(lines[0] == "audio_id\thdf5_path" and len(lines) == 1 + 2 * CLI_AUDIOS,
+          f"concat_csv: {len(lines)} lines")
+    rng = np.random.default_rng(5)
+    for a in range(6):
+        d = root / "emb" / f"aud{a}"
+        d.mkdir(parents=True)
+        for i in range(3):
+            np.save(d / f"{i}.npy", rng.normal(size=16).astype(np.float32))
+    try:
+        pngs = cli.main(["tsne", str(root / "emb"),
+                         f"--output_prefix={root}/tsne"])
+        check(len(pngs) == 1 and Path(pngs[0]).exists(), f"tsne: {pngs}")
+        tsne = f"wrote {pngs[0]}"
+    except ImportError as e:
+        check("scikit-learn and matplotlib" in str(e), f"tsne: {e}")
+        tsne = f"refused: {e}"
+    print(f"tools host commands: report_results {dict(values)}; split_dataset "
+          f"{CLI_AUDIOS // 2}/{CLI_AUDIOS // 2}; concat_json {len(joined)} "
+          f"audios; concat_csv {len(lines) - 1} rows; tsne {tsne}; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def tools_doctor(cli):
+    """(e) ``doctor`` on the card: the probe names the card, and the build
+    directory holds the kernels' libraries."""
+    report = cli.main(["doctor"])
+    dev = report["device"]
+    check(report["ok"] and dev["type"] == "cuda" and "H100" in dev["name"]
+          and report["kernel_build"]["entries"] >= 2, f"doctor: {report}")
+    print(f"tools doctor: {dev['name']} x{dev['count']}, torch "
+          f"{report['torch_version']} cuda {report['cuda_runtime']}, first "
+          f"matmul {dev['first_call_s']} s, matmul p50 {dev['matmul_ms_p50']} "
+          f"ms, kernel build {report['kernel_build']}, probe "
+          f"{report['probe_wall_s']} s ({SMI})")
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -3398,6 +3663,7 @@ def main():
                          "decode batch of each serving path and of the int8 "
                          "dbs decode into DIR")
     args = ap.parse_args()
+    t0 = time.perf_counter()
 
     device_phase()
     torch.manual_seed(0)   # the dropouts draw from the global generator
@@ -3422,6 +3688,7 @@ def main():
         by_path["encoders"] = phase("encoders", encoders_phase, tmp)
         by_path["aux"] = phase("aux", aux_phase, tmp, args.profile)
         by_path["export"] = phase("export", export_phase, tmp)
+        by_path["tools"] = phase("tools", tools_phase, tmp, exp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:
@@ -3429,6 +3696,7 @@ def main():
         k["launches_by_path"] = {p: by_path[p][k["name"]] for p in PATHS}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(f"kernel launches by path {by_path}")
+    print(f"chip_smoke: whole script {time.perf_counter() - t0:.1f} s ({SMI})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

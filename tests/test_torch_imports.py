@@ -54,3 +54,31 @@ def test_port_imports_without_a_card():
     for p in SOURCES[:-1]:
         mod = ".".join(p.relative_to(ROOT).with_suffix("").parts)
         importlib.import_module(mod.removesuffix(".__init__"))
+
+
+def test_sweep_advisor_needs_only_numpy():
+    """The sweep's advisors are host code: numpy and the standard library."""
+    path = ROOT / "acvae_tpu_torch" / "train" / "sweep_advisor.py"
+    assert path in SOURCES
+    assert {m.split(".")[0] for m in _imports(path)} <= {
+        "__future__", "math", "typing", "numpy"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["sweep", "configs/ac_vae.yaml", "--param=beta", "--values=0.5"],
+    ["import_torch", "best.pth", "configs/ac_vae.yaml", "out", "vocab.pkl"],
+    ["doctor"]], ids=lambda a: a[0])
+def test_new_commands_refuse_to_start_without_a_card(argv):
+    """sweep, import_torch and doctor compute on the device: they default to
+    the card and, with none, refuse before doing anything."""
+    import torch
+
+    from acvae_tpu_torch.cli import main as cli
+
+    assert argv[0] in cli.ON_DEVICE and argv[0] in cli.COMMANDS
+    assert {"report_results", "split_dataset", "concat_json", "concat_csv",
+            "tsne"} <= set(cli.COMMANDS) - set(cli.ON_DEVICE)
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    with pytest.raises(RuntimeError, match="CUDA card.*--device=cpu"):
+        cli.main(argv)
