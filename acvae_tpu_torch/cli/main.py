@@ -54,14 +54,17 @@ as there: ``kl_anneal``, ``free_bits``, ``global_loss``, ``use_aug_prob``
 configs/adverse.yaml), the five
 optimizers with their ``optimizer_args``, ``freeze_word_embedding``,
 ``model_args.freeze_encoder``, ``accum_steps``, ``ReduceLROnPlateau``, the
-``pretrained*`` warm starts, ``fault_abort_step`` and ``profile_dir`` (a
-torch.profiler trace of the run's first 15 steps).
+``pretrained*`` warm starts, ``fault_abort_step``, ``profile_dir`` (a
+torch.profiler trace of the run's first 15 steps) and ``distributed`` with
+``model_parallel`` and ``sequence_parallel`` (``acvae_tpu_torch/parallel``:
+a worker a visible card, or one rank of a launched job).
 ``evaluate`` writes ``eval_output_<method>_<beam><suffix>.json`` and
 ``scores_<method>_<beam><suffix>.txt`` into the experiment dir; with
 ``--decode_method=dbs`` (``--group_size``, ``--diversity_lambda``,
 ``--temperature``, ``--group_nbest``) every output beam is a candidate, and
 ``--decode_dtype=bfloat16`` decodes with bf16 parameters (suffix
-``_bfloat16``).  ``predict`` writes the DCASE CSV, ``diversity`` scores an
+``_bfloat16``); ``--distributed`` splits each batch over every visible
+card.  ``predict`` writes the DCASE CSV, ``diversity`` scores an
 ``eval_output`` JSON (Div1/Div2/gDiv1, mBLEU, SelfBLEU, Novelty against a
 train corpus), ``ensemble`` decodes with the probability-averaged members
 (``ensemble_scores.txt`` in the first member's dir) and ``human_eval``
@@ -90,6 +93,7 @@ and ``doctor`` checks the device in a bounded probe.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -112,6 +116,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from acvae_tpu_torch import DEFAULT_DEVICE, END_IDX, START_IDX
 from acvae_tpu_torch.core.config import (Config, _coerce, _fix_yaml11_floats,
@@ -131,6 +136,15 @@ from acvae_tpu_torch.losses.wrappers import augment_keep_mask
 from acvae_tpu_torch.models.quant import (DEFAULT_INT8_SCHEME, int8_decode_fn,
                                           quant_encoder_for, scheme_kwargs)
 from acvae_tpu_torch.ops.amp import cast_floats_for_decode, resolve_decode_dtype
+from acvae_tpu_torch.parallel.mesh import (check_vocab_divisible,
+                                           coordination_barrier,
+                                           destroy_process_group,
+                                           init_process_group, launcher_env,
+                                           make_mesh, make_mesh_2d,
+                                           pad_to_multiple, shard_batch,
+                                           world_hosts)
+from acvae_tpu_torch.parallel.pool import RankPool
+from acvae_tpu_torch.parallel.train import eval_model
 from acvae_tpu_torch.train.checkpoints import (
     average_checkpoints as _average_checkpoints, criterion_improver,
     load_experiment, read_ckpt_steps, remove_checkpoint, resume_newest,
@@ -150,30 +164,13 @@ DEFAULTS = dict(
     **RATIO_DEFAULTS,   # beta, ss_args, dis_ration
 )
 
-# train config keys of later ROADMAP items: setting one raises, naming it
-# (max_inflight_steps, a lever of the TPU's asynchronous dispatch, is read
-# and ignored; so is decode_dtype, which no train reads)
-LATER_KEYS = {
-    "distributed": "A19", "model_parallel": "A19", "sequence_parallel": "A19",
-}
+# max_inflight_steps, a lever of the TPU's asynchronous dispatch, is read
+# and ignored by ``train``; so is decode_dtype, which no train reads.
 # the metrics averaged over an epoch into metrics.jsonl
 DIAG_KEYS = ("kl", "kl_raw", "active_units", "kl_dim_max", "qp_mse",
              "grad_norm")
 # a profile_dir trace covers this many steps (or the first epoch if shorter)
 PROFILE_STEPS = 15
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP {item})")
-
-
-def _refuse_later_items(conf: Dict[str, Any]) -> None:
-    check_free_bits(conf)
-    for key, item in LATER_KEYS.items():
-        value = conf.get(key)
-        if value not in (None, False, 0, "", {}, []) and not (
-                key == "model_parallel" and value == 1):
-            _later(f"config key {key!r}", item)
 
 
 def _upload_dtype(conf: Dict[str, Any]) -> Optional[torch.dtype]:
@@ -290,7 +287,10 @@ def _to_device(batch, device: torch.device,
                                cap_embeds=embeds)
 
 
-def _build_dataloaders(conf: Config, vocab: Vocabulary):
+def _build_dataloaders(conf: Config, vocab: Vocabulary,
+                       host: Tuple[int, int] = (0, 1)):
+    """The train and validation datasets and loaders; ``host`` = (id,
+    count) shards the train loader over a launched job's processes."""
     zh = conf.get("zh", False)
     if "train_h5_csv" in conf:
         train_src = _feature_source(conf["train_h5_csv"])
@@ -309,7 +309,8 @@ def _build_dataloaders(conf: Config, vocab: Vocabulary):
                               embedding_scaler=conf.get("embedding_scaler", False))
     val_ds = CaptionDataset(**val_src, caption_info=val_info, vocabulary=vocab)
     bs = conf.get("dataloader_args", {}).get("batch_size", conf["batch_size"])
-    train_loader = CaptionLoader(train_ds, bs, shuffle=True, seed=conf["seed"])
+    train_loader = CaptionLoader(train_ds, bs, shuffle=True, seed=conf["seed"],
+                                 host_id=host[0], host_count=host[1])
     val_loader = CaptionLoader(val_ds, bs, shuffle=False)
     return train_ds, val_ds, train_loader, val_loader
 
@@ -371,26 +372,140 @@ _TRIAL_ASSESSOR = None
 # ---------------------------------------------------------------------- #
 def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     """Train the recipe in ``config`` (``--key=value`` overrides); returns
-    the experiment dir."""
+    the experiment dir.  ``distributed: true`` trains data-parallel
+    (``model_parallel``, ``sequence_parallel``): under a launcher
+    (``coordinator_address``/``num_processes``/``process_id``, or torchrun's,
+    Slurm's or Open MPI's environment) this process is one rank of the
+    job; otherwise a worker a visible card, or one unsharded process on a
+    single device."""
     conf = Config(copy.deepcopy(DEFAULTS))
     conf.update(load_config(config, **kwargs))
-    _refuse_later_items(conf)
-    feats_dtype = _upload_dtype(conf)
+    check_free_bits(conf)
+    _upload_dtype(conf)
     device = _device(device)
+    if not conf.get("distributed"):
+        return _train(conf, device)
+    keys = {k: conf[k] for k in ("coordinator_address", "num_processes",
+                                 "process_id") if k in conf}
+    env = launcher_env()
+    if int(keys.get("num_processes", 1)) > 1 or "coordinator_address" in keys \
+            or env:
+        # a multi-process launch is intended: a failed init raises, so that
+        # no worker trains alone (acvae_tpu/cli/main.py:285-308)
+        world = int(keys.get("num_processes", env.get("world", 1)))
+        rank = int(keys.get("process_id", env.get("rank", 0)))
+        if device.type == "cuda":
+            local = _local_rank(rank)
+            if local >= torch.cuda.device_count():
+                raise ValueError(f"rank {rank} needs card {local}; "
+                                 f"{torch.cuda.device_count()} visible")
+            device = torch.device("cuda", local)
+            torch.cuda.set_device(device)
+        init_process_group("nccl" if device.type == "cuda" else "gloo", world,
+                           rank, keys.get("coordinator_address"), hosts=world)
+        try:
+            return _train(conf, device, distributed=True)
+        finally:
+            destroy_process_group()
+    devices = _local_devices(device)
+    if len(devices) == 1:
+        return _train(conf, device, distributed=True)
+    # one JAX process with D local devices: a worker a device; a worker's
+    # failure ends the others and raises here
+    with RankPool("nccl" if device.type == "cuda" else "gloo",
+                  [str(d) for d in devices]) as pool:
+        return pool.run(_train_rank, config, kwargs)[0]
+
+
+def _local_devices(device: torch.device) -> List[torch.device]:
+    """The devices one process drives: every visible card, or the CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _train_rank(config: str, kwargs: Dict[str, Any], device: str) -> str:
+    """A rank of the workers ``train`` starts (``RankPool``), one a device."""
+    conf = Config(copy.deepcopy(DEFAULTS))
+    conf.update(load_config(config, **kwargs))
+    return _train(conf, torch.device(device), distributed=True)
+
+
+def _local_rank(rank: int) -> int:
+    """This process's card under a launcher: the node-local rank that
+    torchrun, Slurm or Open MPI set, else the rank modulo the cards
+    visible."""
+    for name in ("LOCAL_RANK", "SLURM_LOCALID", "OMPI_COMM_WORLD_LOCAL_RANK"):
+        if os.environ.get(name) is not None:
+            return int(os.environ[name])
+    return rank % torch.cuda.device_count()
+
+
+def _parallel_grid(conf: Dict[str, Any], vocab_size: int, buckets, logger):
+    """The grid of a ``distributed`` run, with the JAX CLI's log lines and
+    fallbacks (acvae_tpu/cli/main.py:337-392); None when it runs
+    unsharded."""
+    if not dist.is_initialized():
+        logger.info("distributed=true with a single device: running unsharded")
+        return None
+    world, hosts = dist.get_world_size(), world_hosts()
+    per_host = world // hosts
+    mp = int(conf.get("model_parallel", 1) or 1)
+    if mp > 1 and (world % mp or per_host % mp
+                   or not check_vocab_divisible(vocab_size, mp)):
+        why = (f"does not divide the device counts ({world} global, "
+               f"{per_host} per host)" if (world % mp or per_host % mp) else
+               f"needs a vocab divisible by {mp} (got {vocab_size}; rebuild "
+               f"with `build_vocab --pad_to_multiple={mp}`)")
+        logger.warning(f"model_parallel={mp} {why}; falling back to pure data "
+                       f"parallelism")
+        mp = 1
+    if mp == 1:
+        grid = make_mesh()
+        logger.info(f"data-parallel mesh: {grid.shape()}")
+        return grid
+    grid = make_mesh_2d(mp)
+    logger.info(f"data-parallel mesh: {grid.shape()} (vocab-dim params split "
+                f"over 'model')")
+    if conf.get("sequence_parallel"):
+        if all(b % mp == 0 for b in buckets):
+            grid.seq = True
+            logger.info("sequence parallelism: mel time sharded over 'model'")
+        else:
+            logger.warning(f"sequence_parallel: a mel bucket is not divisible "
+                           f"by model_parallel={mp}; disabled")
+    return grid
+
+
+last_train_loss: Optional[float] = None   # the last epoch's, of any rank
+
+
+def _train(conf: Config, device: torch.device, distributed: bool = False) -> str:
+    global last_train_loss
     seed = conf["seed"]
+    primary = not dist.is_initialized() or dist.get_rank() == 0
+    if dist.is_initialized() and device.type == "cpu":
+        # the host's cores shared among its ranks: more threads than cores
+        # make every collective wait on the slowest spinning rank
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
 
     outputdir = _experiment_dir(conf)
     outputdir.mkdir(parents=True, exist_ok=True)
-    logger = _setup_logger(str(outputdir / "train_caption.log"))
+    # rank 0 alone writes the log file, metrics, config and checkpoints
+    logger = _setup_logger(str(outputdir / "train_caption.log")
+                           if primary else None)
     logger.info(f"Storing files in: {outputdir}")
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                        if device.type == "cuda" else ""))
 
     vocab = Vocabulary.load(conf["vocab_file"])
-    train_ds, _, train_loader, val_loader = _build_dataloaders(conf, vocab)
+    hosts = world_hosts() if dist.is_initialized() else 1
+    train_ds, _, train_loader, val_loader = _build_dataloaders(
+        conf, vocab, host=(dist.get_rank() if hosts > 1 else 0, hosts))
     conf["data_dim"] = train_ds.data_dim
     total_iters = len(train_loader) * conf["epochs"]
     conf["total_iters"] = total_iters
@@ -398,6 +513,15 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     trainer = Trainer(conf, len(vocab), train_ds.data_dim, device=device,
                       total_iters=total_iters, vocab=vocab)
     apply_pretrained(conf, trainer.model, logger.info)
+    grid = (_parallel_grid(conf, len(vocab), train_loader.buckets, logger)
+            if distributed else None)
+    if grid is not None:
+        trainer.distribute(grid)
+        if grid.seq and not trainer.parallel.seq_params:
+            logger.info(f"sequence parallelism: {conf.get('encodermodel')} "
+                        f"runs on whole clips (the port splits Cnn10's time)")
+        # the dropouts: rows of other data ranks draw masks of their own
+        torch.manual_seed(seed + 1_000_003 * grid.d)
     if trainer.adversarial is not None:
         logger.info(f"adverse_loss: discriminator from "
                     f"{conf['adverse_loss']['discriminator']} "
@@ -427,17 +551,20 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                             if skip_batches else ""))
     n_params = sum(p.numel() for p in trainer.model.parameters())
     logger.info(f"{n_params} parameters in total")
-    (outputdir / "config.json").write_text(json.dumps(conf, indent=1))
+    if primary:
+        (outputdir / "config.json").write_text(json.dumps(conf, indent=1))
     improved = criterion_improver(conf["improvecriterion"],
                                   initial=resume_meta.get("best_score"))
-    stage = partial(_to_device, device=device, feats_dtype=feats_dtype)
+    stage = partial(_to_device, device=device, feats_dtype=_upload_dtype(conf))
     ckpt_every = int(conf.get("checkpoint_every_steps", 0) or 0)
     fault_step = int(conf.get("fault_abort_step", 0) or 0)
-    profile_dir, profile_start, prof = conf.get("profile_dir"), None, None
+    profile_dir = conf.get("profile_dir") if primary else None
+    profile_start, prof, val_cache = None, None, {}
     logger.info("{:^10}\t{:^10}\t{:^10}".format("Epoch", "Train loss",
                                                  "Val score"))
     try:
-        with open(outputdir / "metrics.jsonl", "a") as metrics_log:
+        with (open(outputdir / "metrics.jsonl", "a") if primary
+              else contextlib.nullcontext()) as metrics_log:
             for epoch in range(start_epoch, conf["epochs"] + 1):
                 epoch_t0 = time.perf_counter()
                 train_loader.set_epoch(epoch)
@@ -458,6 +585,11 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                             batch.cap_ids, aug_prob, np.random.default_rng(
                                 (seed + 9) * 1_000_003 + iteration)
                         ).astype(np.float32)
+                    if grid is not None:
+                        # this host's rows padded to its data ranks; this
+                        # rank's share of them
+                        arrays = shard_batch(pad_to_multiple(
+                            arrays, grid.local_data), grid)
                     m = trainer.step(arrays, iteration, epoch)
                     if prof is not None and iteration >= (profile_start
                                                           + PROFILE_STEPS - 1):
@@ -471,9 +603,13 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                         # two alternating slots: the save in progress never
                         # destroys the only snapshot
                         slot = f"step_{(iteration // ckpt_every) % 2}"
-                        save_checkpoint(str(outputdir), slot, trainer, iteration)
-                        write_ckpt_step(str(outputdir), slot, iteration)
+                        save_checkpoint(str(outputdir), slot, trainer, iteration,
+                                        write=primary)
+                        if primary:
+                            write_ckpt_step(str(outputdir), slot, iteration)
                     if fault_step and iteration >= fault_step:
+                        # every rank stops here: none is left in a collective
+                        coordination_barrier()
                         raise SystemExit(f"fault_abort_step: injected failure "
                                          f"at step {iteration}")
                 if prof is not None:   # a first epoch shorter than the window
@@ -483,8 +619,10 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                              if losses else np.zeros(0))
                 ntok = (torch.stack(ntokens).double().cpu().numpy()
                         if ntokens else np.zeros(0))
-                score = _validate(trainer.model, val_loader, vocab, val_key2refs,
-                                  device, seed, epoch)
+                # every rank scores the whole validation set, so the
+                # improver and the plateau stay in step
+                score = _validate(eval_model(trainer, val_cache), val_loader,
+                                  vocab, val_key2refs, device, seed, epoch)
                 if plateau is not None:
                     before = plateau.scale
                     trainer.optimizer.lr_scale = plateau.step(score)
@@ -492,31 +630,34 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
                         logger.info(f"ReduceLROnPlateau: lr scale -> "
                                     f"{plateau.scale:.3g}")
                 train_loss = float(np.sum(loss_vals * ntok) / max(np.sum(ntok), 1))
+                last_train_loss = train_loss
                 logger.info(f"{epoch:^10}\t{train_loss:^10.3g}\t{score:^10.3g}")
                 diag_means = {k: float(np.mean(torch.stack(v).float().cpu().numpy()))
                               for k, v in diags.items()}
-                metrics_log.write(json.dumps(
-                    {"epoch": epoch, "train_loss": train_loss, "val_cider": score,
-                     "ss_ratio": ratios["ss_ratio"],
-                     "kl_weight": ratios["kl_weight"],
-                     "dis_ratio": ratios["dis_ratio"],
-                     **{k: round(v, 5) for k, v in diag_means.items()},
-                     # the train loop and the validation decode; the
-                     # checkpoint saves come after
-                     "epoch_wall_s": round(time.perf_counter() - epoch_t0, 2)})
-                    + "\n")
-                metrics_log.flush()
+                if primary:
+                    metrics_log.write(json.dumps(
+                        {"epoch": epoch, "train_loss": train_loss,
+                         "val_cider": score, "ss_ratio": ratios["ss_ratio"],
+                         "kl_weight": ratios["kl_weight"],
+                         "dis_ratio": ratios["dis_ratio"],
+                         **{k: round(v, 5) for k, v in diag_means.items()},
+                         # the train loop and the validation decode; the
+                         # checkpoint saves come after
+                         "epoch_wall_s": round(time.perf_counter() - epoch_t0,
+                                               2)}) + "\n")
+                    metrics_log.flush()
                 if improved(score):
                     save_checkpoint(str(outputdir), "best", trainer, iteration,
-                                    vocab, conf)
+                                    vocab, conf, write=primary)
                 save_checkpoint(str(outputdir), "last", trainer, iteration, vocab,
-                                conf)
-                extra = {"best_score": improved.best}
-                if plateau is not None:
-                    extra.update(plateau.state())
-                write_ckpt_step(str(outputdir), "last", iteration, **extra)
-                for stale in ("step_0", "step_1", "step"):  # superseded by last
-                    remove_checkpoint(str(outputdir), stale)
+                                conf, write=primary)
+                if primary:
+                    extra = {"best_score": improved.best}
+                    if plateau is not None:
+                        extra.update(plateau.state())
+                    write_ckpt_step(str(outputdir), "last", iteration, **extra)
+                    for stale in ("step_0", "step_1", "step"):  # superseded
+                        remove_checkpoint(str(outputdir), stale)
                 if _TRIAL_ASSESSOR is not None and _TRIAL_ASSESSOR.assess(score):
                     # the sweep's median rule: this trial's best score is
                     # below the completed trials' at this epoch
@@ -526,6 +667,7 @@ def train(config: str, device=DEFAULT_DEVICE, **kwargs) -> str:
     finally:
         if prof is not None:
             _stop_trace(prof, device)
+    coordination_barrier()
     return str(outputdir)
 
 
@@ -552,13 +694,21 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
     ``int8_scheme``, calibrated on the first eval batch (its precision is
     its own: ``decode_dtype`` then only names the files, as in the JAX
     package).  ``decode_dtype=bfloat16`` decodes with the parameters cast
-    (``ops/amp.py``).  ``tag`` suffixes the output files' names.  Returns
-    the scores."""
+    (``ops/amp.py``).  ``tag`` suffixes the output files' names.
+    ``distributed`` splits each batch over every visible card (a replica
+    of the decode on each, :class:`ShardedDecode`), with the captions of
+    the unsplit decode.  Returns the scores."""
     decode_method = _method_alias(decode_kwargs.pop("method", None),
                                   decode_method)
-    if distributed:
-        _later("evaluate --distributed", "A19")
     device = _device(device)
+    devices = [device]
+    if distributed:
+        if launcher_env() or (dist.is_initialized()
+                              and dist.get_world_size() > 1):
+            raise ValueError("evaluate --distributed is single-process "
+                             "(all local devices); run it outside the "
+                             "multi-process training job")
+        devices = _local_devices(device)
     exp = Path(experiment_path)
     conf, vocab, model = load_experiment(str(exp), checkpoint, device=device)
     manifest = eval_h5_csv or conf.get("val_h5_csv") or conf["h5_csv"]
@@ -577,10 +727,18 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
         cb = _to_device(next(iter(loader)), device)
         quant = quant_encoder_for(conf, model, calib=(cb.feats, cb.feat_lens),
                                   **scheme_kwargs(int8_scheme))
-        decode = partial(int8_decode_fn(model, quant, **kw), generator=gen)
+        decode = int8_decode_fn(model, quant, **kw)
+        if len(devices) > 1:
+            decode = ShardedDecode(devices, lambda d: int8_decode_fn(
+                copy.deepcopy(model).to(d), copy.deepcopy(quant).to(d), **kw))
     else:
         decode = partial(_decode_model(model, decode_dtype).inference_forward,
-                         generator=gen, **kw)
+                         **kw)
+        if len(devices) > 1:
+            decode = ShardedDecode(devices, lambda d: partial(_decode_model(
+                copy.deepcopy(model).to(d), decode_dtype).inference_forward,
+                **kw))
+    decode = partial(decode, generator=gen)
     dbs = decode_method == "dbs"
     key2pred: Dict[str, List[str]] = {}
     for aid, cap in _decode_loader(decode, loader, vocab, device,
@@ -610,6 +768,46 @@ def evaluate(experiment_path: str, eval_h5_csv: Optional[str] = None,
                             zh=conf.get("zh", False))
     _write_scores(scores, exp / f"scores_{decode_method}_{beam_size}{suffix}.txt")
     return scores
+
+
+class ShardedDecode:
+    """A decode split over ``devices`` (``evaluate --distributed``): the
+    batch padded to a multiple of them (``pad_to_multiple``), a shard a
+    device decoded by ``make(device)``'s replica in a thread of its own,
+    the pad rows dropped.  Each shard reads its rows of the noise the
+    unsplit decode draws (``parallel/state.py``'s ``row_shard``), from a
+    copy of the generator's state, so the captions are the unsplit
+    decode's; the generator then stands where the unsplit decode leaves
+    it."""
+
+    def __init__(self, devices: List[torch.device], make: Callable):
+        self.devices = devices
+        self.decodes = [make(d) for d in devices]
+
+    def __call__(self, feats: torch.Tensor, lens: torch.Tensor,
+                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        import concurrent.futures
+        from acvae_tpu_torch.parallel.state import row_shard
+        n, D = feats.shape[0], len(self.devices)
+        padded = pad_to_multiple({"feats": feats, "lens": lens}, D)
+        per = padded["lens"].shape[0] // D
+        start = generator.get_state()
+
+        def shard(i):
+            dev = self.devices[i]
+            g = torch.Generator(generator.device).set_state(start)
+            sl = slice(i * per, (i + 1) * per)
+            with row_shard(per, n, i * per), (torch.cuda.device(dev)
+                                              if dev.type == "cuda" else
+                                              contextlib.nullcontext()):
+                out = self.decodes[i](padded["feats"][sl].to(dev),
+                                      padded["lens"][sl].to(dev), generator=g)
+            return out["seqs"].to(feats.device), g.get_state()
+
+        with concurrent.futures.ThreadPoolExecutor(D) as pool:
+            outs = list(pool.map(shard, range(D)))
+        generator.set_state(outs[0][1])
+        return {"seqs": torch.cat([s for s, _ in outs])[:n]}
 
 
 def _decode_model(model, decode_dtype: Optional[str]):

@@ -12,6 +12,11 @@ log-mel features + captions -> padded batches.
   any other path is HDF5 and needs h5py, imported at its first read.
 * ``CaptionLoader.prefetch`` collates in a producer thread; its ``stage``
   hook runs there too (the CLI's moves each batch to the device).
+* ``CaptionLoader(host_id, host_count)`` shards the pipeline over hosts
+  (the processes of a launched ``distributed`` run): the epoch's global
+  permutation is padded to a ``host_count`` multiple, each host takes its
+  stride of it, and every host picks each batch's bucket from the longest
+  clip of all hosts' rows, so the shards join into one global batch.
 * With ``embedding_path``, each caption also carries its sentence embedding
   ``<embedding_path>/<audio_id>/<cap_idx>.npy`` (caption_dataset.py:105-110),
   standardized by a mean/std fit over the dataset's embeddings with
@@ -98,6 +103,7 @@ class CaptionDataset:
         self._caption_info = caption_info or []
         self._vocabulary = vocabulary
         self._stores: Dict[str, object] = {}
+        self._lens: Dict[str, int] = {}
         self._lock = threading.Lock()
         self.max_cap_len = max_cap_len
         self._embedding_path = embedding_path
@@ -131,6 +137,14 @@ class CaptionDataset:
             store = self._stores[path]
         return np.asarray(store[audio_id]).squeeze()
 
+    def feat_len(self, pair_idx: int) -> int:
+        """The mel frame count of a pair's clip (cached), for a bucket
+        every host agrees on."""
+        audio_id = self._caption_info[self.pairs[pair_idx][0]]["audio_id"]
+        if audio_id not in self._lens:
+            self._lens[audio_id] = self._load_feature(audio_id).shape[0]
+        return self._lens[audio_id]
+
     def _emb_file(self, audio_id: str, cap_idx: int) -> str:
         return os.path.join(self._embedding_path, audio_id, f"{cap_idx}.npy")
 
@@ -163,15 +177,21 @@ class CaptionDataset:
 class CaptionLoader:
     """Batches a :class:`CaptionDataset`: per-epoch shuffle, time buckets,
     ``drop_last``; ``prefetch(skip_batches=k)`` resumes an epoch at batch k
-    without reading the batches before it."""
+    without reading the batches before it.  ``host_id``/``host_count``
+    take this host's stride of the corpus (acvae_tpu/data/dataset.py:
+    184-238)."""
 
     def __init__(self, dataset: CaptionDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 drop_last: bool = False, host_count: int = 1):
-        if host_count > 1:
-            raise NotImplementedError("host-sharded loading (host_count > 1) "
-                                      "is not ported (ROADMAP A19)")
+                 drop_last: bool = False, host_id: int = 0,
+                 host_count: int = 1):
+        if host_count > 1 and getattr(dataset, "_transform", None):
+            raise ValueError(
+                "CaptionLoader(host_count>1) does not support CPU-side "
+                "dataset transforms (bucket choice uses HDF5 shape "
+                "metadata); use the on-device augment pipeline instead")
+        self.host_id, self.host_count = host_id, host_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -181,7 +201,7 @@ class CaptionLoader:
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = (len(self.dataset) + self.host_count - 1) // self.host_count
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -193,16 +213,20 @@ class CaptionLoader:
         return self.dataset.refs()
 
     def _order(self) -> np.ndarray:
+        """The epoch's global permutation, padded to a ``host_count``
+        multiple with its first pairs."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return idx
+        pad = (-len(idx)) % self.host_count
+        return np.concatenate([idx, idx[:pad]]) if pad else idx
 
     def __iter__(self) -> Iterator[Batch]:
         return self._iter_batches(0)
 
     def _iter_batches(self, skip_batches: int = 0) -> Iterator[Batch]:
-        idx = self._order()
+        perm = self._order()
+        idx = perm[self.host_id::self.host_count]
         L = self.dataset.max_cap_len
         for start in range(skip_batches * self.batch_size, len(idx),
                            self.batch_size):
@@ -210,8 +234,13 @@ class CaptionLoader:
             if self.drop_last and len(chunk) < self.batch_size:
                 break
             items = [self.dataset.get(int(i)) for i in chunk]
-            bucket = pick_bucket(max(f.shape[0] for _, f, _, _ in items),
-                                 self.buckets)
+            longest = max(f.shape[0] for _, f, _, _ in items)
+            if self.host_count > 1:   # the longest clip of every host's rows
+                longest = max(self.dataset.feat_len(int(i)) for h in
+                              range(self.host_count) for i in
+                              perm[h::self.host_count][start:start
+                                                       + self.batch_size])
+            bucket = pick_bucket(longest, self.buckets)
             N, F = len(items), items[0][1].shape[1]
             feats = np.zeros((N, bucket, F), np.float32)
             feat_lens = np.zeros((N,), np.int32)

@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from acvae_tpu_torch import END_IDX, START_IDX
+from acvae_tpu_torch.parallel import state as pstate
 from acvae_tpu_torch.decoding.beam import (BeamConfig, StepFn, _leaf_device,
                                            batched_beam_search)
 
@@ -100,9 +101,9 @@ def ensemble_decode(members: List[Any], feats: torch.Tensor,
     with torch.inference_mode():
         for m, model in enumerate(members):
             ctx = model.decode_ctx(model.encode(feats, feat_lens, train=False))
-            e = (eps[m] if eps is not None else torch.randn(
-                (max_length, NB, model.decoder.embed_size), generator=generator,
-                device=dev)).to(dev)
+            e = (eps[m] if eps is not None else pstate.randn(
+                (max_length, NB, model.decoder.embed_size), generator, dev,
+                row_axis=1)).to(dev)
 
             def fn(state, words, t, model=model, ctx=ctx, e=e):
                 return model.decode_step_api(ctx, state, words, e[t])

@@ -12,11 +12,14 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from acvae_tpu_torch.parallel import state as pstate
+from acvae_tpu_torch.parallel.vocab import vocab_argmax
+
 
 def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
                  device=None) -> torch.Tensor:
     """Standard Gumbel draws, ``-log(-log(u))`` with u in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device)
+    u = pstate.rand(shape, generator, device)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
 
@@ -32,7 +35,12 @@ def sample_next_word(logits: torch.Tensor, method: str = "greedy",
     * ``sample``: the categorical over ``logprobs / temp``, drawn as the
       argmax of ``logprobs / temp + g`` (word_model.py:198-203).
 
-    The log-softmax is in float32; ties go to the first index."""
+    The log-softmax is in float32; ties go to the first index.  In a
+    vocab-split train step ``logits`` is this rank's vocab shard and the
+    greedy word the global argmax (``parallel/vocab.py``)."""
+    st = pstate.active()
+    if st is not None and st.vocab_logits and method == "greedy":
+        return vocab_argmax(logits, st.grid)
     logprobs = F.log_softmax(logits.float(), dim=-1)
     if method == "greedy":
         w = torch.argmax(logprobs, dim=-1)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from acvae_tpu_torch.decoding.sampling import gumbel_noise
 from acvae_tpu_torch.ops.losses import _target_logp, cross_entropy, normal_kl_loss
 from acvae_tpu_torch.ops.masked import length_mask, mean_with_lens
+from acvae_tpu_torch.parallel import state as pstate
 
 
 def _reduce(per: torch.Tensor, mask: torch.Tensor, reduction: str):
@@ -78,7 +79,7 @@ def augment_loss(logits: torch.Tensor, targets: torch.Tensor,
            masked_cross_entropy(logits, targets, lens, "none"))
     keep = keep_mask.to(per.dtype)[:, None]
     mask = length_mask(lens, targets.shape[1]).to(per.dtype) * keep
-    return (per * keep).sum() / (mask.sum() + eps)
+    return (per * keep).sum() / (pstate.global_count(mask) + eps)
 
 
 def _straight_through(y: torch.Tensor) -> torch.Tensor:
@@ -108,8 +109,8 @@ def bce_logits_loss(probs: torch.Tensor, targets: torch.Tensor,
     """Mean BCE of probabilities clamped to [1e-7, 1 - 1e-7]
     (loss.py:258-277)."""
     p = torch.clamp(probs, 1e-7, 1 - 1e-7)
-    return torch.mean(-(pos_weight * targets * torch.log(p)
-                        + (1 - targets) * torch.log(1 - p)))
+    return pstate.batch_mean(-(pos_weight * targets * torch.log(p)
+                               + (1 - targets) * torch.log(1 - p)))
 
 
 def _sample_preds(logits: torch.Tensor, sample_method: str,

@@ -12,6 +12,7 @@ import torch.nn as nn
 
 from acvae_tpu_torch import END_IDX, MAX_LENGTH, START_IDX
 from acvae_tpu_torch.ops.amp import promoted_linear
+from acvae_tpu_torch.parallel import state as pstate
 
 DECODE_METHODS = ("greedy", "gumbel", "sample", "beam", "dbs")
 
@@ -41,8 +42,8 @@ def eps_stack(steps: int, rows: int, dim: int,
     """[steps, rows, dim] standard normals: one prior-noise slab per step,
     drawn in float32 and then cast, so a bf16 decode sees the same draws
     rounded."""
-    return torch.randn((steps, rows, dim), generator=generator,
-                       device=device).to(dtype)
+    return pstate.randn((steps, rows, dim), generator, device,
+                       row_axis=1).to(dtype)
 
 
 def stack_steps(ys: Dict[str, list]) -> Dict[str, torch.Tensor]:

@@ -33,13 +33,24 @@ With ``dtype=torch.bfloat16`` the convs (and the BatchNorms the JAX
 package gives the block dtype) run in bf16 while parameters and
 statistics stay float32, as flax does with a module dtype.  The pooled
 embeddings use length-masked mean/max, as in JAX.
+
+In a parallel train step (``parallel/state.py``) a train-mode BatchNorm
+takes the global batch's statistics: its two sums per channel are
+all-reduced, with their gradient.  Under sequence parallelism Cnn10 runs on
+its rank's slice of mel time (:meth:`Cnn10.seq_split_ok`): each 3×3 conv
+reads one frame a side from the neighbour shards (zeros at the outer
+edges, as SAME padding gives), the pools halve each shard, the head masks
+each shard at its global frame offset and reduces across shards, and
+``audio_embeds`` is gathered over time.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -47,6 +58,11 @@ from acvae_tpu_torch.models.decoders import MultiheadAttention, sinusoidal_pe
 from acvae_tpu_torch.models.rnn import GRU
 from acvae_tpu_torch.ops.amp import promoted_linear
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
+from acvae_tpu_torch.parallel import state as pstate
+from acvae_tpu_torch.parallel.collectives import (all_reduce_sum,
+                                                  gather_replicated,
+                                                  halo_exchange,
+                                                  reduce_to_replicated)
 
 STEM_LANE_PAD = 2  # the JAX stem conv's input lanes (zero-padded from 1)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -102,6 +118,11 @@ def _conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype, stride: int = 1,
     """``conv`` on ``x`` [N, C, T, F] with input and weights in ``dtype``
     (flax's ``nn.Conv(dtype=...)``)."""
     bias = None if conv.bias is None else conv.bias.to(dtype)
+    st = pstate.active()
+    if st is not None and st.in_split and padding == 1 and stride == 1:
+        # time split over the model axis: the neighbours' edge frames pad
+        prev, nxt = halo_exchange(x, 2, st.grid.model_group)
+        x, padding = torch.cat([prev, x, nxt], dim=2), (0, 1)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride, padding)
 
 
@@ -158,8 +179,18 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             red = [d for d in range(x.ndim) if d != axis]
-            mean = xf.mean(dim=red)
-            var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
+            group = pstate.bn_group()
+            if group is None:
+                mean = xf.mean(dim=red)
+                var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean,
+                                      0.0)
+            else:   # the global batch's: two all-reduced sums a channel
+                sums = all_reduce_sum(torch.stack([xf.sum(dim=red),
+                                                   (xf * xf).sum(dim=red)]),
+                                      group)
+                count = xf.numel() // xf.shape[axis] * dist.get_world_size(group)
+                mean = sums[0] / count
+                var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -219,9 +250,28 @@ class _PannEncoder(nn.Module):
         return F.dropout(x, self.conv_dropout, train)
 
     def _head(self, x: torch.Tensor, lens: torch.Tensor, fc: nn.Linear,
-              train: bool) -> Dict[str, torch.Tensor]:
+              train: bool, split=None) -> Dict[str, torch.Tensor]:
+        """The pooled head; ``split`` = (group, index) when ``x`` holds the
+        index-th slice of time over the group (sequence parallelism): each
+        slice masked at its global offset, the pools reduced over the
+        group, ``audio_embeds`` gathered."""
         x = x.mean(dim=3).transpose(1, 2)             # [N, T', C]
-        pooled = max_with_lens(x, lens) + mean_with_lens(x, lens)
+        if split is None:
+            pooled = max_with_lens(x, lens) + mean_with_lens(x, lens)
+        else:
+            group, index = split
+            Tl = x.shape[1]
+            local = torch.clamp(lens - index * Tl, 0, Tl)
+            mask = length_mask(local, Tl)[..., None]
+            total = reduce_to_replicated(torch.sum(x.float() * mask, dim=1),
+                                         group)
+            mean = (total.to(x.dtype)
+                    / torch.clamp_min(lens.to(x.dtype), 1.0)[:, None])
+            mx = torch.amax(x.masked_fill(~mask, torch.finfo(x.dtype).min),
+                            dim=1)
+            pooled = torch.amax(gather_replicated(mx[None], 0, group),
+                                dim=0) + mean
+            x = gather_replicated(x, 1, group)
         pooled = F.dropout(pooled.float(), self.head_dropout, train)
         pooled = F.relu(promoted_linear(pooled, fc))
         pooled = F.dropout(pooled, self.head_dropout, train)
@@ -253,10 +303,26 @@ class Cnn10(_PannEncoder):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = self._stage_mel(feats, train)
-        for blk in self.blocks:
-            x = self._drop(blk(x, train), train)
-        return self._head(x, feat_lens // 16, self.embed_pooled, train)
+        st = pstate.active()
+        split = st is not None and st.seq_split   # feats: this rank's time
+        with pstate.split_region() if split else contextlib.nullcontext():
+            x = self._stage_mel(feats, train)
+            for blk in self.blocks:
+                x = self._drop(blk(x, train), train)
+        return self._head(x, feat_lens // 16, self.embed_pooled, train,
+                          (st.grid.model_group, st.grid.m) if split else None)
+
+    # sequence parallelism: feats hold this rank's slice of mel time
+    @staticmethod
+    def seq_split_ok(T: int, model: int) -> bool:
+        """Whether T frames split over ``model`` shards whose 4 pools stay
+        within each shard."""
+        return T % (16 * model) == 0
+
+    def seq_split_params(self):
+        """The parameters the time shards compute partial gradients of."""
+        head = {id(p) for p in self.embed_pooled.parameters()}
+        return [p for p in self.parameters() if id(p) not in head]
 
 
 @register("Cnn14")

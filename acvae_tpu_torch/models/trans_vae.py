@@ -34,6 +34,7 @@ from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            eps_stack, forced_logprob,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask
+from acvae_tpu_torch.parallel import state as pstate
 
 
 class TransVAECaptionModel(CaptionModel):
@@ -92,7 +93,7 @@ class TransVAECaptionModel(CaptionModel):
         enc_mem, lens, enc_mask, p_proj = self._prep(encoded)
         q_eps = noise.get("q_eps")
         if q_eps is None:
-            q_eps = torch.randn((N, T, E), generator=generator, device=dev)
+            q_eps = pstate.randn((N, T, E), generator, dev)
         with record_function("posterior"):
             qnetout = self.qnet(caps, cap_lens, q_eps.to(dev, dt))
         ss_coins = noise.get("ss_coins")

@@ -53,6 +53,7 @@ from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            eps_stack, forced_logprob,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
+from acvae_tpu_torch.parallel import state as pstate
 
 # the eval prior's scale, e^{0.5·1} (vae_model.py:593-595), in float32
 EVAL_Z_SCALE = float(torch.exp(torch.tensor(0.5)))
@@ -112,7 +113,7 @@ class VAECaptionModel(CaptionModel):
 
         q_eps = noise.get("q_eps")
         if q_eps is None:
-            q_eps = torch.randn((N, T, E), generator=generator, device=dev)
+            q_eps = pstate.randn((N, T, E), generator, dev)
         with record_function("posterior"):
             qnetout = self.qnet(caps, cap_lens, q_eps.to(dev))
         ss_coins = noise.get("ss_coins")
@@ -429,8 +430,8 @@ class SimpleVAECaptionModel(CaptionModel):
         N, L = caps.shape
         E, dev = self.decoder.embed_size, caps.device
         noise = noise or {}
-        draw = lambda k, shape: (noise[k] if k in noise else torch.randn(  # noqa: E731
-            shape, generator=generator, device=dev)).to(dev)
+        draw = lambda k, shape: (noise[k] if k in noise else pstate.randn(  # noqa: E731
+            shape, generator, dev)).to(dev)
         with record_function("encoder"):
             encoded = self.encode(feats, feat_lens, train)
         with record_function("posterior"):
@@ -464,7 +465,8 @@ class SimpleVAECaptionModel(CaptionModel):
     def _z(self, eps, shape, generator, dev):
         """The eval prior's z from standard normal draws ``eps``."""
         if eps is None:
-            eps = torch.randn(shape, generator=generator, device=dev)
+            # [rows, E], or [G, rows, E] for dbs
+            eps = pstate.randn(shape, generator, dev, row_axis=len(shape) - 2)
         return eps.to(dev).float() * EVAL_Z_SCALE
 
     def _decode(self, encoded, decode_method, max_length=None, beam_size=3,

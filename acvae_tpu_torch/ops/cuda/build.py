@@ -11,6 +11,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -21,6 +22,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()   # threads of a sharded decode load at once
 
 
 def _nvcc() -> str:
@@ -59,8 +61,9 @@ def build(name: str) -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built first if missing or stale."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build(name)
-        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build(name)
+            lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -32,6 +33,19 @@ KERNEL = "conv_i8"
 def pack_conv3x3_weight(w_hwio: torch.Tensor) -> torch.Tensor:
     """HWIO [3, 3, Ci, Co] int8 -> the kernels' OHWI [Co, 3, 3, Ci]."""
     return w_hwio.permute(3, 0, 1, 2).contiguous()
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn, device: torch.device) -> None:
+    """One launch of ``fn``'s kernel on ``device``: ``fn.launches`` and
+    ``fn.launches_by_device[index]`` (a decode sharded over cards launches
+    from one thread a card)."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        by = fn.launches_by_device
+        by[device.index] = by.get(device.index, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,7 +124,7 @@ def _(x_i8, w_ohwi, A, B, mode, pad_code):
             out.data_ptr(), N, H, W, Ci, Co, MODES.index(mode), pad_code, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_i8 launch failed: cudaError {err}")
-    conv3x3_i8.launches += 1
+    _count(conv3x3_i8, x_i8.device)
     return out
 
 
@@ -148,7 +162,7 @@ def _(x_i8):
                                           W, C, stream)
     if err != 0:
         raise RuntimeError(f"avgpool2x2_i8 launch failed: cudaError {err}")
-    avgpool2x2_i8.launches += 1
+    _count(avgpool2x2_i8, x_i8.device)
     return out
 
 
@@ -194,3 +208,5 @@ def avgpool2x2_i8(x_i8: torch.Tensor) -> torch.Tensor:
 
 conv3x3_i8.launches = 0
 avgpool2x2_i8.launches = 0
+conv3x3_i8.launches_by_device = {}
+avgpool2x2_i8.launches_by_device = {}

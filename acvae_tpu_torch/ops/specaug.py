@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from acvae_tpu_torch.ops.warp import time_warp
+from acvae_tpu_torch.parallel import state as pstate
 
 Span = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (start, end, width)
 
@@ -45,7 +46,7 @@ def _span_mask(length: int, start: torch.Tensor, end: torch.Tensor) -> torch.Ten
 
 def _uniform_int(hi: torch.Tensor, generator, device) -> torch.Tensor:
     """One integer in [0, hi) per entry of hi (hi >= 1)."""
-    u = torch.rand(hi.shape, generator=generator, device=device)
+    u = pstate.rand(hi.shape, generator, device)
     return torch.minimum((u * hi).long(), hi - 1)
 
 
@@ -53,10 +54,10 @@ def draw_span(max_extent: int, axis_size: torch.Tensor, n: int,
               generator: Optional[torch.Generator], device) -> Span:
     """Reference extent sampling (augment.py:34-41): f ~ U[0, max_extent),
     f0 ~ U[0, size - f), end ~ U[f0, f0 + f).  Returns (f0, end, f)."""
-    f = torch.randint(0, max_extent, (n,), generator=generator, device=device)
+    f = pstate.randint(0, max_extent, (n,), generator, device)
     f0 = _uniform_int(torch.clamp_min(axis_size.to(device) - f, 1), generator,
                       device)
-    u = torch.rand((n,), generator=generator, device=device)
+    u = pstate.rand((n,), generator, device)
     end = f0 + (u * torch.clamp_min(f, 1)).long()
     return f0, end, f
 
@@ -131,7 +132,7 @@ def spec_augment(spec: torch.Tensor, lens: Optional[torch.Tensor] = None,
     N = spec.shape[0]
     gate = draws.get("gate")
     if gate is None:
-        gate = torch.rand((N,), generator=generator, device=spec.device) < p
+        gate = pstate.rand((N,), generator, spec.device) < p
     out = spec
     if timemask and num_timemask > 0:
         out = time_mask(out, T=T, num_masks=num_timemask, lens=lens,
@@ -155,8 +156,8 @@ def random_crop(spec: torch.Tensor, lens: torch.Tensor, size: int = 1000,
     N, Tmax, _ = spec.shape
     dev = spec.device
     if u is None:
-        u = (torch.rand((N,), generator=generator, device=dev),
-             torch.rand((N,), generator=generator, device=dev))
+        u = (pstate.rand((N,), generator, dev),
+             pstate.rand((N,), generator, dev))
     u_gate, u_start = (x.to(dev) for x in u)
     gate = (u_gate <= p) & (lens > size)
     hi = torch.clamp_min(lens - size, 1)
@@ -179,7 +180,7 @@ def time_roll(x: torch.Tensor, mean: float = 0.0, std: float = 10.0,
     N, T = x.shape[0], x.shape[1]
     dev = x.device
     if shift is None:
-        shift = (torch.randn((N,), generator=generator, device=dev) * std
+        shift = (pstate.randn((N,), generator, dev) * std
                  + mean).to(torch.int32)
     size = lens if lens is not None else torch.full((N,), T, device=dev)
     t = torch.arange(T, device=dev)[None, :]
@@ -202,7 +203,7 @@ def gaussian_noise(x: torch.Tensor, snr: float = 30.0, mean: float = 0.0,
     N, T = x.shape[0], x.shape[1]
     dev = x.device
     if noise is None:
-        noise = torch.randn(x.shape, generator=generator, device=dev)
+        noise = pstate.randn(x.shape, generator, dev)
     if lens is None:
         valid = torch.ones(x.shape, dtype=torch.bool, device=dev)
         denom = torch.full((N,), T, dtype=x.dtype, device=dev)

@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
+from acvae_tpu_torch.parallel import state as pstate
 
 EPSILON = 1e-10
 
@@ -72,14 +73,12 @@ def draw_anchors(N: int, T: int, W_param: int, lens: Optional[torch.Tensor],
     Anchors fall in [W, len-W) (a degenerate len <= 2W clamps to W), the
     distance in [-W, W) (``datasets/augment.py:8-26``)."""
     if lens is None:
-        pts = torch.randint(W_param, T - W_param, (N,), generator=generator,
-                            device=device)
+        pts = pstate.randint(W_param, T - W_param, (N,), generator, device)
     else:
         span = torch.clamp_min(lens - 2 * W_param, 1)
-        u = torch.rand((N,), generator=generator, device=device)
+        u = pstate.rand((N,), generator, device)
         pts = W_param + torch.minimum((u * span).long(), span - 1)
-    dist = torch.randint(-W_param, W_param, (N,), generator=generator,
-                         device=device)
+    dist = pstate.randint(-W_param, W_param, (N,), generator, device)
     return pts, dist
 
 

@@ -73,15 +73,22 @@ def save_state(exp_dir: str, state_dict: Dict[str, torch.Tensor],
 
 def save_checkpoint(exp_dir: str, name: str, trainer, step: int,
                     vocab: Optional[Vocabulary] = None,
-                    conf: Optional[Dict[str, Any]] = None) -> Path:
+                    conf: Optional[Dict[str, Any]] = None,
+                    write: bool = True) -> Path:
     """``<name>.pt`` with the trainer's full state (weights, optimizer,
     generators) and ``step``; also ``vocab.pkl``/``config.json`` when
-    given."""
+    given.  The ranks that do not ``write`` only take part in gathering a
+    vocab-split trainer's state."""
     exp = Path(exp_dir)
+    if not write:
+        if trainer.parallel is not None and trainer.parallel.vocab_split:
+            trainer.state()
+        return exp / f"{name}.pt"
+    state = trainer.state()
     exp.mkdir(parents=True, exist_ok=True)
     _write_side_files(exp, conf, vocab)
     path = exp / f"{name}.pt"
-    _save(dict(trainer.state(), step=int(step)), path)
+    _save(dict(state, step=int(step)), path)
     return path
 
 

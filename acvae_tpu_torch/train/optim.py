@@ -109,6 +109,25 @@ class OptaxChain:
         self.mini_step = 0    # micro-batches in the accumulator
         self.lr_scale = 1.0   # ReduceLROnPlateau's factor
         self.state = [self._init_state(p) for p in self.trainable]
+        self._split, self._split_group = set(), None
+
+    def split_norm(self, params: Sequence[torch.Tensor], group) -> None:
+        """``params`` are this rank's shards of tensors split over
+        ``group``: the global norm adds their squares over the group, so
+        each counts once."""
+        self._split, self._split_group = {id(p) for p in params}, group
+
+    def _norm(self, grads: Sequence[torch.Tensor],
+              params: Sequence[torch.Tensor]) -> torch.Tensor:
+        if not self._split:
+            return global_norm(grads)
+        from acvae_tpu_torch.parallel.collectives import all_reduce_sum_nograd
+        own = [g for g, p in zip(grads, params) if id(p) not in self._split]
+        split = [g for g, p in zip(grads, params) if id(p) in self._split]
+        zero = torch.zeros((), device=grads[0].device)
+        sq = sum((torch.sum(t * t) for t in own), zero)
+        return torch.sqrt(sq + all_reduce_sum_nograd(
+            sum((torch.sum(t * t) for t in split), zero), self._split_group))
 
     def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         a, z = self.args, lambda: torch.zeros_like(p)  # noqa: E731
@@ -142,7 +161,8 @@ class OptaxChain:
         accumulation is complete (every call when ``accum_steps`` is 1).
         Returns the global norm of every raw gradient, frozen ones too, as
         the JAX step's ``grad_norm`` metric."""
-        norm = global_norm([p.grad for p in self.params if p.grad is not None])
+        with_grad = [p for p in self.params if p.grad is not None]
+        norm = self._norm([p.grad for p in with_grad], with_grad)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.trainable]
         if self.accum_steps > 1:
@@ -162,7 +182,7 @@ class OptaxChain:
     def _apply(self, grads: List[torch.Tensor]) -> None:
         lr = self.lr()
         if self.max_grad_norm:
-            gn = global_norm(grads)
+            gn = self._norm(grads, self.trainable)
             grads = [torch.where(gn < self.max_grad_norm, g,
                                  g / gn * self.max_grad_norm) for g in grads]
         if self.l2:

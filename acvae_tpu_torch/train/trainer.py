@@ -28,6 +28,7 @@ so the warp needs no backward.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,16 +43,15 @@ from acvae_tpu_torch.ops.losses import (cross_entropy, gmm_kl_loss,
                                         normal_kl_per_dim)
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
 from acvae_tpu_torch.ops.specaug import build_augment
+from acvae_tpu_torch.parallel import state as pstate
+from acvae_tpu_torch.parallel.train import Distributed
+from acvae_tpu_torch.parallel.vocab import full_logits
 from acvae_tpu_torch.train.optim import OptaxChain
 from acvae_tpu_torch.train.schedules import (build_schedule,
                                              dis_ratio_for_epoch,
                                              kl_weight_for, parse_kl_anneal,
                                              ss_ratio_at)
 
-# config keys of branches of the JAX train loop that this port leaves out,
-# with the ROADMAP item each waits for; setting one raises instead of being
-# silently ignored
-UNPORTED_KEYS = {"distributed": "A19"}
 # the schedule keys a recipe may leave out, at the JAX CLI's defaults
 # (acvae_tpu/cli/main.py:45-55)
 RATIO_DEFAULTS = {
@@ -59,6 +59,9 @@ RATIO_DEFAULTS = {
     "ss_args": {"ss_mode": "exponential", "ss_ratio": 1.0, "final_ss_ratio": 0.7},
     "dis_ration": {"freeze_epoch": 10, "final_ratio": 0.3},
 }
+
+# the row axis of each model noise of ``compute_loss``'s ``noise``
+NOISE_ROW_AXIS = {"q_eps": 0, "p_eps": 1, "adv_gumbel": 0}
 
 
 def check_free_bits(conf: Dict[str, Any]) -> None:
@@ -102,8 +105,8 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
     keep = batch.get("keep_mask")
     if keep is not None:
         # AugmentLossWrapper (loss.py:72-94), the mask drawn on the host
-        ce = augment_loss(out["logits"], targets, cap_lens - 1, keep,
-                          smoothing or 0.0)
+        ce = augment_loss(full_logits(out["logits"]), targets, cap_lens - 1,
+                          keep, smoothing or 0.0)
     elif smoothing is None:
         ce = cross_entropy(out["logits"], targets, mask)
     else:
@@ -125,21 +128,25 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
             kl = normal_kl_loss(q_m, q_l, p_m, p_l, km)
             with torch.set_grad_enabled(free_bits is not None
                                         and torch.is_grad_enabled()):
-                kl_d = normal_kl_per_dim(q_m, q_l, p_m, p_l, km)
+                # the global per-dimension KL, on every rank of a step
+                kl_d = pstate.shares_to_global(
+                    normal_kl_per_dim(q_m, q_l, p_m, p_l, km))
             with torch.no_grad():
                 qp_sq = torch.mean((q_m - p_m) ** 2, dim=-1)
                 if km is None:
-                    qp_mse = qp_sq.mean()
+                    qp_mse = pstate.batch_mean(qp_sq)
                 else:
                     kmf = km.to(qp_sq.dtype)
-                    qp_mse = torch.sum(qp_sq * kmf) / torch.clamp_min(kmf.sum(),
-                                                                      1.0)
+                    qp_mse = torch.sum(qp_sq * kmf) / torch.clamp_min(
+                        pstate.global_count(kmf), 1.0)
                 metrics.update(active_units=(kl_d > 0.01).float().sum(),
                                kl_dim_max=kl_d.max(), qp_mse=qp_mse)
             if free_bits is not None:
                 metrics["kl_raw"] = kl
                 kl = torch.sum(torch.clamp_min(kl_d, free_bits))
-        loss = loss + kl_weight * kl
+        # a free-bits KL is global already: each rank enters its share
+        share = kl if free_bits is None else kl / pstate.data_extent()
+        loss = loss + kl_weight * share
         metrics["kl"] = kl
     if embedding_loss and "cap_embeds" in batch:
         e_loss = _embedding_term(out, cap_lens, batch["cap_embeds"],
@@ -153,7 +160,7 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
         metrics["adverse"] = adv
     if alpha is not None and "p_means_utt" in out:
         if global_loss == "MSE":
-            g = torch.mean((out["q_means_utt"] - out["p_means_utt"]) ** 2)
+            g = pstate.batch_mean((out["q_means_utt"] - out["p_means_utt"]) ** 2)
         else:
             if out.get("q_logs_utt") is None:
                 qm, ql = torch.chunk(out["q_means_utt"], 2, dim=-1)
@@ -167,7 +174,10 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
     # the CE of an augment batch is over the kept tokens: weight by those
     metrics["ntokens"] = (mask.sum() if keep is None else
                           (mask.float() * keep.float()[:, None]).sum())
-    return loss, metrics
+    # in a parallel step: the metrics of the global batch
+    replicated = ("active_units", "kl_dim_max") + (
+        ("kl",) if "kl_raw" in metrics else ())
+    return loss, pstate.metrics_to_global(metrics, replicated)
 
 
 def _embedding_term(out, cap_lens, target, kind: str) -> torch.Tensor:
@@ -193,10 +203,10 @@ def _embedding_term(out, cap_lens, target, kind: str) -> torch.Tensor:
         num = torch.sum(pooled * target, -1)
         den = torch.clamp_min(torch.linalg.norm(pooled, dim=-1)
                               * torch.linalg.norm(target, dim=-1), 1e-8)
-        return torch.mean(1.0 - num / den)
+        return pstate.batch_mean(1.0 - num / den)
     if kind == "MAE":
-        return torch.mean(torch.abs(pooled - target))
-    return torch.mean((pooled - target) ** 2)
+        return pstate.batch_mean(torch.abs(pooled - target))
+    return pstate.batch_mean((pooled - target) ** 2)
 
 
 def _adverse_term(out, cap_lens, adversarial, noise, generator) -> torch.Tensor:
@@ -209,7 +219,7 @@ def _adverse_term(out, cap_lens, adversarial, noise, generator) -> torch.Tensor:
             "adverse_loss requires a model whose train forward "
             "exposes audio_embeds (the VAECaptionModel family)")
     method = adversarial.get("sample_method", "argmax")
-    preds = _sample_preds(out["logits"], method,
+    preds = _sample_preds(full_logits(out["logits"]), method,
                           (noise or {}).get("adv_gumbel"), generator)
     probs = adversarial["dscrm"]({"audio_feats": out["audio_embeds"],
                                   "feats_lens": out["audio_embeds_lens"],
@@ -266,11 +276,8 @@ class Trainer:
                  device=DEFAULT_DEVICE, *, total_iters: int,
                  vocab: Optional[Any] = None):
         check_free_bits(conf)
-        for key, item in UNPORTED_KEYS.items():
-            if conf.get(key):
-                raise NotImplementedError(f"config key {key!r} is not ported "
-                                          f"(ROADMAP {item})")
-        self.conf = conf
+        self.conf, self.vocab_size, self.data_dim = conf, vocab_size, data_dim
+        self.parallel = None
         self.kl_anneal = parse_kl_anneal(conf.get("kl_anneal"))
         self.device = torch.device(device)
         seed = int(conf.get("seed", 1))
@@ -305,23 +312,44 @@ class Trainer:
                                          crop_size=conf.get("crop_size", 992),
                                          **conf.get("augment_args", {}))
 
+    def distribute(self, grid) -> None:
+        """Train on ``grid`` (``parallel/mesh.py``) from now on: rank 0's
+        weights on every rank, the vocab leaves split over ``model`` when it
+        is above 1, the optimizer rebuilt over the placed parameters (call
+        it before any step or :meth:`load_state`).  :meth:`step` then takes
+        this rank's rows (``shard_batch``), with ``draws``/``noise`` those
+        of the global batch."""
+        self.parallel = Distributed(grid, self.model, self.vocab_size)
+        self.optimizer = build_optimizer(self.conf, self.model.named_parameters(),
+                                         self.total_iters)
+        if self.parallel.vocab_split:
+            self.optimizer.split_norm(self.parallel.split_params(),
+                                      grid.model_group)
+
     def state(self) -> Dict[str, Any]:
         """What an exact resume needs besides the step count: the weights,
         the optimizer's state, and the states of the trainer's generator
         (augment and model noise) and of torch's global ones (the
-        dropouts)."""
+        dropouts).  Distributed, the vocab shards are gathered: every rank
+        of the model axis must call it."""
         rng = {"generator": self.generator.get_state(),
                "torch": torch.get_rng_state()}
         if self.device.type == "cuda":
             rng["cuda"] = torch.cuda.get_rng_state(self.device)
-        return {"state_dict": {k: v.detach().cpu()
-                               for k, v in self.model.state_dict().items()},
-                "optimizer": self.optimizer.state_dict(), "rng": rng}
+        state = {"state_dict": {k: v.detach().cpu()
+                                for k, v in self.model.state_dict().items()},
+                 "optimizer": self.optimizer.state_dict(), "rng": rng}
+        if self.parallel is not None:
+            state = self.parallel.full_state(state, self.optimizer.trainable)
+        return state
 
     def load_state(self, state: Dict[str, Any]) -> None:
         """Restore :meth:`state` (tensors on the CPU, as ``torch.load(...,
         map_location="cpu")`` gives them); a missing or unexpected weight
-        raises."""
+        raises.  Distributed, a full state is sliced to this rank's
+        shards."""
+        if self.parallel is not None:
+            state = self.parallel.local_state(state, self.optimizer.trainable)
         self.model.load_state_dict(state["state_dict"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         rng = state["rng"]
@@ -358,11 +386,29 @@ class Trainer:
         c = self.conf
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
-        if self.augment is not None:
-            with record_function("augment"):
-                feats, lens = self.augment(batch["feats"], batch["feat_lens"],
-                                           draws=draws, generator=self.generator)
-            batch = dict(batch, feats=feats, feat_lens=lens)
+        par, split = self.parallel, False
+        context = contextlib.nullcontext()
+        if par is not None:
+            split = par.seq_split(batch["feats"].shape[1])
+            context = par.step(batch["caps"].shape[0], split)
+        with context:
+            # this rank's rows of the global batch's draws (on a grid)
+            draws = pstate.take_rows_of(draws)
+            if noise is not None:
+                noise = {k: pstate.take_rows(v, NOISE_ROW_AXIS[k])
+                         if k in NOISE_ROW_AXIS else v for k, v in noise.items()}
+            if self.augment is not None:
+                with record_function("augment"):
+                    feats, lens = self.augment(batch["feats"],
+                                               batch["feat_lens"], draws=draws,
+                                               generator=self.generator)
+                batch = dict(batch, feats=feats, feat_lens=lens)
+            if split:   # this rank's slice of mel time, after the augment
+                batch = dict(batch, feats=par.time_slice(batch["feats"]))
+            return self._step(batch, iteration, epoch, noise, split)
+
+    def _step(self, batch, iteration, epoch, noise, split):
+        c = self.conf
         r = self.ratios(iteration, epoch)
         self.optimizer.zero_grad()
         with record_function("forward"):
@@ -379,6 +425,8 @@ class Trainer:
                 dec_par=c.get("dec_par", 1.0), adversarial=self.adversarial)
         with record_function("backward"):
             loss.backward()
+            if self.parallel is not None:
+                self.parallel.sync_grads(split)
         lr = self.optimizer.lr()
         with record_function("optimizer"):
             metrics["grad_norm"] = self.optimizer.step()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``acvae_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--only parallel]
 
 Phases, each of which exits nonzero on failure:
 
@@ -201,12 +201,34 @@ Phases, each of which exits nonzero on failure:
    corpus), ``concat_csv`` and ``tsne`` (its PNG, or its refusal naming
    scikit-learn and matplotlib).  (e) ``doctor`` on the card: the probe
    names the card, the build directory holds the kernels' libraries.
+18. parallel: ``acvae_tpu_torch/parallel`` on the flagship at full width
+   (vocab 4982, a multiple of the model axis; batch 32, T_mel 1024, L 22;
+   dropouts off; one Adam step at lr 1e-4).  (a) A group of 2 worker
+   processes sharing the card over gloo (NCCL refuses two ranks on one
+   device) takes a DP (2 data), a TP (1 data x 2 model) and an SP (TP +
+   ``sequence_parallel``) step, each against the unsplit step on the card
+   from the same weights and global draws: with the encoder in float32 the
+   loss within rtol 1e-5, with the recipe's bf16 encoder (timed after a
+   warm-up step) within 1e-4; the ranks agree; the gradients before Adam
+   and the step's update of the weights, per tensor against the unsplit
+   step's, within ``PAR_DTYPES``'s limits, and two planted faults outside
+   them (gradients averaged instead of summed; the halo exchange's
+   backward dropped); the unsplit step probed again with cuDNN's other
+   algorithms and with BatchNorm in float64; ``time_warp_1d`` launched on
+   each rank.  (b) ``cli train configs/ac_vae.yaml --distributed=true``
+   for an epoch on phase 10's corpus: "running unsharded" on one card,
+   ``data-parallel mesh: {'data': D}`` (a worker a card, NCCL) on D.  (c)
+   ``evaluate --distributed --encoder_int8`` of (b)'s experiment against
+   the plain int8 evaluate, each twice (cold, warm): identical files, the
+   int8 launches counted per card.  (d) With 2 or more cards, (a) over
+   NCCL on all of them.  ``--only parallel`` runs phases 1, 2 and 18 alone
+   (phase 10's corpus made here).
 
 Kernel launches are counted from 0 over each path (train, serve, int8
-serve, cli, diverse, families, extras, encoders, aux, export, tools).
-Prints the whole script's wall time, a ``{"kernels": [...]}`` JSON line
-(``launches`` on each kernel's own path, ``launches_by_path`` on all
-eleven), then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
+serve, cli, diverse, families, extras, encoders, aux, export, tools,
+parallel).  Prints the whole script's wall time, a ``{"kernels": [...]}``
+JSON line (``launches`` on each kernel's own path, ``launches_by_path`` on
+all twelve), then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps (phase 5's, and phase 15's adverse step) and one full-width decode batch of each serving path and
 of phase 11's int8 dbs decode with torch.profiler and writes the traces and
 op tables into DIR.
@@ -262,7 +284,7 @@ CNN14_CONVS = [(128, 8, 512, 512, "sym"), (64, 4, 512, 1024, "sym"),
                (32, 2, 2048, 2048, "f32relu")]
 CNN14_POOLS = [(128, 8, 512), (64, 4, 1024)]
 PATHS = ("train", "serve", "int8_serve", "cli", "diverse", "families",
-         "extras", "encoders", "aux", "export", "tools")
+         "extras", "encoders", "aux", "export", "tools", "parallel")
 # phase 10: the corpus (320 clips: 45 train iterations of 32 an epoch at
 # train_percent 90, 5 validation batches, 10 eval batches)
 CLI_AUDIOS, CLI_ITERS, CLI_EVAL_BATCHES = 320, 45, 10
@@ -281,6 +303,8 @@ def kernel_fns():
 def reset_counts():
     for fn in kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_device"):
+            fn.launches_by_device.clear()
 
 
 def read_counts():
@@ -3605,6 +3629,334 @@ def tools_doctor(cli):
           f"{report['probe_wall_s']} s ({SMI})")
 
 
+# phase 18: the flagship at full width, its vocabulary padded to a multiple
+# of the model axis (build_vocab --pad_to_multiple=2: 4981 -> 4982)
+PAR_VOCAB = VOCAB + 1
+PAR_EPOCH = 12
+
+
+def par_conf(dtype):
+    """The flagship with its dropouts off, its encoder in ``dtype``, and one
+    Adam step at lr 1e-4."""
+    from acvae_tpu_torch.configs import flagship_conf
+    conf = flagship_conf(scheduler="constant", scheduler_args={},
+                         optimizer_args={"lr": 1e-4})
+    conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype,
+                                conv_dropout=0.0, head_dropout=0.0)
+    conf["decoder_args"] = dict(conf["decoder_args"], dropout=0.0)
+    return conf
+
+
+def par_rank_step(*args, **kwargs):
+    """A pool job: ``train_step_case`` with TF32 off, as in this process."""
+    from acvae_tpu_torch.parallel.parity import train_step_case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return train_step_case(*args, **kwargs)
+
+
+def par_rank_step_halo_dropped(*args, **kwargs):
+    """A pool job with a planted fault: the halo exchange's backward returns
+    zeros (the neighbours' edge gradients lost), which the gradient check
+    must catch."""
+    from acvae_tpu_torch.parallel import collectives
+    kept = collectives._Halo.backward
+
+    def backward(ctx, g_prev, g_next):
+        shape = list(ctx.edge_shape)
+        shape[ctx.dim] = ctx.T
+        return torch.zeros(shape, dtype=g_prev.dtype,
+                           device=g_prev.device), None, None
+    collectives._Halo.backward = staticmethod(backward)
+    try:
+        return par_rank_step(*args, **kwargs)
+    finally:
+        collectives._Halo.backward = kept
+
+
+def _warm_step(trainer, batch, it, epoch):
+    """One step after a warm-up step from the same state: (metrics, ms)."""
+    start = copy.deepcopy(trainer.state())
+    trainer.step(batch, it, epoch)
+    trainer.load_state(start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = trainer.step(batch, it, epoch)
+    torch.cuda.synchronize()
+    return m, (time.perf_counter() - t0) * 1e3
+
+
+# Per encoder dtype: the loss's rtol against the unsplit step, and the
+# limits of the largest per-tensor relative error ||split - unsplit|| /
+# ||unsplit|| of the gradients before Adam and of the step's update of the
+# weights.  Set from the readings on 1 and 4 cards (PERF.md, §6): in
+# float32 the splits' gradients read at most 9.3e-4 (at bn0.weight, where
+# the unsplit step itself is 7.5e-4 off its float64-BatchNorm twin) and
+# the planted faults at least 0.26 (the halo exchange's backward dropped)
+# and 0.5 (gradients averaged instead of summed); the updates 0.026
+# against the dropped halo's 0.72.  With bf16 convs each split rounds
+# other bf16 activations: gradients up to 0.083 against 0.50 averaged; bf16
+# alone moves the unsplit loss 2.1e-4 off the float32 one, and the update
+# (Adam's first step is lr·sign(g)) reads the sign flips of the smallest
+# gradients, up to 0.43.
+PAR_DTYPES = {"float32": {"loss": 1e-5, "grad": 5e-3, "update": 0.1},
+              "bfloat16": {"loss": 1e-4, "grad": 0.25, "update": 1.0}}
+
+
+def _rel(err):
+    return (f"{err['rel']:.3g} at {err['rel_at']} (top "
+            f"{[(k, float(f'{v:.3g}')) for k, v in err['rel_top']]})")
+
+
+def _unsplit_reference(conf, batch, it, total, tmp, timed, probe):
+    """The unsplit step on the card: writes its start weights, gradients
+    and weights after the step; returns (loss, ms or None, probes).  With
+    ``probe``, the same step again from the same state twice, each
+    gradient against the first step's (``errors``): ``cudnn`` with cuDNN's
+    benchmarked conv algorithms (the convs' sums in another order), and
+    ``bn64`` with every BatchNorm's statistics and normalization in
+    float64 (the float32 rounding of BatchNorm's reductions, forward and
+    backward, which a split reorders)."""
+    from acvae_tpu_torch.models import encoders
+    from acvae_tpu_torch.parallel.parity import errors
+    from acvae_tpu_torch.train.trainer import Trainer
+    single = Trainer(conf, PAR_VOCAB, DATA_DIM, device="cuda",
+                     total_iters=total)
+    torch.save({k: v.cpu() for k, v in single.model.state_dict().items()},
+               f"{tmp}/par_state.pt")
+    start = copy.deepcopy(single.state())
+    if timed:
+        m, ms = _warm_step(single, batch, it, PAR_EPOCH)
+    else:
+        m, ms = single.step(batch, it, PAR_EPOCH), None
+    grads = {k: p.grad.clone() for k, p in single.model.named_parameters()
+             if p.grad is not None}
+    torch.save({"grads": {k: g.cpu() for k, g in grads.items()},
+                "weights": {k: v.cpu() for k, v in
+                            single.model.state_dict().items()}},
+               f"{tmp}/par_ref.pt")
+    probes = {}
+    if probe:
+        bn_forward = encoders.BatchNorm.forward
+
+        def bn64(self, x, train, axis=1, dtype=None):
+            """A train-mode BatchNorm's output computed in float64 (its
+            running statistics left as they are)."""
+            shape = [1] * x.ndim
+            shape[axis] = -1
+            xd = x.double()
+            red = [d for d in range(x.ndim) if d != axis]
+            mean = xd.mean(dim=red)
+            var = torch.clamp_min((xd * xd).mean(dim=red) - mean * mean, 0.0)
+            mul = torch.rsqrt(var + self.eps) * self.weight.double()
+            y = ((xd - mean.view(shape)) * mul.view(shape)
+                 + self.bias.double().view(shape))
+            return y.to(dtype or x.dtype)
+        for name in ("cudnn", "bn64"):
+            single.load_state(start)
+            torch.backends.cudnn.benchmark = name == "cudnn"
+            if name == "bn64":
+                encoders.BatchNorm.forward = bn64
+            try:
+                single.step(batch, it, PAR_EPOCH)
+            finally:
+                torch.backends.cudnn.benchmark = False
+                encoders.BatchNorm.forward = bn_forward
+            probes[name] = errors({k: p.grad for k, p in
+                                   single.model.named_parameters()
+                                   if p.grad is not None}, grads, 1e-3, 2e-6)
+    return float(m["loss"]), ms, probes
+
+
+def parallel_steps(tmp, devices, backend, label):
+    """Phase 18 (a)/(d): a DP, a TP and an SP step of the flagship on
+    ``len(devices)`` ranks against the unsplit step on the card from the
+    same weights and global draws (the generators' whole-batch draws, each
+    rank keeping its rows), with the encoder in float32 and in bf16 as the
+    recipe has it (timed after a warm-up step): the loss, the gradients
+    before Adam and the step's update of the weights within
+    ``PAR_DTYPES``'s limits, and the planted faults outside them.  Returns
+    the ranks' time_warp_1d launches."""
+    from acvae_tpu_torch.parallel.pool import RankPool
+
+    world = len(devices)
+    it, total = ITERS_PER_EPOCH * (PAR_EPOCH - 1) + 1, ITERS_PER_EPOCH * EPOCHS
+    batch = make_batch(np.random.default_rng(18))
+    cases = [("dp", 1, False)]
+    if world % 2 == 0:
+        cases += [("tp", 2, False), ("sp", 2, True)]
+    launches = 0
+    with RankPool(backend, devices) as pool:
+        for dtype, lim in PAR_DTYPES.items():
+            conf, timed = par_conf(dtype), dtype == "bfloat16"
+            ref_loss, single_ms, probes = _unsplit_reference(
+                conf, batch, it, total, tmp, timed, probe=not timed)
+            print(f"parallel {label}, {dtype} encoder: the unsplit step on "
+                  f"cuda:0 loss {ref_loss:.6f}" + (
+                      f", {single_ms:.1f} ms, {BATCH / single_ms * 1e3:.1f} "
+                      f"samples/s" if timed else "") + f" ({SMI})")
+            for name, pr in probes.items():
+                print(f"parallel {label}, {dtype} encoder: the unsplit step "
+                      f"again, probe {name}: gradients rel {_rel(pr)}, "
+                      f"elementwise worst {pr['worst']:.3g} at {pr['at']} "
+                      f"({SMI})")
+            torch.cuda.empty_cache()
+            step_args = (conf, PAR_VOCAB, DATA_DIM, f"{tmp}/par_state.pt", batch)
+            for name, mp, seq in cases:
+                ranks = pool.run(par_rank_step, *step_args, model_parallel=mp,
+                                 seq=seq, iteration=it, epoch=PAR_EPOCH,
+                                 total_iters=total, warmup=int(timed),
+                                 reference=f"{tmp}/par_ref.pt")
+                r0 = ranks[0]
+                loss = r0["metrics"]["loss"]
+                rel = abs(loss - ref_loss) / abs(ref_loss)
+                grid = (f"{world // mp} data x {mp} model"
+                        + (" + seq" if seq else ""))
+                tag = f"parallel {name} ({grid}, {dtype})"
+                g, avg, upd = r0["grad_err"], r0["grad_err_averaged"], r0["update_err"]
+                check(all(r["metrics"] == r0["metrics"] for r in ranks),
+                      f"{tag}: the ranks disagree")
+                check(rel <= lim["loss"], f"{tag}: loss {loss} vs the unsplit "
+                                          f"{ref_loss} (rtol {lim['loss']})")
+                check(g["rel"] <= lim["grad"], f"{tag}: gradients {g}")
+                check(upd["rel"] <= lim["update"], f"{tag}: update {upd}")
+                summed = world // mp if not seq else world
+                if summed > 1:   # a step that averaged would be caught
+                    check(avg["rel"] > lim["grad"],
+                          f"{tag}: averaged gradients pass the check {avg}")
+                check(r0["seq_split"] == seq and r0["vocab_rows"]
+                      == PAR_VOCAB // mp, f"{tag}: not split as asked")
+                check(all(r["launches"] == 1 + int(timed) for r in ranks),
+                      f"{tag}: time_warp_1d launches "
+                      f"{[r['launches'] for r in ranks]} ({1 + int(timed)} "
+                      f"steps a rank)")
+                launches += sum(r["launches"] for r in ranks)
+                ms = [r["ms"] for r in ranks]
+                speed = (f"step ms per rank {[round(x, 1) for x in ms]} "
+                         f"({label}), {BATCH / max(ms) * 1e3:.1f} samples/s; "
+                         if timed else "")
+                print(f"{tag}: loss {loss:.6f} (rel {rel:.2e}); {speed}"
+                      f"gradients rel {_rel(g)} (limit {lim['grad']}; "
+                      f"elementwise worst {g['worst']:.3g} at {g['at']}, max "
+                      f"abs {g['max_abs']:.3g}); averaged instead of summed "
+                      + (f"rel {avg['rel']:.3g}" if summed > 1 else "n/a")
+                      + f"; update rel {_rel(upd)} (limit {lim['update']}); "
+                      f"time_warp_1d launches per rank "
+                      f"{[r['launches'] for r in ranks]} ({SMI})")
+                if seq and not timed:
+                    faulty = pool.run(par_rank_step_halo_dropped, *step_args,
+                                      model_parallel=mp, seq=seq, iteration=it,
+                                      epoch=PAR_EPOCH, total_iters=total,
+                                      reference=f"{tmp}/par_ref.pt")[0]
+                    fg, fu = faulty["grad_err"], faulty["update_err"]
+                    check(fg["rel"] > lim["grad"] and fu["rel"] > lim["update"],
+                          f"{tag}: the halo backward dropped passes the "
+                          f"checks: gradients {fg}, update {fu}")
+                    print(f"{tag}, halo backward dropped (a planted fault): "
+                          f"gradients rel {_rel(fg)}; update rel {_rel(fu)} "
+                          f"({SMI})")
+    return launches
+
+
+def _par_train_args(tmp):
+    config = str(Path(__file__).resolve().parent / "configs" / "ac_vae.yaml")
+    return [config, f"--h5_csv={tmp}/mels.csv", f"--caption_file={tmp}/text.json",
+            f"--vocab_file={tmp}/vocab.pkl", f"--outputpath={tmp}",
+            "--augments=[timewarp,timemask,freqmask]"]
+
+
+def parallel_cli(tmp):
+    """Phase 18 (b): ``cli train --distributed=true`` for one epoch on phase
+    10's corpus: one card runs unsharded, D cards a worker each (NCCL).
+    Returns the experiment dir and the launches in this process."""
+    from acvae_tpu_torch.cli import main as cli
+    D = torch.cuda.device_count()
+    before = read_counts()
+    t0 = time.perf_counter()
+    exp = Path(cli.main(["train"] + _par_train_args(tmp) + [
+        "--epochs=1", "--distributed=true", "--remark=parallel"]))
+    wall = time.perf_counter() - t0
+    log = (exp / "train_caption.log").read_text()
+    want = ("distributed=true with a single device: running unsharded"
+            if D == 1 else f"data-parallel mesh: {{'data': {D}}}")
+    check(want in log, f"parallel train: the log has no {want!r}")
+    (rec,) = [json.loads(x) for x in (exp / "metrics.jsonl").read_text().splitlines()]
+    check(math.isfinite(rec["train_loss"]), f"parallel train: {rec}")
+    counts = {k: v - before[k] for k, v in read_counts().items()}
+    print(f"parallel cli train --distributed=true on {D} card(s): {want!r}; "
+          f"epoch wall {rec['epoch_wall_s']:.2f} s, command {wall:.2f} s, loss "
+          f"{rec['train_loss']:.4f}; launches here {counts} ({SMI})")
+    return exp, counts
+
+
+def parallel_evaluate(tmp, exp):
+    """Phase 18 (c): ``evaluate --distributed --encoder_int8`` against the
+    plain ``evaluate --encoder_int8``: the same files, byte for byte; the
+    int8 kernels' launches counted per card (8 + 3 a shard-batch on each
+    card that got one, the calibration's on card 0)."""
+    from acvae_tpu_torch.cli import main as cli
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
+    D = torch.cuda.device_count()
+    files = ("eval_output_beam_3_int8.json", "scores_beam_3_int8.txt")
+    out, per_card, walls = {}, {}, {}
+    before_all = read_counts()
+    # each twice: the first runs warm the cards up
+    for dist_flag in (False, True, "warm", "warm_dist"):
+        by_dev = [dict(f.launches_by_device) for f in (conv3x3_i8, avgpool2x2_i8)]
+        t0 = time.perf_counter()
+        cli.main(["evaluate", str(exp), f"--eval_caption_file={tmp}/text.json",
+                  "--encoder_int8",
+                  f"--distributed={str(dist_flag in (True, 'warm_dist')).lower()}"])
+        walls[dist_flag] = time.perf_counter() - t0
+        out[dist_flag] = [(exp / f).read_bytes() for f in files]
+        per_card[dist_flag] = [
+            {d: n - b.get(d, 0) for d, n in f.launches_by_device.items()
+             if n - b.get(d, 0)} for f, b in zip((conv3x3_i8, avgpool2x2_i8), by_dev)]
+    check(out[True] == out[False] == out["warm"] == out["warm_dist"],
+          "evaluate --distributed --encoder_int8 wrote other files than the "
+          "plain int8 evaluate")
+    nb = CLI_EVAL_BATCHES
+    (conv1, pool1), (convD, poolD) = per_card[False], per_card[True]
+    calib = (conv1.get(0, 0) - 8 * nb, pool1.get(0, 0) - 3 * nb)
+    for d in range(D):
+        want = (8 * nb + (calib[0] if d == 0 else 0),
+                3 * nb + (calib[1] if d == 0 else 0))
+        got = (convD.get(d, 0), poolD.get(d, 0))
+        check(got == want, f"evaluate --distributed: card {d} launched "
+                           f"{got}, expected {want}")
+    print(f"parallel evaluate --encoder_int8: plain {walls[False]:.2f} s "
+          f"cold, {walls['warm']:.2f} s warm ({CLI_AUDIOS / walls['warm']:.1f} "
+          f"captions/s of command wall), "
+          f"--distributed over {D} card(s) {walls[True]:.2f} s cold, "
+          f"{walls['warm_dist']:.2f} s warm "
+          f"({CLI_AUDIOS / walls['warm_dist']:.1f} captions/s); files identical; "
+          f"conv3x3_i8/avgpool2x2_i8 launches per card {convD}/{poolD} "
+          f"(calibration on card 0 {calib}) ({SMI})")
+    return {k: v - before_all[k] for k, v in read_counts().items()}
+
+
+def parallel_phase(tmp):
+    """Phase 18, parallelism: (a) 2 ranks sharing the card over gloo take a
+    DP, a TP and an SP step of the full-width flagship against the unsplit
+    step; (b) ``cli train --distributed=true``; (c) ``evaluate
+    --distributed --encoder_int8`` against the plain int8 evaluate; (d)
+    with 2 or more cards, (a) over NCCL on all of them.  Returns the
+    launches over the path (the ranks' included)."""
+    reset_counts()
+    launches = parallel_steps(tmp, ["cuda:0"] * 2, "gloo",
+                              "gloo, 2 ranks on one card, not a speed figure")
+    exp, train_counts = parallel_cli(tmp)
+    eval_counts = parallel_evaluate(tmp, exp)
+    if torch.cuda.device_count() >= 2:
+        D = torch.cuda.device_count()
+        launches += parallel_steps(tmp, [f"cuda:{i}" for i in range(D)],
+                                   "nccl", f"nccl over {D} cards")
+    counts = {k: train_counts[k] + eval_counts[k] for k in train_counts}
+    counts["time_warp_1d"] += launches
+    print(f"parallel: launches over the path {counts} ({SMI})")
+    return counts
+
+
 def build_phase():
     """Every CUDA source of the port, one nvcc each, all started together;
     then the conv kernels' instructions (``sass_counts``)."""
@@ -3662,12 +4014,28 @@ def main():
                          "and phase 15's adverse step) and one full-width "
                          "decode batch of each serving path and of the int8 "
                          "dbs decode into DIR")
+    ap.add_argument("--only", choices=["parallel"],
+                    help="run phases 1, 2 and this one alone (the corpus of "
+                         "phase 10 made here)")
     args = ap.parse_args()
     t0 = time.perf_counter()
 
     device_phase()
     torch.manual_seed(0)   # the dropouts draw from the global generator
     phase("build", build_phase)
+    if args.only == "parallel":
+        from acvae_tpu_torch.cli import main as cli
+        with tempfile.TemporaryDirectory() as tmp:
+            cli.main(["make_synthetic", tmp, "--rich",
+                      f"--num_audios={CLI_AUDIOS}", "--mel_frames=1024"])
+            by_path = {"parallel": phase("parallel", parallel_phase, tmp)}
+        print(f"kernel launches by path {by_path}")
+        print(f"chip_smoke: --only parallel {time.perf_counter() - t0:.1f} s "
+              f"({SMI})")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [phase("kernels", kernel_phase, flush)]
     kernels += phase("int8 kernels", int8_kernel_phase, flush)
@@ -3689,6 +4057,7 @@ def main():
         by_path["aux"] = phase("aux", aux_phase, tmp, args.profile)
         by_path["export"] = phase("export", export_phase, tmp)
         by_path["tools"] = phase("tools", tools_phase, tmp, exp)
+        by_path["parallel"] = phase("parallel", parallel_phase, tmp)
     own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
            "avgpool2x2_i8": "int8_serve"}
     for k in kernels:

@@ -256,7 +256,7 @@ def test_resume_is_bit_identical(ws, tmp_path, monkeypatch):
 # by fault_abort_step at step 3, then resumed; each case of the old refusal
 # list reads its own part
 RUNS = "runs"
-LATER = [("distributed", "true", "A19"), ("model_parallel", "2", "A19"),
+LATER = [("distributed", "true", RUNS), ("model_parallel", "2", RUNS),
          ("kl_anneal", "{mode: cyclical, cycles: 1, floor: 0.2}", RUNS),
          # the discriminator dir is read as the JAX CLI reads its config
          ("adverse_loss", "{discriminator: d}", (FileNotFoundError, "config")),
@@ -301,7 +301,13 @@ def _check_later_run(key, exp, stopped):
     """What the run shows of ``key``, against the JAX package's functions."""
     meta = json.loads((exp / "ckpt_steps.json").read_text())
     (metrics,) = _metrics(exp)
-    if key == "kl_anneal":
+    if key in ("distributed", "model_parallel"):
+        # one device: JAX's single-device line, no mesh, whatever the split
+        log = (exp / "train_caption.log").read_text()
+        assert log.count("distributed=true with a single device: running "
+                         "unsharded") == 2 and "mesh" not in log
+        assert json.loads((exp / "config.json").read_text())[key] in (True, 2)
+    elif key == "kl_anneal":
         assert metrics["kl_weight"] == kl_weight_schedule(
             1, 1, 1.5, mode="cyclical", cycles=1, floor=0.2) == 0.2
     elif key == "checkpoint_every_steps":
@@ -332,11 +338,12 @@ def _check_later_run(key, exp, stopped):
 
 @pytest.mark.parametrize("key,value,item", LATER, ids=[k for k, _, _ in LATER])
 def test_train_refuses_later_items(ws, key, value, item, tmp_path, request):
-    """Keys of later ROADMAP items raise, naming the item; the keys the port
-    now runs (``later_run``), as the JAX CLI runs them."""
+    """The keys of the former refusal list: each fails as the JAX CLI fails
+    or runs (``later_run``) as it runs; ``distributed`` and
+    ``model_parallel`` on one device run unsharded."""
     if item is None:
         conf = load_config(str(ws / "port.yaml"), **{key: value})
-        cli._refuse_later_items(conf)
+        cli.check_free_bits(conf)
         assert cli._upload_dtype(conf) is None
         return
     if item == RUNS:
@@ -384,7 +391,7 @@ def test_train_uploads_bf16_rounded_mels(ws, tmp_path, monkeypatch):
     ({"method": "dbs", "beam_size": 2, "group_size": 4},
      (ValueError, "beam_size >= group_size")),
     ({"decode_dtype": "bfloat16"}, None),
-    ({"distributed": True}, (NotImplementedError, "A19"))],
+    ({"distributed": True}, "unsharded")],
     ids=["dbs", "dbs_alias", "decode_dtype", "distributed"])
 def test_evaluate_refuses_later_items(ws, experiments, kwargs, item):
     """What JAX refuses, the port refuses with the same error; a bf16
@@ -401,9 +408,15 @@ def test_evaluate_refuses_later_items(ws, experiments, kwargs, item):
             "eval_output_beam_3_bfloat16.json", "scores_beam_3_bfloat16.txt"}
         assert math.isfinite(scores["CIDEr"])
         return
-    if kwargs.get("distributed"):
-        with pytest.raises(item[0], match=item[1]):
-            cli.evaluate("/nonexistent", device="cpu", **kwargs)
+    if item == "unsharded":
+        # one device: the plain decode's files, byte for byte
+        out = {}
+        kw.pop("distributed")
+        for dist in (False, True):
+            cli.evaluate(str(port_exp), device="cpu", distributed=dist, **kw)
+            out[dist] = [(port_exp / f).read_bytes() for f in (
+                "eval_output_beam_3.json", "scores_beam_3.txt")]
+        assert out[True] == out[False]
         return
     for run in (lambda: Runner().evaluate(str(jax_exp), **kw),
                 lambda: cli.evaluate(str(port_exp), device="cpu", **kw)):
@@ -425,7 +438,7 @@ def test_method_alias_and_no_card(ws):
                 cli.main(argv)
     # a config setting the TPU-only max_inflight_steps is accepted
     conf = load_config(str(ws / "port.yaml"), max_inflight_steps="64")
-    cli._refuse_later_items(conf)
+    cli.check_free_bits(conf)
 
 
 # --------------------------------------------------------------------- #

@@ -183,8 +183,8 @@ def test_loader_unsorted_and_stage(corpus):
 def test_later_items_raise(corpus, monkeypatch):
     """Caption embeddings (``embedding_path``, with and without the
     standard scaler) load as JAX loads them: the same arrays a caption and
-    the same ``cap_embeds`` a batch.  A multi-host loader raises naming its
-    ROADMAP item; kaldi ``.scp``/``.ark`` tables (written by the JAX
+    the same ``cap_embeds`` a batch.  A multi-host loader gives each host
+    JAX's batches of its stride; kaldi ``.scp``/``.ark`` tables (written by the JAX
     package's writer) read through ``_feature_source`` into the clips'
     arrays, and the port's writer writes the same bytes; without h5py an
     HDF5 store names h5py and the .npz route."""
@@ -218,10 +218,20 @@ def test_later_items_raise(corpus, monkeypatch):
                                           wb.arrays()["cap_embeds"])
     plain = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")), info, tv)
     assert "cap_embeds" not in next(iter(tds.CaptionLoader(plain, 4))).arrays()
-    ds = tds.CaptionDataset(_read_manifest(str(root / "npz.csv")), info,
-                            tvocab.Vocabulary())
-    with pytest.raises(NotImplementedError, match="A19"):
-        tds.CaptionLoader(ds, 4, host_count=2)
+    # host_count=2: each host's stride of the padded permutation, in JAX's
+    # batches and buckets
+    for h in (0, 1):
+        pairs = list(zip(
+            tds.CaptionLoader(got, 4, shuffle=True, seed=3, host_id=h,
+                              host_count=2),
+            jds.CaptionLoader(want, 4, shuffle=True, seed=3, host_id=h,
+                              host_count=2)))
+        assert pairs and len(pairs) == len(jds.CaptionLoader(
+            want, 4, host_id=h, host_count=2))
+        for gb, wb in pairs:
+            assert gb.audio_ids == wb.audio_ids
+            for k in ("feats", "feat_lens", "caps", "cap_lens"):
+                np.testing.assert_array_equal(getattr(gb, k), getattr(wb, k))
     mats = {aid: np.load(root / "mels.npz")[aid].squeeze() for aid in
             _read_manifest(str(root / "npz.csv"))}
     mats["f64"] = mats[next(iter(mats))].astype(np.float64)

@@ -82,3 +82,22 @@ def test_new_commands_refuse_to_start_without_a_card(argv):
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError, match="CUDA card.*--device=cpu"):
         cli.main(argv)
+
+
+def test_parity_harness_stays_out_of_the_package():
+    """``parallel/parity.py``, the step checks of the tests and
+    ``chip_smoke.py``, is imported by no module of the package."""
+    harness = "acvae_tpu_torch.parallel.parity"
+    users = []
+    for path in SOURCES[:-1]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module] + [f"{node.module}.{a.name}"
+                                         for a in node.names]
+            else:
+                continue
+            if any(n == harness or n.startswith(harness + ".") for n in names):
+                users.append(str(path.relative_to(ROOT)))
+    assert not users, f"{users} import the parity harness"
