@@ -25,37 +25,45 @@
 // (bytes), 1.28 ms for block 1's 64->64 (bytes), 0.63 / 1.25 ms for each
 // later block's two convs (operations); 7.6 ms for the 8.
 //
-// Body (Ci a multiple of 64): an implicit GEMM on the int8 tensor cores,
-// M = N*H*W output pixels, N = Co, K = 9*Ci ordered (tap, ci), so that an
-// OHWI weight row is one output channel's K bytes, the K-major operand of
-// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 (SASS IMMA).  A block owns 128
-// output pixels (whole image rows where W <= 128: 2, 4, 8 and 16 rows in
-// Cnn10's four blocks) and 128 output channels (64 where Co is not a
-// multiple of 128, and for Co = 64).  Eight warps (four for 64 channels)
-// each compute 64 pixels x 32 channels.  The K loop walks 32 input channels
-// at a time through a 2-stage cp.async pipeline (16-byte copies): each
-// stage holds the tile's (rows+2) x (W+2) input halo and the 9 taps'
-// weights, so that chunk c+1 loads while chunk c multiplies.  At two stages
-// (99 KB) two blocks of 128 channels share an SM (three of 64), and one
-// block's barriers and epilogue overlap another's multiplies; a third
-// stage, at one block an SM, was slower.  A tap (dy,dx) reads the halo
-// shifted by dy*(W+2)+dx pixels: ldmatrix takes one row address a lane, so
-// the shift costs nothing, and it yields the m16n8k32 A fragment directly.
-// Halo pixels and weight rows are 32 B; the two 16-byte halves are swapped
-// on every other group of 4 rows, so the 8 rows that one ldmatrix phase
-// reads fall on distinct banks.  The epilogue is the affine and requantize
-// above, staged through shared memory so that each thread stores 16
-// contiguous bytes.  What bounds it: the tensor cores' issue rate through
-// mma.sync, then the weight tile's L2 traffic (~45 KB per 9.4 MOP a block
-// and chunk).  ptxas (chip_smoke.py's build line): 128 registers for 128
-// channels (68 B of spill stores), 166 for 64, up to 98,816 B of dynamic
-// shared memory at the largest halo.
-// wgmma (m64nNk32, A from registers, B from shared memory through a
-// no-swizzle K-major descriptor: LBO = 16*BN between the K halves, SBO =
-// 128 between 8-channel groups) was bit-exact but no faster: ptxas
-// serialises wgmmas whose A registers ldmatrix writes inside the pipeline
-// (C7513), and A from shared memory needs a halo without the row gaps
-// that the taps' shifts read across.  It is the next step (ROADMAP B2).
+// Body (Ci a multiple of 64): an implicit GEMM on wgmma, Hopper's
+// warpgroup MMA (m64nNk32 .s32.s8.s8, SASS IGMMA), with both operands read
+// from shared memory through descriptors.  M = N*H*W output pixels
+// flattened over the whole batch (a tile may span images, so narrow maps
+// fill every row: Cnn14's 32x2 maps run as dense as Cnn10's 1024x64), N =
+// Co, K = 9*Ci ordered (tap, ci), so that an OHWI weight row is one output
+// channel's K bytes.  A tile is 128 pixels x BN channels (BN = 256 where Co
+// allows, else 128 or 64), a warpgroup 64 pixels of it.
+//   Loads: TMA under mbarriers, one producer thread (warp 8) keeping a
+// ring of 3-24 stages in flight; a stage is one tap's K chunk of 128 (64
+// where Ci is not a multiple of 128) channels: the tile's pixels as an
+// im2col box (the traversal runs across W, H and N; outside an image it
+// reads 0) and their weight tile, both with the TMA swizzle that the
+// descriptors name (128 or 64 bytes).  The grid is persistent, one block an
+// SM; a block keeps one channel block and walks pixel tiles, so the next
+// tile's loads run during a tile's epilogue.
+//   HALO (K chunks of 64, BN <= 128, where a 256-pixel tile is whole rows
+// of one image and W % 8 == 0: Cnn10's 64-channel convs): the block's
+// weights are loaded once and stay in shared memory, and a stage is a tiled
+// box of the tile's rows plus one above and below, shifted by dx - 1, so
+// that tap (dy, dx) is the same box from row dy*W on.  A tile then takes 3
+// boxes of 256 + 2W rows instead of 18 of 128.
+//   The offset coding's pad (-128) where TMA reads 0: a border pixel adds
+// pad * the sum of its outside taps' weights, from a table of the 16 border
+// classes x BN channels built in the prologue (no launch, exact in int32).
+//   Epilogue: the affine and requantize above, staged through shared memory
+// (f32 rows of 256 channels in two halves) so that each thread stores 16
+// contiguous bytes.
+//   What bounds it: the TMA's rate of box rows, ~1 row of 64 or 128 bytes
+// per ~3.6 cycles an SM whatever its length (at the 128-byte rows of the
+// K chunks of 128 that is ~8 TB/s of L2 reads), so the tiles and the halo
+// are sized to load fewer rows per MAC; then the tensor cores (the convs of
+// 512 channels and more run at 80-85% of 1,979 TOP/s).  ptxas
+// (chip_smoke.py's build line): 88-168 registers, no spill, up to 232,448
+// bytes of dynamic shared memory.  An earlier wgmma with A in registers
+// was serialised by ptxas (C7513); A from shared memory is not.  The host
+// encodes the two tensor maps at each launch with the driver's
+// cuTensorMapEncodeIm2col / cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPointByVersion, so the library links cudart alone.
 //
 // Stem (Ci = 1): bound by the bytes it writes (64 per pixel).  A block
 // walks tiles of as many whole rows (of up to 128 columns) as a 2 KB input
@@ -77,9 +85,11 @@
 // 0.80 + 0.40 + 0.20 = 1.4 ms for blocks 1-3 of a batch.  One thread per 16
 // channels of an output pixel: four 16-byte loads, one 16-byte store.
 //
-// Offsets into the activations are 64-bit: block 1's tensors at batch 512
-// hold exactly 2^31 elements.
+// Offsets into the activations are 64-bit (the tensor maps' strides, the
+// stores' offsets): block 1's tensors at batch 512 hold exactly 2^31
+// elements.
 
+#include <cuda.h>            // CUtensorMap and its enums (no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,26 +128,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void mma_s8_k16(int (&d)[4], const uint32_t (&a)[2],
                                            uint32_t b) {
   asm volatile(
@@ -147,190 +137,477 @@ __device__ __forceinline__ void mma_s8_k16(int (&d)[4], const uint32_t (&a)[2],
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
 }
 
-// byte offset of the 16-byte half k of 32-byte row `row`, swizzled
-__device__ __forceinline__ int swz(int row, int k) {
-  return row * 32 + ((k ^ ((row >> 2) & 1)) << 4);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of this parity.  A wait
+// that never ends is a fault of the pipeline's protocol: trap (a launch
+// error) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// TMA, im2col mode: the tile's BM pixels of one tap, KC channels each,
+// from the pixel traversal that starts at (n, h, w) (the tap (0,0) input
+// of the tile's first output pixel) with the tap's offsets (dx, dy)
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
+                                           uint32_t bar, int c, int w, int h, int n,
+                                           uint16_t dx, uint16_t dy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(dx), "h"(dy)
+      : "memory");
+}
+
+// TMA, tiled mode: the box at (c, w, h, n) of a 4-D map
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c, int w, int h, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+// TMA, tiled mode: the box at (x, y) of a 2-D map
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile whose rows are KC bytes (64 or 128),
+// stored as TMA writes them with the swizzle of that width: 8-row groups
+// 8*KC bytes apart (SBO), the layout's swizzle in bits 62-63.  Stepping K
+// by 32 bytes adds 2 to the start address field.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, int kc) {
+  const uint64_t layout = kc == 128 ? 1 : 2;   // 128B or 64B swizzle
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((8 * kc) >> 4) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmmas
+template <int R>
+__device__ __forceinline__ void acc_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x N] += A[64 x 32] * B[N x 32]^T, s8 x s8 -> s32, both from shared
+// memory (SASS IGMMA)
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+
+__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]),
+        "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]),
+        "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]),
+        "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 256) wgmma_n256(d, da, db);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db);
+  else wgmma_n64(d, da, db);
 }
 
 // ---------------------------------------------------------------- body
-constexpr int BM = 128;                    // output pixels a block
-constexpr int KC = 32;                     // input channels a stage
-constexpr int STAGES = 2;
+constexpr int BM = 128;                    // output pixels a tile
+constexpr int BODY_THREADS = 384;          // 2 consumer warpgroups, 1 producer
+constexpr int MAX_STAGES = 24;
 
-struct ConvGeom {
-  int H, W, Ci, Co;
-  int tw, rows;        // the pixel tile: rows x tw, rows * tw <= BM
-  int hw2, hp;         // halo width tw + 2, halo pixels (rows + 2) * hw2
-  int tiles_h, tiles_w, nco;
-  int halo_bytes, stage_bytes;
+struct BodyGeom {
+  int M, H, W, Ci, Co;   // M = N*H*W output pixels (< 2^31)
+  int m_tiles, nco;      // pixel tiles, channel blocks
+  int per_co;            // blocks a channel block: grid = per_co * nco
+  int stages, sbytes;    // ring stages, bytes a stage
+  int wres;              // bytes of the resident weights (HALO)
+  int mode, pad;
+  int ostride;           // bytes a staged output row
 };
 
-template <int BN>
-__device__ __forceinline__ void load_stage(
-    uint8_t* s_halo, uint8_t* s_w, const int8_t* __restrict__ x,
-    const int8_t* __restrict__ w, const ConvGeom& g, long long img, int h0,
-    int w0, int co0, int kc0, int pad_word) {
-  constexpr int NT = 2 * BN;
-  for (int e = threadIdx.x; e < g.hp * 2; e += NT) {
-    const int hp = e >> 1, k = e & 1;
-    const int hr = hp / g.hw2, hc = hp - hr * g.hw2;
-    const int hh = h0 - 1 + hr, ww = w0 - 1 + hc;
-    uint8_t* dst = s_halo + swz(hp, k);
-    if (hh >= 0 && hh < g.H && ww >= 0 && ww < g.W) {
-      cp_async16(smem_u32(dst), x + (img + static_cast<long long>(hh) * g.W + ww) * g.Ci
-                                    + kc0 + k * 16);
-    } else {
-      *reinterpret_cast<int4*>(dst) = make_int4(pad_word, pad_word, pad_word, pad_word);
+// the sum of the four signed bytes of v (no IDP4A)
+__device__ __forceinline__ int byte_sum(uint32_t v) {
+  const uint32_t s = (v & 0x00FF00FFu) + ((v >> 8) & 0x00FF00FFu);
+  return static_cast<int>((s & 0xFFFFu) + (s >> 16)) - 256 * __popc(v & 0x80808080u);
+}
+
+// The affine and requantize of one warpgroup's 64 pixels x the columns
+// 8*J0 .. 8*(J0+NJ) of its accumulators into its staging rows (acc[4j + 2h
+// + c] is row 16*wq + lane/4 + 8h, column 8j + 2*(lane%4) + c: the wgmma
+// accumulator layout), then 16-byte stores of the staged rows.
+template <int MODE, int BN, int J0 = 0, int NJ = BN / 8>
+__device__ __forceinline__ void epilogue(const int (&acc)[BN / 2], uint8_t* stg,
+                                         const float* sA, const float* sB, void* out, int M,
+                                         int Co, int ostride, int pbase, int co0, int wg,
+                                         int wq, int lane) {
+  constexpr int ES = MODE >= 2 ? 4 : 1, VEC = NJ * 8 * ES / 16;
+#pragma unroll
+  for (int j = J0; j < J0 + NJ; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float a0 = sA[col], a1 = sA[col + 1], b0 = sB[col], b1 = sB[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float y0 = affine(acc[4 * j + 2 * h], a0, b0);
+      const float y1 = affine(acc[4 * j + 2 * h + 1], a1, b1);
+      uint8_t* dst = stg + (16 * wq + (lane >> 2) + 8 * h) * ostride + (col - 8 * J0) * ES;
+      if (MODE >= 2) {
+        *reinterpret_cast<float2*>(dst) = MODE == 2
+            ? make_float2(fmaxf(y0, 0.0f), fmaxf(y1, 0.0f)) : make_float2(y0, y1);
+      } else {
+        *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
+            __byte_perm(code_bits<MODE>(y0), code_bits<MODE>(y1), 0x0040));
+      }
     }
   }
-  // row tap*BN + n holds channel co0+n's 32 bytes of tap `tap`; consecutive
-  // threads read the two halves, then the next tap, of one channel
-  for (int e = threadIdx.x; e < 9 * BN * 2; e += NT) {
-    const int k = e & 1, tn = e >> 1;
-    const int n = tn / 9, tap = tn - n * 9;
-    cp_async16(smem_u32(s_w + swz(tap * BN + n, k)),
-               w + (static_cast<long long>(co0 + n) * 9 + tap) * g.Ci + kc0 + k * 16);
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  for (int e = lane + 32 * wq; e < 64 * VEC; e += 128) {
+    const int row = e / VEC, q = e - row * VEC;
+    const int p = pbase + row;
+    if (p >= M) continue;
+    *reinterpret_cast<int4*>(static_cast<uint8_t*>(out)
+        + (static_cast<long long>(p) * Co + co0 + 8 * J0) * ES + q * 16) =
+        *reinterpret_cast<const int4*>(stg + row * ostride + q * 16);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // staging free again
+}
+
+// The border class of pixel p: bit 0 top row, 1 bottom row, 2 left
+// column, 3 right column (0 inside the image).
+__device__ __forceinline__ int border_class(int p, int H, int W) {
+  const int hw = H * W, rem = p % hw, h = rem / W, w = rem - h * W;
+  return (h == 0) | (h == H - 1) << 1 | (w == 0) << 2 | (w == W - 1) << 3;
+}
+
+// The pad's correction, then the epilogue, of one warpgroup's 64 pixels
+// from pbase on.
+template <int BN>
+__device__ __forceinline__ void finish(int (&acc)[BN / 2], uint8_t* stg, const float* sA,
+                                       const float* sB, const int* sC, void* out,
+                                       const BodyGeom& g, int pbase, int co0, int wg,
+                                       int wq, int lane) {
+  if (g.pad != 0) {   // the offset coding's pad, on border pixels
+    const int* c2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = pbase + 16 * wq + (lane >> 2) + 8 * h;
+      c2[h] = sC + (p < g.M ? border_class(p, g.H, g.W) : 0) * BN;
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int2 c = *reinterpret_cast<const int2*>(c2[h] + col);
+        acc[4 * j + 2 * h] += c.x;
+        acc[4 * j + 2 * h + 1] += c.y;
+      }
+    }
+  }
+  constexpr int H8 = BN == 256 ? 16 : BN / 8;
+  const int M = g.M, Co = g.Co, os = g.ostride;
+  switch (g.mode) {
+    case 0: epilogue<0, BN>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane); break;
+    case 1: epilogue<1, BN>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane); break;
+    // f32 rows of 256 channels go through the staging rows in halves
+    case 2:
+      epilogue<2, BN, 0, H8>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane);
+      if constexpr (BN == 256)
+        epilogue<2, BN, H8, H8>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane);
+      break;
+    default:
+      epilogue<3, BN, 0, H8>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane);
+      if constexpr (BN == 256)
+        epilogue<3, BN, H8, H8>(acc, stg, sA, sB, out, M, Co, os, pbase, co0, wg, wq, lane);
+      break;
   }
 }
 
-// grid: N * tiles_h * tiles_w * (Co / BN) blocks, the channel block fastest
-// (neighbouring blocks share their halo in L2); 2*BN threads; two blocks an
-// SM for 128 channels (128 registers), three for 64.
-template <int MODE, int BN>
-__global__ void __launch_bounds__(2 * BN, BN == 128 ? 2 : 3)
-conv3x3_i8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+
+// grid: per_co * nco blocks of 384 threads, one an SM; block b owns output
+// channels co0 = (b % nco) * BN and walks the pixel tiles b / nco, + per_co,
+// ...  Warps 0-7 (two warpgroups) multiply and store, each half of a tile's
+// pixels; warp 8 loads.  A tile is 128 pixels, and a stage of the ring
+// holds a tap's K chunk of them (an im2col box) and of the BN channels'
+// weights.  HALO: a tile is 256 pixels of whole image rows (two m64 blocks
+// a warpgroup), the block's weights (all 9*Ci of its BN channels) are
+// loaded once and stay in shared memory, and a stage holds the rows above
+// to below the tile, shifted by one dx (a tiled box with zeros outside the
+// image): tap (dy, dx) reads it from row dy*W on, so a tile takes 3 loads a
+// K chunk instead of 18.
+template <int BN, int KC, bool HALO>
+__global__ void __launch_bounds__(BODY_THREADS, 1)
+conv3x3_i8_kernel(const __grid_constant__ CUtensorMap tx,
+                  const __grid_constant__ CUtensorMap tw, const int8_t* __restrict__ w,
                   const float* __restrict__ A, const float* __restrict__ B,
-                  void* __restrict__ out, const ConvGeom g, int pad_word) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int NT = 2 * BN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;     // warp tile: 64 pixels x 32 channels
-  long long t = blockIdx.x;
-  const int co0 = static_cast<int>(t % g.nco) * BN;
-  t /= g.nco;
-  const int tw_i = static_cast<int>(t % g.tiles_w);
-  t /= g.tiles_w;
-  const int th_i = static_cast<int>(t % g.tiles_h);
-  const long long n = t / g.tiles_h;
-  const int h0 = th_i * g.rows, w0 = tw_i * g.tw;
-  const long long img = n * g.H * g.W;
+                  void* __restrict__ out, const BodyGeom g) {
+  constexpr int A_BYTES = BM * KC;
+  constexpr int MB = HALO ? 2 : 1, TM = MB * BM;   // m64 blocks a warpgroup, tile pixels
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // the tiles must sit on the swizzle's 1024-byte atoms
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t wres = smem_u32(smem);
+  uint8_t* staging = smem + g.wres + g.stages * g.sbytes;
+  float* sA = reinterpret_cast<float*>(staging + 2 * 64 * g.ostride);
+  float* sB = sA + BN;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sB + BN);   // full, empty, weights
+  int* sC = reinterpret_cast<int*>(bars + 2 * MAX_STAGES + 1);  // with a pad only
+  const uint32_t ring = wres + g.wres, full0 = smem_u32(bars);
+  const uint32_t empty0 = full0 + 8 * MAX_STAGES, wbar = empty0 + 8 * MAX_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int co0 = static_cast<int>(blockIdx.x % g.nco) * BN;
+  const int m_first = static_cast<int>(blockIdx.x / g.nco);
 
-  // this lane's ldmatrix rows: A, the halo pixel of output pixel m at tap
-  // (0,0) for each of the warp's four 16-pixel blocks; B, the channel
-  int a_hp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = wm * 64 + i * 16 + (lane & 15);
-    int r = m / g.tw, c = m - r * g.tw;
-    if (r >= g.rows) r = c = 0;                // past the tile: not stored
-    a_hp[i] = r * g.hw2 + c;
-  }
-  const int ka = lane >> 4, kb = (lane >> 3) & 1;
-  int b_off[2];
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-    b_off[jj] = swz(wn * 32 + jj * 16 + (lane & 7) + ((lane >> 4) << 3), kb);
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int nchunks = g.Ci / KC;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks)
-      load_stage<BN>(smem + s * g.stage_bytes, smem + s * g.stage_bytes + g.halo_bytes,
-                     x, w, g, img, h0, w0, co0, s * KC, pad_word);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // chunk c is in; every warp is done with chunk c-1
-    {
-      const int cn = c + STAGES - 1;
-      if (cn < nchunks) {
-        uint8_t* st = smem + (cn % STAGES) * g.stage_bytes;
-        load_stage<BN>(st, st + g.halo_bytes, x, w, g, img, h0, w0, co0, cn * KC,
-                       pad_word);
-      }
-      cp_async_commit();
+  if (tid == 0) {
+    for (int s = 0; s < g.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);          // lane 0 of each consumer warp
     }
-    const uint8_t* st = smem + (c % STAGES) * g.stage_bytes;
-    const uint32_t halo = smem_u32(st), wts = smem_u32(st + g.halo_bytes);
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = (tap / 3) * g.hw2 + tap % 3;
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ldsm_x4(halo + swz(a_hp[i] + shift, ka), a[i]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t r[4];
-        ldsm_x4(wts + tap * BN * 32 + b_off[jj], r);
-        b[2 * jj][0] = r[0];
-        b[2 * jj][1] = r[1];
-        b[2 * jj + 1][0] = r[2];
-        b[2 * jj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<0>();
-  __syncthreads();   // the stages are free: stage the outputs there
-
-  constexpr int ES = MODE >= 2 ? 4 : 1;        // output element bytes
-  constexpr int OS = BN * ES + 16;             // staged row stride
-  const int gq = lane >> 2, tq = lane & 3;
+  for (int i = tid; i < BN; i += BODY_THREADS) {
+    sA[i] = __ldg(A + co0 + i);
+    sB[i] = __ldg(B + co0 + i);
+  }
+  if (g.pad != 0) {
+    // TMA fills the border with 0, so a pixel of border class c adds
+    // sC[c][n] = pad * sum over its outside taps of sum_ci w[co0+n, tap, ci]
+    for (int n = tid; n < BN; n += BODY_THREADS) {
+      const int4* p = reinterpret_cast<const int4*>(
+          w + static_cast<long long>(co0 + n) * 9 * g.Ci);
+      int ws[9];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = wn * 32 + j * 8 + 2 * tq;
-    const float a0 = __ldg(A + co0 + col), a1 = __ldg(A + co0 + col + 1);
-    const float b0 = __ldg(B + co0 + col), b1 = __ldg(B + co0 + col + 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = wm * 64 + i * 16 + gq + 8 * half;
-        const float y0 = affine(acc[i][j][2 * half], a0, b0);
-        const float y1 = affine(acc[i][j][2 * half + 1], a1, b1);
-        uint8_t* dst = smem + m * OS + col * ES;
-        if (MODE >= 2) {
-          *reinterpret_cast<float2*>(dst) = MODE == 2
-              ? make_float2(fmaxf(y0, 0.0f), fmaxf(y1, 0.0f)) : make_float2(y0, y1);
-        } else {
-          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
-              __byte_perm(code_bits<MODE>(y0), code_bits<MODE>(y1), 0x0040));
+      for (int tap = 0; tap < 9; ++tap) {
+        int s = 0;
+        for (int k = 0; k < g.Ci / 16; ++k) {
+          const int4 v = __ldg(p + tap * (g.Ci / 16) + k);
+          s += byte_sum(v.x) + byte_sum(v.y) + byte_sum(v.z) + byte_sum(v.w);
         }
+        ws[tap] = s;
       }
+      for (int c = 0; c < 16; ++c) {
+        int s = 0;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap % 3;
+          if ((dy == 0 && (c & 1)) || (dy == 2 && (c & 2)) || (dx == 0 && (c & 4))
+              || (dx == 2 && (c & 8)))
+            s += ws[tap];
+        }
+        sC[c * BN + n] = g.pad * s;
+      }
+    }
   }
   __syncthreads();
-  constexpr int VEC = BN * ES / 16;            // 16-byte vectors a pixel
-  const int npx = g.rows * g.tw;
-  for (int e = tid; e < npx * VEC; e += NT) {
-    const int p = e / VEC, q = e - p * VEC;
-    const int r = p / g.tw, c = p - r * g.tw;
-    const int hh = h0 + r, ww = w0 + c;
-    if (hh >= g.H || ww >= g.W) continue;
-    const int4 v = *reinterpret_cast<const int4*>(smem + p * OS + q * 16);
-    uint8_t* dst = static_cast<uint8_t*>(out)
-        + ((img + static_cast<long long>(hh) * g.W + ww) * g.Co + co0) * ES + q * 16;
-    *reinterpret_cast<int4*>(dst) = v;
+
+  const int kchunks = g.Ci / KC, kiters = (HALO ? 3 : 9) * kchunks;
+  if (warp >= 8) {
+    // ------------------------------------------------ producer: one thread
+    if (warp == 8 && lane == 0) {
+      const int hw = g.H * g.W;
+      int stage = 0;
+      uint32_t phase = 0;
+      if (HALO) {   // the weights, once: chunk (tap, kc) at (tap*kchunks + kc)*BN*KC
+        mbar_expect_tx(wbar, 9 * g.Ci * BN);
+        for (int i = 0; i < 9 * kchunks; ++i)
+          tma_2d(wres + i * BN * KC, &tw, wbar, i * KC, co0);
+      }
+      for (int m = m_first; m < g.m_tiles; m += g.per_co) {
+        const int p0 = m * TM, n = p0 / hw, rem = p0 - n * hw;
+        const int h0 = rem / g.W, w0 = rem - h0 * g.W;
+        // stage it: HALO (dx, kc), a halo box; else (tap, kc), an im2col
+        // box and its weight tile
+        for (int it = 0; it < kiters; ++it) {
+          const uint32_t full = full0 + 8 * stage, st = ring + stage * g.sbytes;
+          const int t = it / kchunks, kc = it - t * kchunks;
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full, g.sbytes);
+          if (HALO) {
+            tma_4d(st, &tx, full, kc * KC, t - 1, h0 - 1, n);
+          } else {
+            tma_im2col(st, &tx, full, kc * KC, w0 - 1, h0 - 1, n,
+                       static_cast<uint16_t>(t % 3), static_cast<uint16_t>(t / 3));
+            tma_2d(st + A_BYTES, &tw, full, t * g.Ci + kc * KC, co0);
+          }
+          if (++stage == g.stages) { stage = 0; phase ^= 1; }
+        }
+      }
+      // stay until the consumers have released every stage
+      for (int s = 0; s < g.stages; ++s) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);
+        if (++stage == g.stages) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    // ------------------------------------------------ consumers
+    const int wg = warp >> 2, wq = warp & 3;
+    uint8_t* stg = staging + wg * 64 * g.ostride;
+    int stage = 0;
+    uint32_t phase = 0;
+    if (HALO) mbar_wait(wbar, 0);
+    for (int m = m_first; m < g.m_tiles; m += g.per_co) {
+      int acc[MB][BN / 2];
+#pragma unroll
+      for (int b = 0; b < MB; ++b) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[b][i] = 0;
+        acc_fence(acc[b]);
+      }
+      int prev = 0;
+      for (int it = 0; it < kiters; ++it) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const uint32_t st = ring + stage * g.sbytes;
+        wgmma_fence();
+        if (HALO) {   // stage it = (dx, kc): the taps (0..2, dx)
+          const int dx = it / kchunks, kc = it - dx * kchunks;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const uint64_t db = gmma_desc(wres + ((dy * 3 + dx) * kchunks + kc) * BN * KC, KC);
+#pragma unroll
+            for (int b = 0; b < MB; ++b) {
+              const uint64_t da = gmma_desc(st + (dy * g.W + (wg * MB + b) * 64) * KC, KC);
+#pragma unroll
+              for (int kk = 0; kk < KC / 32; ++kk)
+                wgmma_s8<BN>(acc[b], da + 2 * kk, db + 2 * kk);
+            }
+          }
+        } else {
+          const uint64_t da = gmma_desc(st + wg * 64 * KC, KC);
+          const uint64_t db = gmma_desc(st + A_BYTES, KC);
+#pragma unroll
+          for (int kk = 0; kk < KC / 32; ++kk) wgmma_s8<BN>(acc[0], da + 2 * kk, db + 2 * kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();                     // the previous stage's wgmmas are done
+        if (it > 0 && lane == 0) mbar_arrive(empty0 + 8 * prev);
+        prev = stage;
+        if (++stage == g.stages) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < MB; ++b) acc_fence(acc[b]);
+      if (lane == 0) mbar_arrive(empty0 + 8 * prev);
+
+      // epilogue: affine and requantize into the staging rows, then
+      // 16-byte stores of whole rows
+#pragma unroll
+      for (int b = 0; b < MB; ++b)
+        finish<BN>(acc[b], stg, sA, sB, sC, out, g, m * TM + (wg * MB + b) * 64, co0, wg,
+                   wq, lane);
+    }
   }
 }
 
@@ -541,35 +818,144 @@ int grid_for(long long total) {
   return static_cast<int>(blocks < max_blocks ? blocks : max_blocks);
 }
 
-ConvGeom body_geom(long long N, int H, int W, int Ci, int Co, int bn) {
-  ConvGeom g;
-  g.H = H; g.W = W; g.Ci = Ci; g.Co = Co;
-  g.tw = W < BM ? W : BM;
-  g.rows = BM / g.tw < H ? BM / g.tw : H;
-  g.hw2 = g.tw + 2;
-  g.hp = (g.rows + 2) * g.hw2;
-  g.tiles_h = (H + g.rows - 1) / g.rows;
-  g.tiles_w = (W + g.tw - 1) / g.tw;
-  g.nco = Co / bn;
-  g.halo_bytes = (g.hp * 32 + 127) / 128 * 128;
-  g.stage_bytes = g.halo_bytes + 9 * bn * 32;
-  return g;
+int max_smem() {
+  int device = 0, bytes = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return bytes;
 }
 
-template <int MODE, int BN>
+// The driver's tensor-map encoders, through the runtime's entry-point query
+// (the library links only cudart, as nvcc does by default).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const int*,
+                                  const int*, cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+void* driver_fn(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(name, &fn, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &q);
+#endif
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? fn : nullptr;
+}
+
+// x [N,H,W,Ci] as an im2col map (a box of BM pixels x KC channels, the
+// traversal's bounding box one pixel inside the border on each side, as a
+// SAME 3x3 conv needs) or, with box_rows, a tiled map (boxes of box_rows
+// rows x W pixels x KC channels); either reads 0 outside the image.  w
+// [Co, 9*Ci] as a tiled map (boxes of BN rows x KC bytes).  All with the
+// swizzle of KC-byte rows.
+template <int BN, int KC>
+cudaError_t body_maps(CUtensorMap* tx, CUtensorMap* tw, const int8_t* x, const int8_t* w,
+                      long long N, int H, int W, int Ci, int Co, int box_rows) {
+  static const EncodeTiled enc_tiled =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  static const EncodeIm2col enc_im2col =
+      reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
+  if (enc_tiled == nullptr || enc_im2col == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapSwizzle swz =
+      KC == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t xdim[4] = {static_cast<cuuint64_t>(Ci), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(N)};
+  const cuuint64_t xstride[3] = {static_cast<cuuint64_t>(Ci),
+                                 static_cast<cuuint64_t>(W) * Ci,
+                                 static_cast<cuuint64_t>(H) * W * Ci};
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const cuuint32_t xbox[4] = {KC, static_cast<cuuint32_t>(W),
+                              static_cast<cuuint32_t>(box_rows), 1};
+  const CUresult xr = box_rows > 0
+      ? enc_tiled(tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(x), xdim, xstride,
+                  xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+      : enc_im2col(tx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<int8_t*>(x), xdim, xstride,
+                   lower, upper, KC, BM, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (xr != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  const cuuint64_t wdim[2] = {static_cast<cuuint64_t>(9) * Ci,
+                              static_cast<cuuint64_t>(Co)};
+  const cuuint64_t wstride[1] = {static_cast<cuuint64_t>(9) * Ci};
+  const cuuint32_t wbox[2] = {KC, BN};
+  if (enc_tiled(tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), wdim,
+                wstride, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Bytes a staged output row: BN codes, or f32 values of at most 128
+// channels (a 256-channel tile stages in halves), and 16 against bank
+// conflicts.
+int staged_row(int BN, int mode) {
+  return (mode >= 2 ? (BN == 256 ? 128 : BN) * 4 : BN) + 16;
+}
+
+// Bytes of shared memory outside the ring: alignment slack, the staging
+// rows, A/B, the barriers, the pad's table.
+int fixed_smem(int BN, int mode, int pad) {
+  return 1024 + 2 * 64 * staged_row(BN, mode) + 2 * BN * 4 + 8 * (2 * MAX_STAGES + 1)
+         + (pad != 0 ? 16 * BN * 4 : 0);
+}
+
+// The halo box's rows, or 0 where the HALO kernel does not apply: K chunks
+// of 64 and BN <= 128 (so that the block's 9*Ci*BN bytes of weights can
+// fit), a tile of 2*BM pixels is whole rows of one image (W divides 2*BM,
+// and 2*BM / W divides H), a row is whole swizzle atoms (W % 8 == 0), and
+// the weights leave room for 3 stages.
+int halo_rows(int BN, int KC, int Ci, int H, int W, int mode, int pad) {
+  const int tm = 2 * BM, rows = W <= tm && tm % W == 0 ? tm / W : 0;
+  if (KC != 64 || BN > 128 || W % 8 != 0 || rows == 0 || H % rows != 0) return 0;
+  const int avail = max_smem() - fixed_smem(BN, mode, pad);
+  return 9 * Ci * BN + 3 * (tm + 2 * W) * KC <= avail ? rows + 2 : 0;
+}
+
+template <int BN, int KC>
 cudaError_t launch_body(const int8_t* x, const int8_t* w, const float* A, const float* B,
-                        void* out, long long N, int H, int W, int Ci, int Co, int pad,
-                        cudaStream_t stream) {
-  const ConvGeom g = body_geom(N, H, W, Ci, Co, BN);
-  const int staged = BM * (BN * (MODE >= 2 ? 4 : 1) + 16);
-  const int smem = STAGES * g.stage_bytes > staged ? STAGES * g.stage_bytes : staged;
-  const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_i8_kernel<MODE, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                        void* out, long long N, int H, int W, int Ci, int Co, int mode,
+                        int pad, cudaStream_t stream) {
+  BodyGeom g;
+  g.M = static_cast<int>(N * H * W);
+  g.H = H; g.W = W; g.Ci = Ci; g.Co = Co;
+  g.nco = Co / BN;
+  g.mode = mode;
+  g.pad = pad;
+  g.ostride = staged_row(BN, mode);
+  const int fixed = fixed_smem(BN, mode, pad), avail = max_smem() - fixed;
+  constexpr bool can_halo = KC == 64 && BN <= 128;
+  const int rows = halo_rows(BN, KC, Ci, H, W, mode, pad);
+  const bool halo = can_halo && rows > 0;
+  const int tm = 2 * BM;
+  g.wres = halo ? 9 * Ci * BN : 0;
+  g.sbytes = halo ? (tm + 2 * W) * KC : (BM + BN) * KC;
+  g.m_tiles = (g.M + (halo ? tm : BM) - 1) / (halo ? tm : BM);
+  const int sms = sm_count();
+  g.per_co = sms / g.nco < g.m_tiles ? sms / g.nco : g.m_tiles;
+  if (g.per_co < 1) g.per_co = 1;
+  g.stages = (avail - g.wres) / g.sbytes;
+  if (g.stages > MAX_STAGES) g.stages = MAX_STAGES;
+  if (g.stages < 3) return cudaErrorInvalidConfiguration;
+  const int smem = fixed + g.wres + g.stages * g.sbytes;
+  CUtensorMap tx, tw;
+  cudaError_t err = body_maps<BN, KC>(&tx, &tw, x, w, N, H, W, Ci, Co, halo ? rows : 0);
   if (err != cudaSuccess) return err;
-  const uint32_t pb = static_cast<uint32_t>(pad) & 0xFFu;
-  const long long blocks = N * g.tiles_h * g.tiles_w * g.nco;
-  conv3x3_i8_kernel<MODE, BN><<<static_cast<unsigned>(blocks), 2 * BN, smem, stream>>>(
-      x, w, A, B, out, g, static_cast<int>(pb * 0x01010101u));
+  auto kernel = conv3x3_i8_kernel<BN, KC, false>;
+  if constexpr (can_halo)
+    if (halo) kernel = conv3x3_i8_kernel<BN, KC, true>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<g.per_co * g.nco, BODY_THREADS, smem, stream>>>(tx, tw, w, A, B, out, g);
   return cudaGetLastError();
 }
 
@@ -605,9 +991,20 @@ cudaError_t launch_conv(const int8_t* x, const int8_t* w, const float* A, const 
                         void* out, long long N, int H, int W, int Ci, int Co, int pad,
                         cudaStream_t stream) {
   if (Ci == 1) return launch_stem<MODE>(x, w, A, B, out, N, H, W, Co, pad, stream);
+  // BN = 256 output channels a tile where Co allows (for f32 outputs only
+  // without the pad's table: their staging rows leave the ring 3 stages),
+  // else 128, else 64; K chunks of 128 input channels where Ci allows, else 64
+  if (Co % 256 == 0 && (MODE < 2 || pad == 0))
+    return Ci % 128 == 0
+        ? launch_body<256, 128>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream)
+        : launch_body<256, 64>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream);
   if (Co % 128 == 0)
-    return launch_body<MODE, 128>(x, w, A, B, out, N, H, W, Ci, Co, pad, stream);
-  return launch_body<MODE, 64>(x, w, A, B, out, N, H, W, Ci, Co, pad, stream);
+    return Ci % 128 == 0
+        ? launch_body<128, 128>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream)
+        : launch_body<128, 64>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream);
+  return Ci % 128 == 0
+      ? launch_body<64, 128>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream)
+      : launch_body<64, 64>(x, w, A, B, out, N, H, W, Ci, Co, MODE, pad, stream);
 }
 
 }  // namespace
@@ -624,11 +1021,8 @@ extern "C" int conv3x3_i8_launch(const void* x, const void* w, const void* A,
   if (!ci_ok || Co % 64 != 0 || Co <= 0 || mode < 0 || mode > 3 ||
       pad_code < -128 || pad_code > 127)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Ci != 1) {
-    const ConvGeom g = body_geom(N, H, W, Ci, Co, Co % 128 == 0 ? 128 : 64);
-    if (N * g.tiles_h * g.tiles_w * g.nco >= (1LL << 31))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (Ci != 1 && (N * H * W >= (1LL << 31) || reinterpret_cast<uintptr_t>(w) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int8_t* xi = static_cast<const int8_t*>(x);
   const int8_t* wi = static_cast<const int8_t*>(w);
   const float* Af = static_cast<const float*>(A);

@@ -5,10 +5,11 @@ They replace ``acvae_tpu/models/quant.py`` ``QuantPannEncoder._conv`` with
 the affine and ``_requantize`` after it (:424-453), and ``_avgpool_i8``
 (:86-99), which XLA builds on the TPU (no Pallas counterpart; PyTorch has no
 CUDA int8 conv).  The CUDA source is ``csrc/conv_i8.cu``: an implicit-GEMM
-conv on the int8 tensor cores (``mma.sync`` s8, ``cp.async`` pipeline) with
-the requantize in its epilogue, a stem kernel for Ci = 1 that stages its
-input halo once and writes 16-byte vectors, and a vectorised pool; see the
-source for the bounds and the design.
+conv on the int8 tensor cores (``wgmma`` s8 from shared memory, fed by TMA
+under mbarriers, pixel tiles over the whole batch) with the requantize in
+its epilogue, a stem kernel for Ci = 1 that stages its input halo once and
+writes 16-byte vectors, and a vectorised pool; see the source for the
+bounds and the design.
 
 Each kernel is an operator (``torch.ops.acvae_tpu_torch.conv3x3_i8`` and
 ``.avgpool2x2_i8``), so an exported decode (``export.py``) calls it.  On a
@@ -63,8 +64,9 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if tensors[0].data_ptr() % 16:
-        raise ValueError(f"{name}: the activation must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in tensors[:2]):
+        raise ValueError(f"{name}: the activation and the weights must be "
+                         f"16-byte aligned")
 
 
 def _check_device(name: str, *tensors: torch.Tensor) -> None:

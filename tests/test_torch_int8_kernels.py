@@ -14,7 +14,8 @@ import torch
 from acvae_tpu_torch.ops.cuda import build as tbuild
 from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
                                                      pack_conv3x3_weight)
-from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
+from acvae_tpu_torch.ops.int8 import (avgpool2x2_i8_ref, conv3x3_i8_ref, fma_f32,
+                                      requantize_ref)
 
 
 def conv_case(ci, co, big, seed):
@@ -72,6 +73,53 @@ def test_wrappers_check_inputs():
         avgpool2x2_i8(meta[0])
 
 
+def border_class_conv(x, w_hwio, pad):
+    """The conv body's arithmetic for a nonzero pad code: the int accumulators
+    of the zero-filled conv (what its TMA loads read outside the image), plus
+    pad times a table of 16 border classes (bit 0 top row, 1 bottom row, 2
+    left column, 3 right column) x Co, each the sum of the weights of the
+    taps that class has outside the image."""
+    N, H, W, Ci = x.shape
+    Co = w_hwio.shape[3]
+    wsum = w_hwio.to(torch.int64).sum(dim=2)                 # [3, 3, Co]
+    table = torch.zeros(16, Co, dtype=torch.int64)
+    for c in range(16):
+        for dy in range(3):
+            for dx in range(3):
+                if ((dy == 0 and c & 1) or (dy == 2 and c & 2)
+                        or (dx == 0 and c & 4) or (dx == 2 and c & 8)):
+                    table[c] += wsum[dy, dx]
+    h, w = torch.arange(H)[:, None], torch.arange(W)[None, :]
+    cls = ((h == 0).long() | (h == H - 1).long() << 1
+           | (w == 0).long() << 2 | (w == W - 1).long() << 3)
+    acc = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).double(),
+                                     w_hwio.permute(3, 2, 0, 1).double(),
+                                     padding=1)
+    return acc.permute(0, 2, 3, 1).long() + pad * table[cls]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [(2, 5, 7, 16, 8), (1, 1, 1, 8, 8),
+                                         (3, 1, 6, 8, 16), (2, 4, 1, 16, 8)])
+def test_border_class_pad_correction_matches_plain(n, h, w, ci, co):
+    """The pad correction of the conv body (``csrc/conv_i8.cu``), emulated:
+    exact against the plain version's -128 pad, every corner and edge, H = 1
+    and W = 1 included."""
+    rng = np.random.default_rng(n * 100 + h * 10 + w)
+    x = torch.tensor(rng.integers(-128, 128, size=(n, h, w, ci)).astype(np.int8))
+    wt = torch.tensor(rng.integers(-127, 128, size=(3, 3, ci, co)).astype(np.int8))
+    A = torch.tensor((rng.uniform(0.5, 1.5, size=co) * 40
+                      / (np.sqrt(9 * ci) * 73.0 * 73.0)).astype(np.float32))
+    B = torch.tensor((rng.normal(size=co) * 20).astype(np.float32))
+    acc = border_class_conv(x, wt, -128)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2).double(), (1, 1, 1, 1),
+                                 value=-128.0)
+    ref = torch.nn.functional.conv2d(xp, wt.permute(3, 2, 0, 1).double())
+    assert torch.equal(acc, ref.permute(0, 2, 3, 1).long())
+    y = fma_f32(acc.float(), A.expand(acc.shape), B.expand(acc.shape))
+    assert torch.equal(requantize_ref(y, "offset"),
+                       conv3x3_i8_ref(x, wt, A, B, "offset", -128))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -92,16 +140,30 @@ def test_conv3x3_i8_kernel_matches_plain(card, ci, co, mode, pad):
 
 
 # the kernels' tiles' ragged cases (chip_smoke.py's CONV_EDGES): H*W not a
-# multiple of the body's 128-pixel tile, W above and below its width, Co =
-# 192 against a 128-channel tile, Ci = 192 against the 3-stage pipeline, the
-# stem's tile edges; every mode, pad -128 (N, H, W, Ci, Co, mode, pad)
+# multiple of the body's 128-pixel tile, W above and below 128, Co = 192
+# against a 128-channel tile, Ci = 192 (three K chunks of 64), the stem's
+# tile edges; every mode, pad -128 (N, H, W, Ci, Co, mode, pad)
 TILE_EDGES = [
     (2, 11, 10, 64, 128, "sym", 0), (2, 3, 150, 64, 128, "offset", -128),
     (1, 5, 129, 64, 64, "f32", -128), (2, 40, 3, 64, 128, "f32relu", -128),
     (2, 20, 16, 64, 192, "sym", -128), (2, 9, 70, 128, 192, "offset", 0),
     (2, 17, 24, 192, 128, "f32", -128), (2, 8, 8, 192, 64, "sym", 0),
     (2, 5, 200, 1, 64, "offset", -128), (2, 13, 7, 1, 192, "f32", -128),
-    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0)]
+    (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0),
+    # the body's pixel tiles over the flattened batch: tiles across images,
+    # a batch below one tile, W = 1, H = 1, mostly-border maps under the
+    # -128 pad, Co = 192, Ci = 64 and 2048
+    (3, 7, 9, 64, 64, "sym", 0), (5, 13, 11, 128, 128, "offset", -128),
+    (1, 5, 7, 64, 128, "f32", -128), (2, 3, 3, 128, 64, "offset", -128),
+    (4, 37, 1, 64, 128, "offset", -128), (3, 1, 45, 128, 64, "f32relu", -128),
+    (2, 1, 1, 64, 64, "offset", -128), (3, 4, 4, 256, 128, "offset", -128),
+    (3, 11, 7, 128, 192, "offset", -128), (2, 7, 5, 2048, 64, "offset", -128),
+    (2, 5, 3, 2048, 192, "f32", 0), (3, 10, 6, 64, 256, "sym", -128),
+    # whole-row tiles with resident weights (one halo box a dx): W = 8,
+    # 16, 32, 128, 256, Co = 192, Ci = 192; 128 channels take the ring
+    (2, 32, 8, 64, 128, "offset", -128), (2, 4, 128, 64, 64, "sym", -128),
+    (3, 32, 16, 64, 192, "f32", -128), (1, 8, 32, 192, 64, "offset", -128),
+    (1, 3, 256, 64, 64, "sym", 0), (2, 16, 16, 128, 128, "offset", -128)]
 
 
 @pytest.mark.cuda
