@@ -1,10 +1,16 @@
-// The int8 serving encoder's conv and pool for Hopper (sm_90a).
+// The int8 serving encoder's stem, conv and pool for Hopper (sm_90a).
 //
-// Replaces acvae_tpu/models/quant.py QuantPannEncoder._conv (:424) with the
-// f32 affine and _requantize (:439) after it, and _avgpool_i8 (:86).  These
-// have no Pallas counterpart: on the TPU, XLA builds them from
-// lax.conv_general_dilated(..., preferred_element_type=int32) plus an
-// elementwise epilogue fused into one s8-producing fusion.
+// Replaces acvae_tpu/models/quant.py QuantPannEncoder._quant_stem (:246)
+// with the stem's _conv after it, _conv (:424) with the f32 affine and
+// _requantize (:439) after it, and _avgpool_i8 (:86).  These have no Pallas
+// counterpart: on the TPU, XLA builds them from lax.conv_general_dilated(...,
+// preferred_element_type=int32) plus an elementwise epilogue fused into one
+// s8-producing fusion.
+//
+// stem_conv3x3_i8: the same conv at Ci = 1 of the codes
+// clip(rint(fma(feats, c1[f], c2[f])), -127, 127) of the f32 log-mel feats
+// [N,T,F] (c1, c2 [F]: bn0's affine over the stem's scale), which it
+// computes as it reads the mel; the border reads code 0.
 //
 // conv3x3_i8: x [N,H,W,Ci] int8 (NHWC), w [Co,3,3,Ci] int8 (OHWI, repacked
 // once at bake time), A/B [Co] float32;
@@ -21,9 +27,10 @@
 //
 // Bound, batch 512 of T 1024 x F 64 (Cnn10 64->512, 8 convs a batch): the
 // larger of 2*N*H*W*9*Ci*Co operations at 1,979 TOP/s (int8 tensor cores)
-// and the bytes of x, w and out at 3.35 TB/s: 0.65 ms for the Ci=1 stem
-// (bytes), 1.28 ms for block 1's 64->64 (bytes), 0.63 / 1.25 ms for each
-// later block's two convs (operations); 7.6 ms for the 8.
+// and the bytes of x, w and out at 3.35 TB/s: 0.68 ms for the fused stem
+// (bytes: the f32 mel read, 64 channels written), 1.28 ms for block 1's
+// 64->64 (bytes), 0.63 / 1.25 ms for each later block's two convs
+// (operations); 7.6 ms for the 8.
 //
 // Body (Ci a multiple of 64): an implicit GEMM on wgmma, Hopper's
 // warpgroup MMA (m64nNk32 .s32.s8.s8, SASS IGMMA), with both operands read
@@ -65,19 +72,22 @@
 // cuTensorMapEncodeIm2col / cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPointByVersion, so the library links cudart alone.
 //
-// Stem (Ci = 1): bound by the bytes it writes (64 per pixel).  A block
-// walks tiles of as many whole rows (of up to 128 columns) as a 2 KB input
-// halo holds (26 rows of 64 in Cnn10) and stages each tile's halo in shared
-// memory once, so every input byte is read from device memory once; the
-// next tile's halo is loaded into registers while this one computes, into
-// the other of two buffers after it.  The 9 products of an output run on
+// Stem (Ci = 1; the fused stem and conv3x3_i8's Ci = 1): bound by the
+// bytes it writes (64 per pixel), but held back by its instructions an
+// output (on an H100 a plain fill_ of its output runs at 3.27 TB/s:
+// PERF.md).  A block walks
+// tiles of as many whole rows (of up to 128 columns) as a 4 KB halo of
+// codes holds (54 rows of 64) and stages each tile's halo in shared memory
+// once, so every input element is read from device memory once; the fused
+// stem's f32 rows arrive by TMA while the previous tile computes and are
+// quantized into codes in the halo.  The 9 products of an output run on
 // the int8 tensor cores (mma.sync m16n8k16, K = the 9 taps padded to 16:
 // one MMA gives 16 pixels x 8 channels): a __dp4a version (3 integer-pipe
 // instructions an output) stayed at twice the bound (PERF.md), and f32
-// FMAs would take 9.  What is left an output is the epilogue,
-// the body's (see code_bits; exact_float stands in for the conversion) in
-// five FP32-pipe instructions, and the stores: each warp stages 16 pixels x 64
-// channels in shared memory, so that each lane stores 16 contiguous bytes.
+// FMAs would take 9.  What is left an output is the epilogue (exact_float,
+// fma.sat, the magic add, an integer min: sat_bits), 3/4 of a byte permute
+// to pack 4 codes a word, and no staging: each lane ends with 16 contiguous
+// channels of a pixel and stores them as one 16-byte vector.
 //
 // avgpool2x2_i8: x [N,H,W,C] int8 -> [N,H/2,W/2,C]: the int32 sum of the
 // 2x2 window, then (s+2)>>2 (arithmetic shift); odd trailing rows and
@@ -121,6 +131,26 @@ __device__ __forceinline__ uint32_t code_bits(float y) {
 constexpr int MAGIC = 0x4B400000;
 __device__ __forceinline__ float exact_float(int acc_magic) {
   return __fsub_rn(__int_as_float(acc_magic), 12582912.0f);
+}
+
+// The stem's modes 0 and 1 with fewer instructions (it is bound by them):
+// z = fma.sat(float(acc), A/256, B/256) is clip(y/256, 0, 1) for y =
+// fma(float(acc), A, B) (scaling by a power of 2 commutes with the one
+// rounding; below 2^-118 the code is 0 either way), z*256 + 1.5*2^23 is
+// 1.5*2^23 + rint(clip(y, 0, 256)) (z*256 is exact), and one integer min
+// brings the top to 127 or 255.  The offset coding adds 1.5*2^23 - 128
+// instead, so that the low byte is already k - 128 = k ^ 0x80.  A NaN
+// saturates to 0, as fmaxf gives.
+__device__ __forceinline__ float fma_sat(float a, float b, float c) {
+  float d;
+  asm("fma.rn.sat.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(a), "f"(b), "f"(c));
+  return d;
+}
+template <int MODE>
+__device__ __forceinline__ uint32_t sat_bits(float z) {
+  constexpr float M = MODE == 0 ? 12582912.0f : 12582784.0f;
+  constexpr int TOP = MODE == 0 ? MAGIC + 127 : MAGIC - 128 + 255;
+  return static_cast<uint32_t>(min(__float_as_int(__fmaf_rn(z, 256.0f, M)), TOP));
 }
 
 // ---------------------------------------------------------------- PTX
@@ -191,6 +221,16 @@ __device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uin
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n)
+      : "memory");
+}
+
+// TMA, tiled mode: the box at (x, y, z) of a 3-D map
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
 
@@ -613,148 +653,258 @@ conv3x3_i8_kernel(const __grid_constant__ CUtensorMap tx,
 
 // ---------------------------------------------------------------- stem
 constexpr int STEM_MAX_CO = 512;
-constexpr int STEM_HALO = 2048;            // halo bytes a tile, at most
-constexpr int STEM_LOADS = STEM_HALO / THREADS;
-constexpr int STEM_MAX_PX = 1792;          // pixels a tile, at most
+constexpr int STEM_HALO = 4096;            // halo codes a tile (bytes), at most
+constexpr int STEM_LOADS = STEM_HALO / THREADS;   // halo elements a thread (no TMA)
+constexpr int STEM_MAX_PX = 3584;          // pixels a tile, at most
+constexpr int STEM_OFF = 4;                // the byte of a halo row at tile column 0
 
 struct StemGeom {
   int H, W, Co, tw, rows, hs, tiles_h, tiles_w;
   long long tiles;
 };
 
+// The stem's input code of one element: an int8 code as it is, or a log-mel
+// value through bn0's affine and the stem scale, c1*x + c2 rounded once (as
+// XLA fuses it), then clip(rint(.), -127, 127) (half to even, as jnp.round).
+__device__ __forceinline__ uint32_t stem_code(int8_t x, const float*, const float*, int) {
+  return static_cast<uint8_t>(x);
+}
+__device__ __forceinline__ uint32_t stem_code(float x, const float* c1, const float* c2,
+                                              int f) {
+  const int q = __float2int_rn(__fmaf_rn(x, __ldg(c1 + f), __ldg(c2 + f)));
+  return static_cast<uint8_t>(max(-127, min(127, q)));
+}
+
 // Ci == 1, on the int8 tensor cores: mma.sync m16n8k16 with K = 4*dy + dx
 // (the 9 taps, each row of 3 padded to 4, and K 12..15 zero), so that one
 // MMA gives 16 pixels x 8 channels.  A pixel's A row for dy is the word of
 // its 3-byte window in halo row r+dy (the fourth byte meets a zero weight);
-// the accumulators start at MAGIC, so that exact_float reads them.  A
-// persistent grid walks the tiles; each warp takes 16 pixels of a tile at a
-// time, and each 64 channels of them it stages through shared memory so
-// that each lane stores 16 contiguous bytes.  The next tile's halo bytes
-// are loaded into registers while this tile computes, and stored into the
-// other of two halo buffers after it.
-template <int MODE>
+// the accumulators start at MAGIC, so that exact_float reads them.  MMA j's
+// column n is channel 16*(n/2) + 2j + n%2 of a block of 64, so that a lane
+// ends with 16 contiguous channels of each of its two pixels and stores
+// each as one 16-byte vector (a warp: 512 contiguous bytes at Co = 64, the
+// stem's), with no staging; the codes' epilogue is sat_bits.  A persistent
+// grid walks tiles of whole rows (of up to 128 columns, a 4 KB halo of
+// codes: 54 rows of 64); the halo of codes is double-buffered, and the
+// next tile's input is on its way while this one computes.
+//   TIn float (the fused stem): x is the log-mel [N, H, W] (W the mel
+// bins).  TMA (W % 4 == 0, 16-byte aligned): one thread loads the next
+// tile's rows as a 3-D box of f32 (columns w0 - 4 .. w0 + tw + 3, zero
+// outside) into s_f32 under an mbarrier; after this tile every thread turns
+// it into codes, 4 columns at a time.  Otherwise each thread loads its
+// elements into registers.  Each element becomes stem_code with its bin's
+// c1, c2; outside the image the halo holds code 0 (the SAME padding of the
+// codes, not the code of a zero mel).  With `codes`, each tile also writes
+// its own pixels' codes (never its halo rows), so each once.  TIn int8: x
+// is the codes [N, H, W, 1] and the border reads `pad`.
+template <int MODE, typename TIn, bool TMA>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_c1_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+conv3x3_c1_kernel(const TIn* __restrict__ x, const float* __restrict__ c1,
+                  const float* __restrict__ c2, const int8_t* __restrict__ w,
                   const float* __restrict__ A, const float* __restrict__ B,
-                  void* __restrict__ out, const StemGeom g, int pad) {
+                  void* __restrict__ out, int8_t* __restrict__ codes, const StemGeom g,
+                  int pad, const __grid_constant__ CUtensorMap tmap) {
   constexpr int ES = MODE >= 2 ? 4 : 1;        // output element bytes
-  constexpr int RS = 64 * ES + 16;             // staged row: 64 channels
-  constexpr int VEC = 64 * ES / 16;            // 16-byte vectors a staged row
+  constexpr bool F32 = sizeof(TIn) == 4;
+  static_assert(!TMA || F32, "the TMA path loads f32 rows");
   __shared__ __align__(16) uint8_t s_in[2][STEM_HALO];
+  __shared__ __align__(128) float s_f32[TMA ? STEM_HALO : 4];
   __shared__ uint32_t s_w[STEM_MAX_CO * 3];    // [co][dy]: 3 taps, a zero byte
-  __shared__ __align__(16) uint8_t s_out[THREADS / 32][16 * RS];
   __shared__ uint16_t s_rc[STEM_MAX_PX];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ __align__(8) uint64_t s_bar;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, tid = threadIdx.x;
   const int gq = lane >> 2, tq = lane & 3;
-  for (int e = threadIdx.x; e < g.Co * 3; e += THREADS) {
+  for (int e = tid; e < g.Co * 3; e += THREADS) {
     const int8_t* p = w + 3 * e;               // channel e / 3, row e % 3
     s_w[e] = static_cast<uint32_t>(static_cast<uint8_t>(p[0]))
              | static_cast<uint32_t>(static_cast<uint8_t>(p[1])) << 8
              | static_cast<uint32_t>(static_cast<uint8_t>(p[2])) << 16;
   }
-  const int halo = (g.rows + 2) * g.hs, npx = g.rows * g.tw, n16 = (npx + 15) >> 4;
+  const int npx = g.rows * g.tw, n16 = (npx + 15) >> 4;
   // tile pixel m -> (row << 7 | column), the same in every tile
-  for (int m = threadIdx.x; m < npx; m += THREADS)
+  for (int m = tid; m < npx; m += THREADS)
     s_rc[m] = static_cast<uint16_t>((m / g.tw) << 7 | (m % g.tw));
-  // this thread's halo bytes e = tid + 256*k of `tile`, into v
-  auto fetch = [&](long long tile, uint8_t (&v)[STEM_LOADS]) {
-    const int tw_i = static_cast<int>(tile % g.tiles_w);
-    tile /= g.tiles_w;
-    const int h0 = static_cast<int>(tile % g.tiles_h) * g.rows, w0 = tw_i * g.tw;
-    const long long img = (tile / g.tiles_h) * g.H * g.W;
+  struct Tile { long long img; int h0, w0; };
+  auto tile_at = [&](long long t) {
+    Tile o;
+    o.w0 = static_cast<int>(t % g.tiles_w) * g.tw;
+    t /= g.tiles_w;
+    o.h0 = static_cast<int>(t % g.tiles_h) * g.rows;
+    o.img = (t / g.tiles_h) * g.H * g.W;
+    return o;
+  };
+  auto inside = [&](int hh, int ww) { return hh >= 0 && hh < g.H && ww >= 0 && ww < g.W; };
+  // Registers: halo element e = row * (tw + 2) + column, at byte row * hs +
+  // STEM_OFF - 1 + column of its buffer.
+  const int hw2 = g.tw + 2, halo = (g.rows + 2) * hw2;
+  auto fetch = [&](const Tile& o, TIn (&v)[STEM_LOADS]) {
 #pragma unroll
     for (int k = 0; k < STEM_LOADS; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      const int hr = e / g.hs, hc = e - hr * g.hs;
-      const int hh = h0 - 1 + hr, ww = w0 - 1 + hc;
-      v[k] = (e < halo && hh >= 0 && hh < g.H && ww >= 0 && ww < g.W && hc < g.tw + 2)
-                 ? static_cast<uint8_t>(x[img + static_cast<long long>(hh) * g.W + ww])
-                 : static_cast<uint8_t>(pad);
+      const int e = tid + k * THREADS, hr = e / hw2, hc = e - hr * hw2;
+      const int hh = o.h0 - 1 + hr, ww = o.w0 - 1 + hc;
+      v[k] = e < halo && inside(hh, ww) ? x[o.img + static_cast<long long>(hh) * g.W + ww]
+                                        : TIn(0);
     }
   };
-  auto stash = [&](uint8_t* buf, const uint8_t (&v)[STEM_LOADS]) {
+  auto stash = [&](const Tile& o, uint8_t* buf, const TIn (&v)[STEM_LOADS]) {
 #pragma unroll
     for (int k = 0; k < STEM_LOADS; ++k) {
-      const int e = threadIdx.x + k * THREADS;
-      if (e < halo) buf[e] = v[k];
+      const int e = tid + k * THREADS, hr = e / hw2, hc = e - hr * hw2;
+      if (e >= halo) continue;
+      const int hh = o.h0 - 1 + hr, ww = o.w0 - 1 + hc;
+      uint32_t q = static_cast<uint8_t>(pad);
+      if (inside(hh, ww)) {
+        q = stem_code(v[k], c1, c2, ww);
+        if (F32 && codes != nullptr && hr >= 1 && hr <= g.rows && hc >= 1 && hc <= g.tw)
+          codes[o.img + static_cast<long long>(hh) * g.W + ww] = static_cast<int8_t>(q);
+      }
+      buf[hr * g.hs + STEM_OFF - 1 + hc] = static_cast<uint8_t>(q);
     }
   };
-  uint8_t nxt[STEM_LOADS];
-  if (blockIdx.x < g.tiles) {
-    fetch(blockIdx.x, nxt);
-    stash(s_in[0], nxt);
+  // TMA: s_f32 holds the box's rows of BW = tw + 8 floats, tile column c
+  // at float 4 + c; its quad e = row * tw/4 + q (columns 4q .. 4q+3) becomes
+  // the word (row * hs + STEM_OFF) / 4 + q of the buffer, and the two side
+  // columns of each row one a thread.
+  const uint32_t bar = smem_u32(&s_bar);
+  const int BW = g.tw + 8, qr = g.tw >> 2, nq = (g.rows + 2) * qr, ns = 2 * (g.rows + 2);
+  uint32_t phase = 0;
+  auto load = [&](const Tile& o) {             // one thread
+    mbar_expect_tx(bar, BW * (g.rows + 2) * 4);
+    tma_3d(smem_u32(s_f32), &tmap, bar, o.w0 - 4, o.h0 - 1,
+           static_cast<int>(o.img / (static_cast<long long>(g.H) * g.W)));
+  };
+  auto convert = [&](const Tile& o, uint8_t* buf) {
+    mbar_wait(bar, phase);
+    phase ^= 1;
+    for (int e = tid; e < nq; e += THREADS) {
+      const int r = e / qr, q = e - r * qr;
+      const int hh = o.h0 - 1 + r, ww = o.w0 + 4 * q;
+      uint32_t word = 0;
+      if (hh >= 0 && hh < g.H && ww < g.W) {
+        const float4 v = *reinterpret_cast<const float4*>(s_f32 + r * BW + 4 + 4 * q);
+        word = stem_code(v.x, c1, c2, ww) | stem_code(v.y, c1, c2, ww + 1) << 8
+               | stem_code(v.z, c1, c2, ww + 2) << 16 | stem_code(v.w, c1, c2, ww + 3) << 24;
+        if (codes != nullptr && r >= 1 && r <= g.rows)
+          *reinterpret_cast<uint32_t*>(codes + o.img + static_cast<long long>(hh) * g.W + ww) =
+              word;
+      }
+      *reinterpret_cast<uint32_t*>(buf + r * g.hs + STEM_OFF + 4 * q) = word;
+    }
+    if (tid < ns) {
+      const int r = tid >> 1, hh = o.h0 - 1 + r, ww = tid & 1 ? o.w0 + g.tw : o.w0 - 1;
+      const float v = s_f32[r * BW + (tid & 1 ? 4 + g.tw : 3)];
+      buf[r * g.hs + (tid & 1 ? STEM_OFF + g.tw : STEM_OFF - 1)] =
+          static_cast<uint8_t>(inside(hh, ww) ? stem_code(v, c1, c2, ww) : 0u);
+    }
+  };
+  if (TMA && tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint8_t* so = s_out[warp];
+  TIn nxt[STEM_LOADS];
+  if (blockIdx.x < g.tiles) {
+    const Tile o = tile_at(blockIdx.x);
+    if constexpr (TMA) {
+      if (tid == 0) load(o);
+      convert(o, s_in[0]);
+    } else {
+      fetch(o, nxt);
+      stash(o, s_in[0], nxt);
+    }
+  }
+  __syncthreads();
   const int dy = tq < 3 ? tq : 2;              // lanes tq = 3 meet zero weights
   int cur = 0;
   for (long long tile = blockIdx.x; tile < g.tiles; tile += gridDim.x, cur ^= 1) {
     const bool more = tile + gridDim.x < g.tiles;
-    if (more) fetch(tile + gridDim.x, nxt);
-    long long t = tile;
-    const int tw_i = static_cast<int>(t % g.tiles_w);
-    t /= g.tiles_w;
-    const int th_i = static_cast<int>(t % g.tiles_h);
-    const long long img = (t / g.tiles_h) * g.H * g.W;
-    const int h0 = th_i * g.rows, w0 = tw_i * g.tw;
+    const Tile nt = tile_at(more ? tile + gridDim.x : tile);
+    if (more) {
+      if constexpr (TMA) {
+        if (tid == 0) load(nt);                // s_f32 was read before the last barrier
+      } else {
+        fetch(nt, nxt);
+      }
+    }
+    const Tile o = tile_at(tile);
     const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s_in[cur]);
+    // tiles of whole image rows (W <= 128): pixel m of the tile is pixel
+    // tile_px + m of the batch, and it lies in the image below `valid`
+    const long long tile_px = o.img + static_cast<long long>(o.h0) * g.W;
+    const int valid = (g.H - o.h0 < g.rows ? g.H - o.h0 : g.rows) * g.tw;
     for (int n0 = 0; n0 < g.Co; n0 += 64) {
-      // this lane's channels n0 + 8j + 2tq, +1: weights and affine
+      // MMA j: this lane's B column gq is channel n0 + 16*(gq/2) + 2j + gq%2,
+      // and its outputs are channels n0 + 16tq + 2j, +1
       uint32_t wb[8];
-      float av[8][2], bv[8][2];
+      float av[16], bv[16];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wb[j] = tq < 3 ? s_w[(n0 + 8 * j + gq) * 3 + tq] : 0u;
-        const int ch = n0 + 8 * j + 2 * tq;
-        av[j][0] = __ldg(A + ch);
-        av[j][1] = __ldg(A + ch + 1);
-        bv[j][0] = __ldg(B + ch);
-        bv[j][1] = __ldg(B + ch + 1);
+      for (int j = 0; j < 8; ++j)
+        wb[j] = tq < 3 ? s_w[(n0 + 16 * (gq >> 1) + 2 * j + (gq & 1)) * 3 + tq] : 0u;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        av[i] = __ldg(A + n0 + 16 * tq + i) * (MODE < 2 ? 0.00390625f : 1.0f);  // sat_bits
+        bv[i] = __ldg(B + n0 + 16 * tq + i) * (MODE < 2 ? 0.00390625f : 1.0f);
       }
       for (int mt = warp; mt < n16; mt += THREADS / 32) {
         uint32_t a[2];                         // pixels mt*16 + gq, + 8
+        uint8_t* dst[2];                       // their 16 channels, or null
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = mt * 16 + gq + 8 * h;
-          const int rc = s_rc[m < npx ? m : 0];  // past the tile: not stored
-          const int base = ((rc >> 7) + dy) * g.hs + (rc & 127), s = base & 3;
+          const int rc = s_rc[m < npx ? m : 0];
+          const int base = ((rc >> 7) + dy) * g.hs + STEM_OFF - 1 + (rc & 127), s = base & 3;
           a[h] = __byte_perm(s32[base >> 2], s32[(base >> 2) + 1],
                              s | (s + 1) << 4 | (s + 2) << 8);
+          if (g.tw == g.W) {
+            dst[h] = m < valid ? static_cast<uint8_t*>(out)
+                                     + ((tile_px + m) * g.Co + n0 + 16 * tq) * ES
+                               : nullptr;
+          } else {
+            const int hh = o.h0 + (rc >> 7), ww = o.w0 + (rc & 127);
+            dst[h] = m < npx && hh < g.H && ww < g.W
+                ? static_cast<uint8_t*>(out)
+                      + ((o.img + static_cast<long long>(hh) * g.W + ww) * g.Co + n0 + 16 * tq)
+                          * ES
+                : nullptr;
+          }
         }
+        uint32_t word[2][4];                   // codes: 4 channels a word
+        float f[2][4];                         // f32: 4 channels, stored by pairs of j
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           int d[4] = {MAGIC, MAGIC, MAGIC, MAGIC};
           mma_s8_k16(d, a, wb[j]);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float y0 = __fmaf_rn(exact_float(d[2 * h]), av[j][0], bv[j][0]);
-            const float y1 = __fmaf_rn(exact_float(d[2 * h + 1]), av[j][1], bv[j][1]);
-            uint8_t* dst = so + (gq + 8 * h) * RS + (8 * j + 2 * tq) * ES;
-            if (MODE >= 2) {
-              *reinterpret_cast<float2*>(dst) = MODE == 2
-                  ? make_float2(fmaxf(y0, 0.0f), fmaxf(y1, 0.0f)) : make_float2(y0, y1);
+            if constexpr (MODE >= 2) {
+              const float y0 = __fmaf_rn(exact_float(d[2 * h]), av[2 * j], bv[2 * j]);
+              const float y1 = __fmaf_rn(exact_float(d[2 * h + 1]), av[2 * j + 1], bv[2 * j + 1]);
+              f[h][2 * (j & 1)] = MODE == 2 ? fmaxf(y0, 0.0f) : y0;
+              f[h][2 * (j & 1) + 1] = MODE == 2 ? fmaxf(y1, 0.0f) : y1;
+              if ((j & 1) && dst[h] != nullptr)   // channels 16tq + 2j - 2 .. 2j + 1
+                *reinterpret_cast<float4*>(dst[h] + 8 * (j - 1)) =
+                    make_float4(f[h][0], f[h][1], f[h][2], f[h][3]);
             } else {
-              *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(
-                  __byte_perm(code_bits<MODE>(y0), code_bits<MODE>(y1), 0x0040));
+              const float z0 = fma_sat(exact_float(d[2 * h]), av[2 * j], bv[2 * j]);
+              const float z1 = fma_sat(exact_float(d[2 * h + 1]), av[2 * j + 1], bv[2 * j + 1]);
+              const uint32_t pair = __byte_perm(sat_bits<MODE>(z0), sat_bits<MODE>(z1), 0x0040);
+              word[h][j >> 1] = j & 1 ? __byte_perm(word[h][j >> 1], pair, 0x5410) : pair;
             }
           }
         }
-        __syncwarp();
+        if constexpr (MODE < 2) {
 #pragma unroll
-        for (int e = lane; e < 16 * VEC; e += 32) {
-          const int row = e / VEC, q = e - row * VEC;
-          const int m = mt * 16 + row;
-          const int rc = s_rc[m < npx ? m : 0];
-          const int hh = h0 + (rc >> 7), ww = w0 + (rc & 127);
-          if (m >= npx || hh >= g.H || ww >= g.W) continue;
-          *reinterpret_cast<int4*>(static_cast<uint8_t*>(out)
-              + ((img + static_cast<long long>(hh) * g.W + ww) * g.Co + n0) * ES + q * 16) =
-              *reinterpret_cast<const int4*>(so + row * RS + q * 16);
+          for (int h = 0; h < 2; ++h)
+            if (dst[h] != nullptr)
+              *reinterpret_cast<int4*>(dst[h]) = make_int4(word[h][0], word[h][1], word[h][2],
+                                                           word[h][3]);
         }
-        __syncwarp();
       }
     }
-    if (more) stash(s_in[cur ^ 1], nxt);
+    if (more) {
+      if constexpr (TMA) convert(nt, s_in[cur ^ 1]);
+      else stash(nt, s_in[cur ^ 1], nxt);
+    }
     __syncthreads();   // the next halo is in; every thread is done with this one
   }
 }
@@ -963,11 +1113,13 @@ StemGeom stem_geom(long long N, int H, int W, int Co) {
   StemGeom g;
   g.H = H; g.W = W; g.Co = Co;
   g.tw = W < 128 ? W : 128;
-  // a row's bytes, rounded up to words, and one word more: the window at
-  // the last column reads the word after it; as many rows as fit
-  g.hs = ((g.tw + 2 + 3) & ~3) + 4;
+  // a row's bytes: the tile's columns from byte STEM_OFF, a halo column on
+  // each side, and the word after the last window's; as many rows as fit,
+  // at most THREADS / 2 with their halo (one side column a thread)
+  g.hs = 4 * ((g.tw + 2) / 4 + 2);
   int rows = STEM_HALO / g.hs - 2;
   rows = rows < STEM_MAX_PX / g.tw ? rows : STEM_MAX_PX / g.tw;
+  rows = rows < THREADS / 2 - 2 ? rows : THREADS / 2 - 2;
   g.rows = rows < H ? rows : H;
   g.tiles_h = (H + g.rows - 1) / g.rows;
   g.tiles_w = (W + g.tw - 1) / g.tw;
@@ -975,14 +1127,55 @@ StemGeom stem_geom(long long N, int H, int W, int Co) {
   return g;
 }
 
-template <int MODE>
-cudaError_t launch_stem(const int8_t* x, const int8_t* w, const float* A, const float* B,
-                        void* out, long long N, int H, int W, int Co, int pad,
-                        cudaStream_t stream) {
+// The TMA path's map of the f32 rows [N, H, W]: boxes of rows + 2 rows of
+// tw + 8 columns, zero outside.
+cudaError_t stem_map(CUtensorMap* map, const float* x, long long N, const StemGeom& g) {
+  static const EncodeTiled enc =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(g.W), static_cast<cuuint64_t>(g.H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(g.W) * 4,
+                                 static_cast<cuuint64_t>(g.H) * g.W * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(g.tw + 8),
+                             static_cast<cuuint32_t>(g.rows + 2), 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), dims, strides, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+      ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a persistent grid: as many blocks as fit on the card at once, at most
+// one a tile
+template <typename Kernel>
+int stem_blocks(Kernel kernel, long long tiles) {
+  int per_sm = 1;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+  const long long most = static_cast<long long>(sm_count()) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(tiles < most ? tiles : most);
+}
+
+template <int MODE, typename TIn>
+cudaError_t launch_stem(const TIn* x, const float* c1, const float* c2, const int8_t* w,
+                        const float* A, const float* B, void* out, int8_t* codes,
+                        long long N, int H, int W, int Co, int pad, cudaStream_t stream) {
   const StemGeom g = stem_geom(N, H, W, Co);
-  const long long max_blocks = static_cast<long long>(sm_count()) * 8;
-  const int blocks = static_cast<int>(g.tiles < max_blocks ? g.tiles : max_blocks);
-  conv3x3_c1_kernel<MODE><<<blocks, THREADS, 0, stream>>>(x, w, A, B, out, g, pad);
+  CUtensorMap map{};
+  if constexpr (sizeof(TIn) == 4) {
+    if (W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(codes)) % 16
+                          == 0) {
+      const cudaError_t err = stem_map(&map, x, N, g);
+      if (err != cudaSuccess) return err;
+      auto kernel = conv3x3_c1_kernel<MODE, TIn, true>;
+      kernel<<<stem_blocks(kernel, g.tiles), THREADS, 0, stream>>>(x, c1, c2, w, A, B, out,
+                                                                    codes, g, pad, map);
+      return cudaGetLastError();
+    }
+  }
+  auto kernel = conv3x3_c1_kernel<MODE, TIn, false>;
+  kernel<<<stem_blocks(kernel, g.tiles), THREADS, 0, stream>>>(x, c1, c2, w, A, B, out, codes,
+                                                                g, pad, map);
   return cudaGetLastError();
 }
 
@@ -990,7 +1183,9 @@ template <int MODE>
 cudaError_t launch_conv(const int8_t* x, const int8_t* w, const float* A, const float* B,
                         void* out, long long N, int H, int W, int Ci, int Co, int pad,
                         cudaStream_t stream) {
-  if (Ci == 1) return launch_stem<MODE>(x, w, A, B, out, N, H, W, Co, pad, stream);
+  if (Ci == 1)
+    return launch_stem<MODE, int8_t>(x, nullptr, nullptr, w, A, B, out, nullptr, N, H, W, Co,
+                                     pad, stream);
   // BN = 256 output channels a tile where Co allows (for f32 outputs only
   // without the pad's table: their staging rows leave the ring 3 stages),
   // else 128, else 64; K chunks of 128 input channels where Ci allows, else 64
@@ -1034,6 +1229,34 @@ extern "C" int conv3x3_i8_launch(const void* x, const void* w, const void* A,
     case 1: err = launch_conv<1>(xi, wi, Af, Bf, out, N, H, W, Ci, Co, pad_code, s); break;
     case 2: err = launch_conv<2>(xi, wi, Af, Bf, out, N, H, W, Ci, Co, pad_code, s); break;
     default: err = launch_conv<3>(xi, wi, Af, Bf, out, N, H, W, Ci, Co, pad_code, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// The fused stem: feats [N,H,W] float32 (log-mel frames x bins), c1/c2 [W]
+// float32, w [Co,3,3,1] int8, A/B [Co] float32 -> out [N,H,W,Co] of `mode`,
+// and with `codes` non-null the stem codes [N,H,W] int8 there too.
+extern "C" int stem_conv3x3_i8_launch(const void* feats, const void* c1, const void* c2,
+                                      const void* w, const void* A, const void* B, void* out,
+                                      void* codes, long long N, int H, int W, int Co,
+                                      int mode, void* stream) {
+  if (N * H * W == 0) return 0;
+  if (Co > STEM_MAX_CO || Co % 64 != 0 || Co <= 0 || mode < 0 || mode > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* x = static_cast<const float*>(feats);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  const int8_t* wi = static_cast<const int8_t*>(w);
+  const float* Af = static_cast<const float*>(A);
+  const float* Bf = static_cast<const float*>(B);
+  int8_t* q = static_cast<int8_t*>(codes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (mode) {
+    case 0: err = launch_stem<0, float>(x, a, b, wi, Af, Bf, out, q, N, H, W, Co, 0, s); break;
+    case 1: err = launch_stem<1, float>(x, a, b, wi, Af, Bf, out, q, N, H, W, Co, 0, s); break;
+    case 2: err = launch_stem<2, float>(x, a, b, wi, Af, Bf, out, q, N, H, W, Co, 0, s); break;
+    default: err = launch_stem<3, float>(x, a, b, wi, Af, Bf, out, q, N, H, W, Co, 0, s); break;
   }
   return static_cast<int>(err);
 }

@@ -14,12 +14,12 @@ arithmetic:
   folded BatchNorm, relu and requantize into one per-channel affine
   ``acc·A + B`` in its epilogue; the 2×2 pool runs on the codes.
 
-On the card the conv and the pool are the hand-written kernels of
-``ops/cuda/conv_i8_kernel.py``; the stem quantization, the final f32 pool
-and the head are plain PyTorch.  Bake-time arithmetic (BN fold, weight fold
-and quantization, epilogue affine) runs on the host in numpy float32,
-exactly as the JAX package computes it; the calibration's f32 convs run on
-the encoder's device with TF32 off.
+On the card the stem (its quantization fused into its conv), the convs and
+the pools are the hand-written kernels of ``ops/cuda/conv_i8_kernel.py``;
+the final f32 pool and the head are plain PyTorch.  Bake-time arithmetic
+(BN fold, weight fold and quantization, epilogue affine) runs on the host
+in numpy float32, exactly as the JAX package computes it; the
+calibration's f32 convs run on the encoder's device with TF32 off.
 
 Schemes (``--int8_scheme``): v1 per-tensor symmetric; v2 per-channel +
 offset coding; v2sym per-channel symmetric (the serving default); v3 v2sym
@@ -38,9 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
-                                                     pack_conv3x3_weight)
-from acvae_tpu_torch.ops.int8 import (ZP, avgpool2x2_f32, quant_stem,
-                                      requantize_ref)
+                                                     pack_conv3x3_weight,
+                                                     stem_conv3x3_i8)
+from acvae_tpu_torch.ops.int8 import (ZP, avgpool2x2_f32, requantize_ref,
+                                      stem_coeffs)
 from acvae_tpu_torch.ops.masked import max_with_lens, mean_with_lens
 
 # clip ratios searched by the MSE-optimal calibration (r=1.0 = abs-max)
@@ -238,12 +239,13 @@ class QuantPannEncoder:
         return self
 
     def _device_constants(self) -> None:
-        """bn0's affine, the stem's scale and (quant_tail) the final scale
-        as tensors on the device, for the runtime path."""
-        self._bn0 = tuple(torch.tensor(a, device=self.device) for a in self.bn0)
+        """bn0's affine over the stem's scale (the stem's c1, c2) and
+        (quant_tail) the final scale as tensors on the device, for the
+        runtime path."""
         s_q = self.act_scales[0]
-        self._s_stem = torch.tensor(s_q.reshape(-1)[0] if s_q.ndim else s_q,
-                                    device=self.device)
+        self._stem_c = stem_coeffs(
+            *(torch.tensor(a, device=self.device) for a in self.bn0),
+            torch.tensor(s_q.reshape(-1)[0] if s_q.ndim else s_q, device=self.device))
         self._s_tail = (torch.tensor(self.act_scales[2 * len(self.blocks)],
                                      device=self.device)
                         if self.quant_tail else None)
@@ -254,8 +256,11 @@ class QuantPannEncoder:
         s0, b0 = (torch.as_tensor(a, device=feats.device) for a in self.bn0)
         return (feats * s0 + b0)[..., None]
 
-    def _quant_stem(self, feats: torch.Tensor) -> torch.Tensor:
-        return quant_stem(feats, *self._bn0, self._s_stem)
+    def _stem_conv(self, feats: torch.Tensor, mode: str, codes: bool = False):
+        """The stem's codes and its conv in one kernel: (out, codes)."""
+        blk = self.blocks[0]
+        return stem_conv3x3_i8(feats.float().contiguous(), *self._stem_c,
+                               blk["wk1"], blk["A1"], blk["B1"], mode, codes)
 
     def _levels(self, i: int) -> float:
         """Levels per unit scale at quantize point i: the stem (i=0) is
@@ -361,7 +366,6 @@ class QuantPannEncoder:
         quantized convs and pools are the serving kernels."""
         cur_lens = lens
         x_ref = self._stem(feats)
-        x_i8 = self._quant_stem(feats)
         n = len(self.blocks)
         n_convs = 2 * n
         k = 0
@@ -372,8 +376,9 @@ class QuantPannEncoder:
                           for a in blk[f"bn{j}"])
                 y_ref = _conv_f32(x_ref, torch.as_tensor(
                     blk[f"wf{j}"], device=feats.device)) * bs + bb
-                y = conv3x3_i8(x_i8, blk[f"wk{j}"], blk[f"A{j}"], blk[f"B{j}"],
-                               "f32", self._pad(k))
+                y = (self._stem_conv(feats, "f32")[0] if k == 1 else
+                     conv3x3_i8(x_i8, blk[f"wk{j}"], blk[f"A{j}"], blk[f"B{j}"],
+                                "f32", self._pad(k)))
                 if k < n_convs:
                     s_out = torch.as_tensor(self.act_scales[k], device=feats.device)
                     y_cmp = y_ref / s_out
@@ -402,17 +407,19 @@ class QuantPannEncoder:
         conv output) is appended to it, before pooling."""
         assert not train, "QuantPannEncoder is inference-only"
         lens = feat_lens // self.subsample
-        x = self._quant_stem(feats.float())
-        if codes is not None:
-            codes.append(x)
         n = len(self.blocks)
         n_convs, k = 2 * n, 0
         for bi, blk in enumerate(self.blocks):
             for j in (1, 2):
                 k += 1
                 mode = self._mode(k, n_convs)
-                x = conv3x3_i8(x, blk[f"wk{j}"], blk[f"A{j}"], blk[f"B{j}"],
-                               mode, self._pad(k))
+                if k == 1:
+                    x, stem = self._stem_conv(feats, mode, codes is not None)
+                    if codes is not None:
+                        codes.append(stem)
+                else:
+                    x = conv3x3_i8(x, blk[f"wk{j}"], blk[f"A{j}"], blk[f"B{j}"],
+                                   mode, self._pad(k))
                 if codes is not None and mode != "f32relu":
                     codes.append(x)
             if blk["pool"]:

@@ -15,6 +15,7 @@ fused multiply-add (``tests/test_torch_quant.py`` pins this), so
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -121,13 +122,26 @@ def avgpool2x2_f32(x: torch.Tensor) -> torch.Tensor:
             + x[:, 1::2, 1::2]) * 0.25
 
 
+def stem_coeffs(s0: torch.Tensor, b0: torch.Tensor, s_stem
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bn0's per-bin affine (s0, b0 [F]) over the stem's activation scale:
+    ``(s0 / s, b0 / s)`` in float32 on their device (``quant.py:258``)."""
+    s = torch.as_tensor(s_stem, dtype=torch.float32, device=s0.device)
+    return s0 / s, b0 / s
+
+
+def stem_codes(feats: torch.Tensor, c1: torch.Tensor,
+               c2: torch.Tensor) -> torch.Tensor:
+    """The stem's int8 codes of log-mels [N, T, F]: ``clip(round(feats·c1 +
+    c2), -127, 127)`` with one rounding of the multiply-add -> [N, T, F, 1]."""
+    y = fma_f32(feats.float(), c1.expand_as(feats), c2.expand_as(feats))
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)[..., None]
+
+
 def quant_stem(feats: torch.Tensor, s0: torch.Tensor, b0: torch.Tensor,
                s_stem) -> torch.Tensor:
     """Fused stem quantization (``quant.py:246-261``): bn0's per-bin affine
     and the stem's activation scale in one multiply-add, then
     ``clip(round(·), -127, 127)`` -> int8 [N, T, F, 1].  One input lane:
     the JAX stem's second lane always carries code 0."""
-    s = torch.as_tensor(s_stem, dtype=torch.float32, device=feats.device)
-    c1, c2 = s0 / s, b0 / s
-    y = fma_f32(feats.float(), c1.expand_as(feats), c2.expand_as(feats))
-    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)[..., None]
+    return stem_codes(feats, *stem_coeffs(s0, b0, s_stem))

@@ -10,19 +10,24 @@ Phases, each of which exits nonzero on failure:
 2. build: compiles every CUDA source of the port, one nvcc each, all
    started together; counts the tensor-core MMAs (``IGMMA``/``IMMA``) and
    ``IDP4A`` in each conv kernel's SASS (``cuobjdump -sass``) and fails
-   unless the conv body has ``IGMMA`` (wgmma) and no ``IMMA`` or ``IDP4A``.
+   unless the conv body has ``IGMMA`` (wgmma) and no ``IMMA`` or ``IDP4A``,
+   the stem has ``IMMA``, and ptxas reports no spill in the stem kernels.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at edge cases; times the kernel, the plain
    version and the library call that computes the same function with CUDA
    events (median, L2 flushed).  ``time_warp_1d``: max |error| <= 1e-6.
-   ``conv3x3_i8`` (every conv of the int8 Cnn10 and Cnn14 at batch 512,
-   block 1's 2^31-element tensors included, Cnn14's 2- and 4-column maps
-   and 2048 channels, and the ragged edges of its tiles) and
-   ``avgpool2x2_i8`` (their 3 and 5 pools): max |error| 0, and each beside cuDNN's
-   bf16 ``conv2d``/``avg_pool2d`` at the same shapes, channels-last, and
-   each body conv beside ``torch._int_mm`` of its im2col (labelled
-   comparisons, not the same function); Cnn10's body (7 convs) and stem
-   reported apart, and Cnn14's 12 convs (11 body) and 5 pools.
+   ``stem_conv3x3_i8`` (the fused stem at [512, 1024, 64] f32 -> 64, sym
+   and offset, codes included, and its edge cases), ``conv3x3_i8`` (every
+   body conv of the int8 Cnn10 and Cnn14 at batch 512, block 1's
+   2^31-element tensors included, Cnn14's 2- and 4-column maps and 2048
+   channels, the ragged edges of its tiles, its Ci = 1 path) and
+   ``avgpool2x2_i8`` (their 3 and 5 pools): max |error| 0, and each beside
+   cuDNN's bf16 ``conv2d``/``avg_pool2d`` at the same shapes,
+   channels-last, and each body conv beside ``torch._int_mm`` of its
+   im2col (labelled comparisons, not the same function); the stem also
+   beside its plain quantize alone and the pair the port ran before (the
+   plain quantize, then the int8 stem kernel), and its bound; Cnn10's body
+   (7 convs), Cnn14's stem and 11 body convs, and their 3 and 5 pools.
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -49,7 +54,8 @@ Phases, each of which exits nonzero on failure:
    v2sym)`` calibrated from bn0's statistics on the card, then (a) one
    warm-up and 5 timed batches of 512 at beam 3, T_mel 1024, max_length
    20 through ``int8_decode_fn``: captions/s, p50, the encoder/beam split,
-   peak memory, and 8 ``conv3x3_i8`` + 3 ``avgpool2x2_i8`` launches a batch;
+   peak memory, and 1 ``stem_conv3x3_i8`` + 7 ``conv3x3_i8`` + 3
+   ``avgpool2x2_i8`` launches a batch;
    (b) ``CaptionService(encoder_int8=True)`` behind ``run_server`` over
    HTTP as in phase 7, its launches counted against its batches.
 10. cli: the user's own commands, in process through
@@ -60,8 +66,9 @@ Phases, each of which exits nonzero on failure:
    (restored step 90, final step 135, the checkpoint files, 3 finite
    ``metrics.jsonl`` lines), then ``evaluate`` at beam 3 with the bf16 and
    the int8 v2sym encoder (every score JAX writes, finite).  Launches: one
-   ``time_warp_1d`` a train iteration; 8 ``conv3x3_i8`` and 3
-   ``avgpool2x2_i8`` an int8 eval batch, calibration's reported apart.
+   ``time_warp_1d`` a train iteration; 1 ``stem_conv3x3_i8``, 7
+   ``conv3x3_i8`` and 3 ``avgpool2x2_i8`` an int8 eval batch,
+   calibration's reported apart.
    Prints epoch wall s, iterations/s, the loader's host ms a batch against
    the step's, validation s, evaluate clips/s and peak memory.
 11. diverse: (a) a small flagship on the card against the CPU, same weights
@@ -71,12 +78,12 @@ Phases, each of which exits nonzero on failure:
    3e-2 of the largest logit.  (b) Full width: the flagship's v2sym int8
    encoder (bn0 calibration) under dbs at beam 8, 4 groups, lambda 0.5,
    batch 512, T_mel 1024, max_length 20 (one warm-up, 5 timed): clips/s,
-   candidates/s, p50, the encoder/dbs split, peak memory, 8 ``conv3x3_i8``
-   and 3 ``avgpool2x2_i8`` a batch; then the bf16-parameter beam-3 decode
+   candidates/s, p50, the encoder/dbs split, peak memory, 1 + 7 + 3 int8
+   launches a batch; then the bf16-parameter beam-3 decode
    on the bf16 encoder at the same batch, beside phase 7's float32 loop.
    (c) On phase 10's experiment and corpus, in process: ``evaluate
    --decode_method=dbs --beam_size=20 --group_size=4`` with the bf16 and
-   the int8 encoder (20 candidates a clip; 8 and 3 launches an int8 eval
+   the int8 encoder (20 candidates a clip; 1 + 7 + 3 launches an int8 eval
    batch, calibration apart), ``evaluate --decode_dtype=bfloat16``,
    ``diversity`` of the dbs output against the corpus (every metric
    finite, the ratios in [0, 1]), ``predict`` (one CSV row a clip),
@@ -97,8 +104,8 @@ Phases, each of which exits nonzero on failure:
    warm-up and one timed beam-3 batch of 512 clips at T_mel 1024, max_length
    20: captions/s and the encoder / loop split.  (c) The int8 v2sym encoder
    of ``vae`` and ``gmm_vae`` (bn0 calibration on the card) at batch 512:
-   one warm-up and one timed beam-3 batch, 8 ``conv3x3_i8`` and 3
-   ``avgpool2x2_i8`` a batch, and the card's codes at every quantize point
+   one warm-up and one timed beam-3 batch, 1 + 7 + 3 int8 launches a
+   batch, and the card's codes at every quantize point
    against the CPU's on 2 clips.  (d) The CLI on phase 10's corpus: 1 epoch
    of ``train`` for ``vae.yaml``, ``trans_vae.yaml`` and
    ``xe_baseline.yaml`` with the time warp, then ``evaluate`` at beam 3
@@ -123,7 +130,7 @@ Phases, each of which exits nonzero on failure:
    CIDEr and replay + update timed apart), the replay's log-probs against
    the rollout's on one batch (atol 1e-4), 3 N-SCST iterations at 5
    samples.  (d) ``average_checkpoints best,last``, ``evaluate
-   --checkpoint=avg`` in bf16 and with the int8 encoder (80 + 30 launches)
+   --checkpoint=avg`` in bf16 and with the int8 encoder (10 + 70 + 30 launches)
    and ``diagnose`` (its JSON keys).
 
 14. encoders: (a) every registered encoder (``models/encoders.py``) on the
@@ -137,13 +144,13 @@ Phases, each of which exits nonzero on failure:
    ``load_experiment``, the beam-3 decode at batch 512 with the bf16
    encoder, then with the int8 v2sym one calibrated from bn0's statistics
    (its codes at the 12 quantize points card vs CPU on 2 clips; one
-   warm-up and 5 timed batches; 12 ``conv3x3_i8`` and 5 ``avgpool2x2_i8``
-   a batch): captions/s, the encoder / loop split, peak memory; then
+   warm-up and 5 timed batches; 1 ``stem_conv3x3_i8``, 11 ``conv3x3_i8``
+   and 5 ``avgpool2x2_i8`` a batch): captions/s, the encoder / loop split, peak memory; then
    ``CaptionService(encoder_int8=True)`` over HTTP; (d) on phase 10's
    corpus, a seeded state dict in PANN's Cnn14 layout (with its frontend
    and ``fc_audioset``) as ``train --pretrained_encoder`` for 1 epoch (the
-   ``loaded 40/40`` line), ``evaluate --encoder_int8`` (120 + 50
-   launches), and ``evaluate`` on the ``.npz`` manifest and on the same
+   ``loaded 40/40`` line), ``evaluate --encoder_int8`` (10 + 110 +
+   50 launches), and ``evaluate`` on the ``.npz`` manifest and on the same
    features as a kaldi ``.scp``/``.ark`` table: the same captions.
 15. aux: the auxiliary training stack on phase 10's corpus.  (a) Card vs
    CPU from the same weights and noise (within 1e-4·(1 + |cpu|)): the
@@ -157,8 +164,8 @@ Phases, each of which exits nonzero on failure:
    ``adverse_loss`` (a seeded discriminator at vocab 4981, gumbel) at
    batch 32, T_mel 1024, L 22, the median of steps 2-6 beside phase 5's,
    and 6 of the same recipe without the term (the term's cost);
-   1 CLI epoch of stage 2 and ``evaluate --encoder_int8`` of it (80 + 30
-   launches).  (c) ``configs/sentence.yaml``: ``stage1`` (2 epochs, embed
+   1 CLI epoch of stage 2 and ``evaluate --encoder_int8`` of it (10 + 70
+   + 30 launches).  (c) ``configs/sentence.yaml``: ``stage1`` (2 epochs, embed
    512), ``stage1_test`` (the EER), ``extract_embedding``, 6 timed
    ``Seq2SeqAttnModel`` steps with ``embedding_loss: Cosine``, 1 CLI epoch
    with ``embedding_path`` and ``evaluate``.  (d) ``global_vae`` (2
@@ -176,8 +183,9 @@ Phases, each of which exits nonzero on failure:
    Each artifact in a new ``load_exported`` on the card against the eager
    decode, in turns, one warm-up and 5 timed batches of 512 on the same
    noise: tokens identical, scores within 1e-6·(1 + |score|), captions/s of
-   both; 8 ``conv3x3_i8`` and 3 ``avgpool2x2_i8`` an int8 batch from the
-   exported program's operators, as from the eager decode.  (c) ``cli serve
+   both; 1 ``stem_conv3x3_i8``, 7 ``conv3x3_i8`` and 3 ``avgpool2x2_i8``
+   an int8 batch from the exported program's operators, as from the eager
+   decode.  (c) ``cli serve
    --exported=<int8>`` as a process of its own: /health, and a float32
    JSON mel, a binary uint8 mel and a wav captioned.  (d) ``cli
    prepare_data`` on seeded wavs (32 kHz mono and stereo, 16 kHz) on the
@@ -194,8 +202,8 @@ Phases, each of which exits nonzero on failure:
    10's ``best`` weights as a reference ``.pth`` (``{"model": ...}`` with
    DDP's ``module.`` prefix) through ``cli import_torch`` (every tensor
    loaded, equal to the source's), then ``evaluate --encoder_int8`` of the
-   import and of its source in turns: identical captions and scores, 8
-   ``conv3x3_i8`` and 3 ``avgpool2x2_i8`` an eval batch (calibration
+   import and of its source in turns: identical captions and scores, 1 + 7
+   + 3 int8 launches an eval batch (calibration
    apart).  (d) ``report_results`` over two ``seed_*`` dirs holding (c)'s
    scores, ``split_dataset``, ``concat_json`` (the halves join to the
    corpus), ``concat_csv`` and ``tsne`` (its PNG, or its refusal naming
@@ -226,7 +234,8 @@ Phases, each of which exits nonzero on failure:
 
 Kernel launches are counted from 0 over each path (train, serve, int8
 serve, cli, diverse, families, extras, encoders, aux, export, tools,
-parallel).  Prints the whole script's wall time, a ``{"kernels": [...]}``
+parallel), and after phase 3 every call of the plain float64 FMA
+(``ops/int8.py`` ``fma_f32``) on a card tensor: none may run.  Prints the whole script's wall time, a ``{"kernels": [...]}``
 JSON line (``launches`` on each kernel's own path, ``launches_by_path`` on
 all twelve), then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
 more train steps (phase 5's, and phase 15's adverse step) and one full-width decode batch of each serving path and
@@ -292,12 +301,44 @@ SMI = ""
 STEP_MS = {}   # median train step ms: phase 5's flagship, phase 15's recipes
 
 
+# the int8 encoder's kernels and their launches a batch: the fused stem,
+# the body convs, the int8 pools
+INT8_KERNELS = ("stem_conv3x3_i8", "conv3x3_i8", "avgpool2x2_i8")
+CNN10_PER_BATCH = (1, 7, 3)
+# plain float64 FMAs (ops/int8.py fma_f32) on card tensors after phase 3:
+# the int8 paths run none (the stem's quantization is the kernel's)
+PLAIN_FMA_ON_CARD = [0]
+
+
 def kernel_fns():
     """Every kernel wrapper of the port, by kernel name."""
-    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
+                                                         stem_conv3x3_i8)
     from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
-    return {"time_warp_1d": time_warp_1d, "conv3x3_i8": conv3x3_i8,
-            "avgpool2x2_i8": avgpool2x2_i8}
+    return {"time_warp_1d": time_warp_1d, "stem_conv3x3_i8": stem_conv3x3_i8,
+            "conv3x3_i8": conv3x3_i8, "avgpool2x2_i8": avgpool2x2_i8}
+
+
+def int8_launches(counts, before=None):
+    """(stem, conv, pool) launches in ``counts``, less ``before``'s."""
+    return tuple(counts[k] - (before[k] if before else 0) for k in INT8_KERNELS)
+
+
+def per_batches(per_batch, n):
+    return tuple(k * n for k in per_batch)
+
+
+def guard_plain_fma():
+    """From here on, count the plain float64 FMA's calls on card tensors
+    (``PLAIN_FMA_ON_CARD``); ``main`` fails if any path made one."""
+    from acvae_tpu_torch.ops import int8
+    real = int8.fma_f32
+
+    def fma_f32(a, b, c):
+        if a.is_cuda:
+            PLAIN_FMA_ON_CARD[0] += 1
+        return real(a, b, c)
+    int8.fma_f32 = fma_f32
 
 
 def reset_counts():
@@ -450,6 +491,21 @@ def conv_inputs(N, H, W, ci, co, g):
     return x, w, A, B
 
 
+def stem_inputs(N, T, F, co, g):
+    """A log-mel [N, T, F], the stem's c1/c2 [F], OHWI weights [co, 3, 3, 1]
+    and an epilogue affine.  The mel lies on a grid of 1/4 and the first
+    bins' c1, c2 (1, 2, 4, 1/2 and 1/2, 1/4, -1/2, 3/2) put some of x·c1 +
+    c2 on ties (.5), where the rounding's half-to-even shows."""
+    feats = torch.round(torch.randn((N, T, F), generator=g, device="cuda") * 24) / 4
+    c1 = torch.rand(F, generator=g, device="cuda") * 30 + 5
+    c2 = torch.randn(F, generator=g, device="cuda") * 10
+    k = min(F, 4)
+    c1[:k] = torch.tensor([1.0, 2.0, 4.0, 0.5], device="cuda")[:k]
+    c2[:k] = torch.tensor([0.5, 0.25, -0.5, 1.5], device="cuda")[:k]
+    _, w, A, B = conv_inputs(1, 1, 1, 1, co, g)
+    return feats, c1, c2, w, A, B
+
+
 def max_err(a, b):
     """max |a - b| over the batch, 32 rows at a time."""
     return max((a[i:i + 32].float() - b[i:i + 32].float()).abs().max().item()
@@ -477,9 +533,18 @@ CONV_EDGES = [  # (N, H, W, Ci, Co, mode, pad_code)
     (1, 5, 129, 64, 64, "f32", -128), (2, 40, 3, 64, 128, "f32relu", -128),
     (2, 20, 16, 64, 192, "sym", -128), (2, 9, 70, 128, 192, "offset", 0),
     (2, 17, 24, 192, 128, "f32", -128), (2, 8, 8, 192, 64, "sym", 0),
-    # the stem's tile (512 pixels of rows of at most 128 columns)
+    # conv3x3_i8's Ci = 1 path (int8 codes in, the stem kernel's tiles of
+    # rows of at most 128 columns)
     (2, 5, 200, 1, 64, "offset", -128), (2, 13, 7, 1, 192, "f32", -128),
     (1, 9, 33, 1, 512, "sym", -128), (2, 1, 1, 1, 64, "f32", 0),
+    # the fused stem from an f32 mel (Ci "mel", pad 0: SAME on the codes),
+    # codes on and off: N = 1, T past a tile's 54 rows and not a multiple of
+    # them, F = 1, F > 128 (TMA over two column tiles; F % 4 != 0 through
+    # registers), odd F, Co 64 to 512, every mode
+    (1, 100, 64, "mel", 64, "sym", 0), (2, 55, 64, "mel", 512, "offset", 0),
+    (3, 37, 1, "mel", 64, "f32relu", 0), (2, 19, 132, "mel", 128, "f32", 0),
+    (2, 9, 200, "mel", 512, "sym", 0), (1, 3, 7, "mel", 192, "offset", 0),
+    (2, 1, 1, "mel", 64, "f32", 0), (2, 70, 16, "mel", 64, "f32relu", 0),
     # Cnn14's narrow maps at odd heights: 2 and 4 columns, 2048 channels
     (3, 9, 2, 2048, 128, "sym", 0), (2, 33, 4, 1024, 2048, "f32relu", 0),
     (2, 5, 2, 2048, 2048, "f32", -128),
@@ -596,23 +661,78 @@ def _tally(cases):
     return dict(t, convs=len(cases), bound_by=max(by, key=by.get))
 
 
+def _stem_case(g, flush):
+    """The fused stem at batch DEC_BATCH ([512, 1024, 64] f32 -> 64): the
+    kernel against its plain version (``stem_codes``, the float64 FMA
+    emulation of ops/int8.py, then ``conv3x3_i8_ref``), codes included, in
+    the modes of v2sym and v2 (max |err| 0); timed beside the plain
+    version, the plain quantize alone, the pair the port ran before (the
+    plain quantize, then the int8 stem kernel of ``conv3x3_i8``) and
+    cuDNN's bf16 conv2d of the codes.  Returns its numbers."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import conv3x3_i8, stem_conv3x3_i8
+    from acvae_tpu_torch.ops.int8 import conv3x3_i8_ref, stem_codes
+
+    N, T, F, co = DEC_BATCH, T_MEL, DATA_DIM, 64
+    feats, c1, c2, w, A, B = stem_inputs(N, T, F, co, g)
+    w_hwio = w.permute(1, 2, 3, 0)
+    codes = stem_codes(feats, c1, c2)
+    err = 0
+    for mode in ("sym", "offset"):
+        out, q = stem_conv3x3_i8(feats, c1, c2, w, A, B, mode, True)
+        torch.cuda.synchronize()
+        e = max(max_err(out, conv3x3_i8_ref(codes, w_hwio, A, B, mode, 0)),
+                int((q != codes).sum()))
+        check(e == 0, f"stem_conv3x3_i8 disagrees with its plain version at "
+                      f"[{N},{T},{F}]->{co} {mode} (codes included): {e}")
+        err = max(err, e)
+        del out, q
+    k_ms = time_ms(lambda: stem_conv3x3_i8(feats, c1, c2, w, A, B, "sym"), flush)
+    off_ms = time_ms(lambda: stem_conv3x3_i8(feats, c1, c2, w, A, B, "offset"), flush)
+    p_ms = time_ms(lambda: conv3x3_i8_ref(stem_codes(feats, c1, c2), w_hwio, A, B,
+                                          "sym", 0), flush, reps=2)
+    q_ms = time_ms(lambda: stem_codes(feats, c1, c2), flush, reps=5)
+    pair_ms = time_ms(lambda: conv3x3_i8(stem_codes(feats, c1, c2), w, A, B, "sym", 0),
+                      flush, reps=5)
+    i8_ms = time_ms(lambda: conv3x3_i8(codes, w, A, B, "sym", 0), flush)
+    xb = codes.permute(0, 3, 1, 2).to(torch.bfloat16)     # NHWC as channels-last
+    wb = w.permute(0, 3, 1, 2).to(torch.bfloat16)
+    l_ms = time_ms(lambda: torch.nn.functional.conv2d(xb, wb, padding=1), flush, reps=10)
+    del xb, wb, codes
+    ops = 2.0 * N * T * F * 9 * co
+    # the f32 mel read once, the int8 output written once (and the weights)
+    b_ms, by = bound(ops, N * T * F * (4 + co) + 9 * co + 8 * co + 8 * F, INT8_OPS)
+    print(f"stem_conv3x3_i8 [{N},{T},{F}] f32 -> {co} sym: kernel {k_ms:.4f} ms "
+          f"({b_ms / k_ms:.1%} of the bound; offset {off_ms:.4f} ms), plain "
+          f"{p_ms:.4f} ms (of which the float64-FMA quantize {q_ms:.4f} ms), the "
+          f"plain quantize + the int8 stem kernel {pair_ms:.4f} ms (the kernel "
+          f"alone {i8_ms:.4f} ms), bf16 cuDNN conv2d of the codes {l_ms:.4f} ms "
+          f"(not the same function), bound {b_ms:.4f} ms ({by}); max_abs_err "
+          f"{err} ({SMI})")
+    return dict(ms=k_ms, offset_ms=off_ms, plain=p_ms, quant_plain=q_ms,
+                pair=pair_ms, int8_kernel=i8_ms, bound=b_ms, by=by, bf16=l_ms,
+                int_mm=0.0, ops=ops, err=err)
+
+
 def int8_kernel_phase(flush):
-    """conv3x3_i8 and avgpool2x2_i8 against their plain versions: every
-    shape of a batch of 512 of Cnn10 and of Cnn14, and the edge cases, max
-    |err| 0; times summed over a Cnn10 batch's 7 body convs, its stem and
-    its 3 pools, and over a Cnn14 batch's 12 convs and 5 pools."""
-    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
-    from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
+    """stem_conv3x3_i8, conv3x3_i8 and avgpool2x2_i8 against their plain
+    versions: every shape of a batch of 512 of Cnn10 and of Cnn14, and the
+    edge cases, max |err| 0; times summed over a Cnn10 batch's 7 body
+    convs and its 3 pools, the stem apart, and over a Cnn14 batch's stem,
+    11 body convs and 5 pools."""
+    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
+                                                         stem_conv3x3_i8)
+    from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref, stem_codes
 
     g = torch.Generator("cuda").manual_seed(2)
-    cnn10 = [_conv_case(H, W, ci, co, "f32relu" if k == len(CONV_SHAPES)
-                        else "sym", g, flush)
-             for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1)]
+    stem = _stem_case(g, flush)
+    body = [_conv_case(H, W, ci, co, "f32relu" if k == len(CONV_SHAPES)
+                       else "sym", g, flush)
+            for k, (H, W, ci, co) in enumerate(CONV_SHAPES, 1) if ci > 1]
     extra14 = [_conv_case(H, W, ci, co, mode, g, flush)
                for H, W, ci, co, mode in CNN14_CONVS]
-    err_all = max(c["err"] for c in cnn10 + extra14)
-    part = {"stem": _tally(cnn10[:1]), "body": _tally(cnn10[1:])}
-    c14, body14 = _tally(cnn10[:7] + extra14), _tally(cnn10[1:7] + extra14)
+    err_all = max(c["err"] for c in body + extra14)
+    body10, body14 = _tally(body), _tally(body[:6] + extra14)
+    c14 = _tally([stem] + body[:6] + extra14)
     pool = dict(ms=0.0, plain=0.0, bound=0.0, bf16=0.0, err=0.0)
     for H, W, C in POOL_SHAPES:
         _pool_case(H, W, C, g, flush, pool)
@@ -621,6 +741,21 @@ def int8_kernel_phase(flush):
         _pool_case(H, W, C, g, flush, pool14)
     pool["err"] = pool14["err"]
     for n, H, W, ci, co, mode, pad in CONV_EDGES:
+        if ci == "mel":   # the fused stem from an f32 mel, codes on and off
+            feats, c1, c2, w, A, B = stem_inputs(n, H, W, co, g)
+            codes = stem_codes(feats, c1, c2)
+            ref = conv3x3_i8_ref(codes, w.permute(1, 2, 3, 0), A, B, mode, 0)
+            err = 0
+            for want in (True, False):
+                out, q = stem_conv3x3_i8(feats, c1, c2, w, A, B, mode, want)
+                err = max(err, max_err(out, ref),
+                          int((q != codes).sum()) if want else int(q.numel()))
+            print(f"stem_conv3x3_i8 edge [{n},{H},{W}] f32 -> {co} {mode}, codes on "
+                  f"and off: max_abs_err {err}")
+            check(err == 0, f"stem_conv3x3_i8 disagrees at the edge case "
+                            f"{(n, H, W, co, mode)}: {err}")
+            stem["err"] = max(stem["err"], err)
+            continue
         x, w, A, B = conv_inputs(n, H, W, ci, co, g)
         err = max_err(conv3x3_i8(x, w, A, B, mode, pad),
                       conv3x3_i8_ref(x, w.permute(1, 2, 3, 0), A, B, mode, pad))
@@ -639,19 +774,16 @@ def int8_kernel_phase(flush):
         print(f"avgpool2x2_i8 edge [{n},{H},{W},{C}] -> {tuple(out.shape)}: "
               f"max_abs_err {err}")
         pool["err"] = max(pool["err"], err)
-    for name, c in part.items():
-        print(f"int8 kernels, a batch of {DEC_BATCH}: conv3x3_i8 {name} "
-              f"({c['convs']} convs) {c['ms']:.3f} ms ({c['ops'] / c['ms'] / 1e9:.1f} "
-              f"TOP/s; plain {c['plain']:.1f}, bf16 cuDNN {c['bf16']:.3f}, "
-              + (f"_int_mm {c['int_mm']:.3f}, " if name == "body" else "")
-              + f"bound {c['bound']:.3f} ({c['bound_by']}))")
-    conv = _tally(cnn10)
-    print(f"int8 kernels, a batch of {DEC_BATCH}: 8 conv3x3_i8 {conv['ms']:.3f} ms "
-          f"(plain {conv['plain']:.1f}, bf16 cuDNN {conv['bf16']:.3f}, bound "
-          f"{conv['bound']:.3f}); 3 avgpool2x2_i8 {pool['ms']:.3f} ms (plain "
+    print(f"int8 kernels, a batch of {DEC_BATCH}: stem_conv3x3_i8 {stem['ms']:.4f} "
+          f"ms ({stem['bound'] / stem['ms']:.1%} of its {stem['bound']:.4f} ms "
+          f"bound; the plain quantize + the int8 stem kernel {stem['pair']:.4f} ms); "
+          f"7 conv3x3_i8 {body10['ms']:.3f} ms ({body10['ops'] / body10['ms'] / 1e9:.1f} "
+          f"TOP/s; plain {body10['plain']:.1f}, bf16 cuDNN {body10['bf16']:.3f}, "
+          f"_int_mm {body10['int_mm']:.3f}, bound {body10['bound']:.3f} "
+          f"({body10['bound_by']})); 3 avgpool2x2_i8 {pool['ms']:.3f} ms (plain "
           f"{pool['plain']:.3f}, bf16 cuDNN {pool['bf16']:.3f}, bound "
-          f"{pool['bound']:.3f})")
-    print(f"int8 kernels, a Cnn14 batch of {DEC_BATCH}: 12 conv3x3_i8 "
+          f"{pool['bound']:.3f}) ({SMI})")
+    print(f"int8 kernels, a Cnn14 batch of {DEC_BATCH}: the stem and 11 conv3x3_i8 "
           f"{c14['ms']:.3f} ms (plain {c14['plain']:.1f}, bf16 cuDNN "
           f"{c14['bf16']:.3f}, bound {c14['bound']:.3f}), of which the 11 body "
           f"convs {body14['ms']:.3f} ms ({body14['ops'] / body14['ms'] / 1e9:.1f} "
@@ -661,22 +793,25 @@ def int8_kernel_phase(flush):
           f"{pool14['bound']:.3f}) ({SMI})")
     common = {"route": "cuda", "source": "acvae_tpu_torch/csrc/conv_i8.cu",
               "launches": None, "library_ms": None}
-    split = {name: {"convs": c["convs"], "ms": c["ms"], "plain_ms": c["plain"],
-                    "bound_ms": c["bound"], "bound_by": c["bound_by"],
-                    "tops": c["ops"] / c["ms"] / 1e9, "bf16_cudnn_ms": c["bf16"],
-                    "int_mm_ms": c["int_mm"] if name == "body" else None}
-             for name, c in part.items()}
-    split["cnn14"] = {"convs": c14["convs"], "ms": c14["ms"],
-                      "plain_ms": c14["plain"], "bound_ms": c14["bound"],
-                      "body_ms": body14["ms"], "body_bound_ms": body14["bound"],
-                      "body_int_mm_ms": body14["int_mm"],
-                      "bf16_cudnn_ms": c14["bf16"]}
-    return [dict(common, name="conv3x3_i8",
+    return [dict(common, name="stem_conv3x3_i8",
+                 replaces="acvae_tpu/models/quant.py:246",
+                 max_abs_err=stem["err"], ms=stem["ms"], plain_ms=stem["plain"],
+                 bound_ms=stem["bound"], bound_by=stem["by"],
+                 offset_ms=stem["offset_ms"], quant_plain_ms=stem["quant_plain"],
+                 plain_quant_and_int8_kernel_ms=stem["pair"],
+                 int8_stem_kernel_ms=stem["int8_kernel"], bf16_cudnn_ms=stem["bf16"],
+                 timed=f"the stem of a batch of {DEC_BATCH}, sym"),
+            dict(common, name="conv3x3_i8",
                  replaces="acvae_tpu/models/quant.py:424",
-                 max_abs_err=err_all, ms=conv["ms"], plain_ms=conv["plain"],
-                 bound_ms=conv["bound"], bound_by=conv["bound_by"],
-                 bf16_cudnn_ms=conv["bf16"], timed=f"8 convs of a batch of {DEC_BATCH}",
-                 **split),
+                 max_abs_err=err_all, ms=body10["ms"], plain_ms=body10["plain"],
+                 bound_ms=body10["bound"], bound_by=body10["bound_by"],
+                 bf16_cudnn_ms=body10["bf16"], int_mm_ms=body10["int_mm"],
+                 tops=body10["ops"] / body10["ms"] / 1e9,
+                 timed=f"7 body convs of a batch of {DEC_BATCH}",
+                 cnn14={"convs": 11, "ms": body14["ms"], "plain_ms": body14["plain"],
+                        "bound_ms": body14["bound"], "int_mm_ms": body14["int_mm"],
+                        "with_stem_ms": c14["ms"], "with_stem_bound_ms": c14["bound"],
+                        "bf16_cudnn_ms": c14["bf16"]}),
             dict(common, name="avgpool2x2_i8",
                  replaces="acvae_tpu/models/quant.py:86",
                  max_abs_err=pool["err"], ms=pool["ms"], plain_ms=pool["plain"],
@@ -1059,11 +1194,11 @@ def _http(url, data=None, headers=None, timeout=300):
         return e.code, json.loads(e.read())
 
 
-def http_checks(exp, tag="serve", per_batch=(8, 3), **svc_kw):
+def http_checks(exp, tag="serve", per_batch=CNN10_PER_BATCH, **svc_kw):
     """(b) CaptionService at the CLI defaults (and ``svc_kw``) behind
     run_server: one request of each kind, one malformed, then a burst of 16
-    concurrent mels.  ``per_batch``: the int8 encoder's conv3x3_i8 and
-    avgpool2x2_i8 launches a batch.  Returns the kernel launches of the
+    concurrent mels.  ``per_batch``: the int8 encoder's stem_conv3x3_i8,
+    conv3x3_i8 and avgpool2x2_i8 launches a batch.  Returns the kernel launches of the
     service's life."""
     from acvae_tpu_torch.serve import CaptionService, run_server
 
@@ -1150,12 +1285,13 @@ def http_checks(exp, tag="serve", per_batch=(8, 3), **svc_kw):
     counts = read_counts()
     # 2 warm-up batches, 5 direct ones, then the server's
     batches = 2 + 5 + stats["batches"]
-    want = ((per_batch[0] * batches, per_batch[1] * batches)
-            if svc.quant is not None else (0, 0))
-    got = (counts["conv3x3_i8"], counts["avgpool2x2_i8"])
+    want = (per_batches(per_batch, batches) if svc.quant is not None
+            else (0, 0, 0))
+    got = int8_launches(counts)
     print(f"{tag}: launches over the service's {batches} batches {counts}")
-    check(got == want, f"{tag}: conv3x3_i8/avgpool2x2_i8 launched {got} times "
-                       f"in {batches} batches (expected {want})")
+    check(got == want, f"{tag}: stem_conv3x3_i8/conv3x3_i8/avgpool2x2_i8 "
+                       f"launched {got} times in {batches} batches (expected "
+                       f"{want})")
     return counts
 
 
@@ -1296,11 +1432,10 @@ def int8_serve_phase(profile_dir=None):
         counts, feats, lens = decode_rate("int8 serve decode", decode, quant,
                                           model, vocab)
         batches = 1 + DEC_TIMED
-        check(counts["conv3x3_i8"] == 8 * batches
-              and counts["avgpool2x2_i8"] == 3 * batches
+        check(int8_launches(counts) == per_batches(CNN10_PER_BATCH, batches)
               and counts["time_warp_1d"] == 0,
               f"int8 serve: launches {counts} in {batches} batches (expected "
-              f"8 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+              f"1 stem_conv3x3_i8, 7 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
         with torch.inference_mode():
             a = quant(feats, lens)["audio_embeds"].flatten()
             b = model.encode(feats, lens)["audio_embeds"].float().flatten()
@@ -1504,9 +1639,9 @@ def cli_path(cli, tmp, log):
         (loop_s, dec_s, pairs), = log["decode"]
         check(len(pairs) == CLI_AUDIOS, f"{len(pairs)} eval captions")
         calib = log["calib"][-1] if extra else dict.fromkeys(counts, 0)
-        want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra else (0, 0)
-        got = (counts["conv3x3_i8"] - calib["conv3x3_i8"],
-               counts["avgpool2x2_i8"] - calib["avgpool2x2_i8"])
+        want = (per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES) if extra
+                else (0, 0, 0))
+        got = int8_launches(counts, calib)
         check(got == want and counts["time_warp_1d"] == 0,
               f"evaluate {tag}: launches {counts} (calibration {calib}); "
               f"expected {want} in {CLI_EVAL_BATCHES} batches")
@@ -1617,8 +1752,8 @@ def diverse_parity():
 def diverse_full_width(profile_dir=None):
     """(b) The flagship through save_experiment/load_experiment, its v2sym
     int8 encoder calibrated from bn0's statistics: dbs (beam 8, 4 groups,
-    lambda 0.5) over batches of 512, 8 conv3x3_i8 and 3 avgpool2x2_i8 a
-    batch; then the bf16 decode (beam 3, bf16 parameters) at the same batch
+    lambda 0.5) over batches of 512, 1 stem_conv3x3_i8, 7 conv3x3_i8 and 3
+    avgpool2x2_i8 a batch; then the bf16 decode (beam 3, bf16 parameters) at the same batch
     beside phase 7's float32 loop.  Returns the launches of the dbs
     batches."""
     from acvae_tpu_torch.configs import FLAGSHIP_CONF
@@ -1642,11 +1777,10 @@ def diverse_full_width(profile_dir=None):
     counts, _, _ = decode_rate("diverse int8 dbs decode", decode, quant, model,
                                vocab, DBS_KW)
     batches = 1 + DEC_TIMED
-    check(counts["conv3x3_i8"] == 8 * batches
-          and counts["avgpool2x2_i8"] == 3 * batches
+    check(int8_launches(counts) == per_batches(CNN10_PER_BATCH, batches)
           and counts["time_warp_1d"] == 0,
-          f"int8 dbs: launches {counts} in {batches} batches (expected 8 "
-          f"conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+          f"int8 dbs: launches {counts} in {batches} batches (expected 1 "
+          f"stem_conv3x3_i8, 7 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
     if profile_dir:
         profile_decode(decode, profile_dir, "int8_dbs_decode")
     del int8, quant, decode
@@ -1713,9 +1847,9 @@ def diverse_cli(tmp, exp):
             (loop_s, dec_s, pairs), = log["decode"]
             int8 = "--encoder_int8" in extra
             calib = log["calib"][-1] if int8 else dict.fromkeys(counts, 0)
-            want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if int8 else (0, 0)
-            got = (counts["conv3x3_i8"] - calib["conv3x3_i8"],
-                   counts["avgpool2x2_i8"] - calib["avgpool2x2_i8"])
+            want = (per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES) if int8
+                    else (0, 0, 0))
+            got = int8_launches(counts, calib)
             check(got == want and counts["time_warp_1d"] == 0,
                   f"evaluate {tag}: launches {counts} (calibration {calib}); "
                   f"expected {want} in {CLI_EVAL_BATCHES} batches")
@@ -1935,7 +2069,7 @@ def family_rate(recipe, model, vocab):
 
 def family_int8(recipe, conf, model):
     """(c) The v2sym int8 encoder in front of the family's beam-3 decode at
-    batch 512 (8 + 3 launches a batch), and its codes card vs CPU."""
+    batch 512 (1 + 7 + 3 launches a batch), and its codes card vs CPU."""
     from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
                                               scheme_kwargs)
     quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
@@ -1963,10 +2097,10 @@ def family_int8(recipe, conf, model):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
-    check(counts["conv3x3_i8"] == 16 and counts["avgpool2x2_i8"] == 6
+    check(int8_launches(counts) == per_batches(CNN10_PER_BATCH, 2)
           and counts["time_warp_1d"] == 0,
           f"families {recipe} int8: launches {counts} in 2 batches (expected "
-          f"8 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
+          f"1 stem_conv3x3_i8, 7 conv3x3_i8 and 3 avgpool2x2_i8 a batch)")
     check(bool(((out["seqs"] >= 0) & (out["seqs"] < VOCAB)).all()),
           f"families {recipe} int8: a token outside the vocab")
     print(f"families {recipe} int8 v2sym beam 3, batch {DEC_BATCH}: "
@@ -2059,9 +2193,9 @@ def families_cli(tmp):
             got = {k: v - before[k] for k, v in read_counts().items()}
             check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
                   f"families cli {recipe} evaluate {extra}: {scores}")
-            want = ((8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra
-                    else (0, 0))
-            check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want,
+            want = (per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES) if extra
+                    else (0, 0, 0))
+            check(int8_launches(got) == want,
                   f"families cli {recipe} evaluate {extra}: launches {got}, "
                   f"expected {want} (the calibration launches none)")
             line += (f"; evaluate{' int8' if extra else ''} {wall:.2f} s "
@@ -2375,9 +2509,9 @@ def extras_average(cli, tmp, exp):
                            f"--tag=avg_{tag}"] + extra)
         wall = time.perf_counter() - t0
         got = {k: v - before[k] for k, v in read_counts().items()}
-        want = ((8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES) if extra
-                else (0, 0))
-        check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want
+        want = (per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES) if extra
+                else (0, 0, 0))
+        check(int8_launches(got) == want
               and all(math.isfinite(scores[k]) for k in SCORE_KEYS),
               f"evaluate avg {tag}: launches {got} (expected {want}), {scores}")
         print(f"extras evaluate --checkpoint=avg {tag}: {wall:.2f} s, CIDEr "
@@ -2426,8 +2560,8 @@ ENC_SMALL = [
 # magnifies that; |card - cpu| <= ENC_TOL * (1 + |cpu|)
 ENC_TOL = 1e-3
 ENC_STEPS = 6
-# Cnn14's int8 launches a batch: 1 stem + 11 body convs, 5 int8 pools
-CNN14_PER_BATCH = (12, 5)
+# Cnn14's int8 launches a batch: the stem, 11 body convs, 5 int8 pools
+CNN14_PER_BATCH = (1, 11, 5)
 
 
 def cnn14_conf():
@@ -2518,8 +2652,8 @@ def cnn14_train(conf):
         check(all(math.isfinite(v) for v in vals.values()),
               f"encoders Cnn14 train: non-finite metric at step {i + 1}: {vals}")
     counts = read_counts()
-    check(counts == {"time_warp_1d": ENC_STEPS, "conv3x3_i8": 0,
-                     "avgpool2x2_i8": 0},
+    check(counts == {"time_warp_1d": ENC_STEPS, "stem_conv3x3_i8": 0,
+                     "conv3x3_i8": 0, "avgpool2x2_i8": 0},
           f"encoders Cnn14 train: launches {counts} in {ENC_STEPS} steps")
     check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
           "encoders Cnn14 train: non-finite parameters after the steps")
@@ -2582,9 +2716,8 @@ def cnn14_serve(conf):
             lambda f, l, g: int8(f, l, generator=g),
             lambda f, l: model.apply_ln(quant(f, l)), model, vocab)
         batches = 1 + DEC_TIMED
-        check((counts["conv3x3_i8"], counts["avgpool2x2_i8"],
-               counts["time_warp_1d"]) == (CNN14_PER_BATCH[0] * batches,
-                                           CNN14_PER_BATCH[1] * batches, 0),
+        check(int8_launches(counts) == per_batches(CNN14_PER_BATCH, batches)
+              and counts["time_warp_1d"] == 0,
               f"encoders Cnn14 int8: launches {counts} in {batches} batches "
               f"(expected {CNN14_PER_BATCH} a batch)")
         for k, v in counts.items():
@@ -2664,9 +2797,9 @@ def cnn14_cli(tmp):
                            f"--eval_caption_file={tmp}/text.json"] + extra)
         wall = time.perf_counter() - t0
         got = read_counts()
-        want = ((CNN14_PER_BATCH[0] * CLI_EVAL_BATCHES,
-                 CNN14_PER_BATCH[1] * CLI_EVAL_BATCHES) if tag == "int8" else (0, 0))
-        check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want
+        want = (per_batches(CNN14_PER_BATCH, CLI_EVAL_BATCHES) if tag == "int8"
+                else (0, 0, 0))
+        check(int8_launches(got) == want
               and got["time_warp_1d"] == 0,
               f"encoders cli evaluate {tag}: launches {got}, expected {want}")
         check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
@@ -3002,8 +3135,8 @@ def aux_adverse(tmp, profile_dir=None):
     scores = cli.main(["evaluate", str(exp), "--encoder_int8"])
     wall = time.perf_counter() - t0
     got = {k: v - before[k] for k, v in read_counts().items()}
-    want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES)
-    check((got["conv3x3_i8"], got["avgpool2x2_i8"]) == want,
+    want = per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES)
+    check(int8_launches(got) == want,
           f"aux evaluate --encoder_int8: launches {got}, expected {want}")
     check(all(math.isfinite(scores[k]) for k in SCORE_KEYS),
           f"aux evaluate --encoder_int8: {scores}")
@@ -3215,7 +3348,7 @@ def export_decodes(exp, conf, arts):
     eager decode of the same experiment: one warm-up and DEC_TIMED timed
     batches of 512 each, in turns, on the same noise; tokens identical,
     scores within 1e-6 (float32 on the same kernels).  Returns the
-    launches of these batches: 8 + 3 an int8 batch, either way."""
+    launches of these batches: 1 + 7 + 3 an int8 batch, either way."""
     from acvae_tpu_torch.export import load_exported
     from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
                                               scheme_kwargs)
@@ -3233,9 +3366,22 @@ def export_decodes(exp, conf, arts):
         decode, meta = load_exported(art)       # the card by default
         load_s = time.perf_counter() - t0
         check(decode.device.type == "cuda", f"load_exported: {decode.device}")
+        enc_ms = []
         if tag == "int8":
-            eager = int8_decode_fn(model, quant_encoder_for(
-                conf, model, **scheme_kwargs("v2sym")), **BEAM_KW)
+            quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
+
+            def timed_quant(f, l):
+                """The eager decode's int8 encoder, timed with CUDA events
+                (the same operators as the exported program's)."""
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = quant(f, l)
+                end.record()
+                end.synchronize()
+                enc_ms.append(start.elapsed_time(end))
+                return out
+            eager = int8_decode_fn(model, timed_quant, **BEAM_KW)
         else:
             cast = cast_floats_for_decode(model, torch.bfloat16)
             eager = functools.partial(cast.inference_forward, **BEAM_KW)
@@ -3265,15 +3411,20 @@ def export_decodes(exp, conf, arts):
             check(err <= 1e-6 * (1 + b["scores"].abs().max().item()),
                   f"export {tag}: scores differ by {err}")
         n = 1 + DEC_TIMED
-        want = (8 * n, 3 * n, 0) if tag == "int8" else (0, 0, 0)
+        want = (per_batches(CNN10_PER_BATCH, n) if tag == "int8" else (0, 0, 0)) + (0,)
         for arm, c in got.items():
-            check((c["conv3x3_i8"], c["avgpool2x2_i8"], c["time_warp_1d"])
-                  == want, f"export {tag} {arm}: launches {c} in {n} batches "
-                           f"(expected {want})")
+            check(int8_launches(c) + (c["time_warp_1d"],) == want,
+                  f"export {tag} {arm}: launches {c} in {n} batches (expected {want})")
             counts = {k: counts[k] + c[k] for k in counts}
         rates = {arm: DEC_BATCH * DEC_TIMED / (sum(v[1:]) / 1e3)
                  for arm, v in ms.items()}
         RATES[f"export {tag}"] = rates["exported"]
+        if enc_ms:
+            enc = statistics.median(enc_ms[1:])
+            print(f"export int8 split (the eager decode, the same operators): "
+                  f"encoder {enc:.1f} ms, the rest {statistics.median(ms['eager'][1:]) - enc:.1f} "
+                  f"ms of a batch; the exported program's batch "
+                  f"{statistics.median(ms['exported'][1:]):.1f} ms ({SMI})")
         top = a["seqs"][:2, 0].cpu().numpy()
         print(f"export {tag}: load_exported {load_s:.1f} s; batch {DEC_BATCH} "
               f"beam {BEAM} T_mel {T_MEL} max_length {MAX_LEN}, tokens identical "
@@ -3519,7 +3670,7 @@ def tools_import(cli, config, tmp, exp, root):
     """(c) phase 10's best weights as a reference ``.pth`` (``{"model":
     ...}``, DDP's ``module.`` prefix) through ``cli import_torch``, then
     ``evaluate --encoder_int8`` of the import and of its source in turns:
-    the same captions and scores, 8 + 3 launches an eval batch (calibration
+    the same captions and scores, 1 + 7 + 3 launches an eval batch (calibration
     apart).  Returns the launches of the two evaluates."""
     sd = torch.load(Path(exp) / "best.pt", map_location="cpu",
                     weights_only=True)["state_dict"]
@@ -3558,11 +3709,9 @@ def tools_import(cli, config, tmp, exp, root):
             secs = time.perf_counter() - t0
             got = {k: v - before[k] for k, v in read_counts().items()}
             total = {k: total[k] + got[k] for k in total}
-            want = (8 * CLI_EVAL_BATCHES, 3 * CLI_EVAL_BATCHES, 0)
+            want = per_batches(CNN10_PER_BATCH, CLI_EVAL_BATCHES) + (0,)
             c = calib[-1]
-            check((got["conv3x3_i8"] - c["conv3x3_i8"],
-                   got["avgpool2x2_i8"] - c["avgpool2x2_i8"],
-                   got["time_warp_1d"]) == want,
+            check(int8_launches(got, c) + (got["time_warp_1d"],) == want,
                   f"evaluate {tag}: launches {got} (calibration {c}), "
                   f"expected {want} in {CLI_EVAL_BATCHES} batches")
             outs[tag] = [(Path(path) / f"{kind}_beam_3_int8_tools.{ext}").read_text()
@@ -3911,17 +4060,17 @@ def parallel_cli(tmp):
 def parallel_evaluate(tmp, exp):
     """Phase 18 (c): ``evaluate --distributed --encoder_int8`` against the
     plain ``evaluate --encoder_int8``: the same files, byte for byte; the
-    int8 kernels' launches counted per card (8 + 3 a shard-batch on each
-    card that got one, the calibration's on card 0)."""
+    int8 kernels' launches counted per card (1 + 7 + 3 a shard-batch on
+    each card that got one, the calibration's on card 0)."""
     from acvae_tpu_torch.cli import main as cli
-    from acvae_tpu_torch.ops.cuda.conv_i8_kernel import avgpool2x2_i8, conv3x3_i8
+    fns = [kernel_fns()[k] for k in INT8_KERNELS]
     D = torch.cuda.device_count()
     files = ("eval_output_beam_3_int8.json", "scores_beam_3_int8.txt")
     out, per_card, walls = {}, {}, {}
     before_all = read_counts()
     # each twice: the first runs warm the cards up
     for dist_flag in (False, True, "warm", "warm_dist"):
-        by_dev = [dict(f.launches_by_device) for f in (conv3x3_i8, avgpool2x2_i8)]
+        by_dev = [dict(f.launches_by_device) for f in fns]
         t0 = time.perf_counter()
         cli.main(["evaluate", str(exp), f"--eval_caption_file={tmp}/text.json",
                   "--encoder_int8",
@@ -3930,17 +4079,16 @@ def parallel_evaluate(tmp, exp):
         out[dist_flag] = [(exp / f).read_bytes() for f in files]
         per_card[dist_flag] = [
             {d: n - b.get(d, 0) for d, n in f.launches_by_device.items()
-             if n - b.get(d, 0)} for f, b in zip((conv3x3_i8, avgpool2x2_i8), by_dev)]
+             if n - b.get(d, 0)} for f, b in zip(fns, by_dev)]
     check(out[True] == out[False] == out["warm"] == out["warm_dist"],
           "evaluate --distributed --encoder_int8 wrote other files than the "
           "plain int8 evaluate")
     nb = CLI_EVAL_BATCHES
-    (conv1, pool1), (convD, poolD) = per_card[False], per_card[True]
-    calib = (conv1.get(0, 0) - 8 * nb, pool1.get(0, 0) - 3 * nb)
+    per_nb = per_batches(CNN10_PER_BATCH, nb)
+    calib = tuple(k.get(0, 0) - n for k, n in zip(per_card[False], per_nb))
     for d in range(D):
-        want = (8 * nb + (calib[0] if d == 0 else 0),
-                3 * nb + (calib[1] if d == 0 else 0))
-        got = (convD.get(d, 0), poolD.get(d, 0))
+        want = tuple(n + (c if d == 0 else 0) for n, c in zip(per_nb, calib))
+        got = tuple(k.get(d, 0) for k in per_card[True])
         check(got == want, f"evaluate --distributed: card {d} launched "
                            f"{got}, expected {want}")
     print(f"parallel evaluate --encoder_int8: plain {walls[False]:.2f} s "
@@ -3949,7 +4097,8 @@ def parallel_evaluate(tmp, exp):
           f"--distributed over {D} card(s) {walls[True]:.2f} s cold, "
           f"{walls['warm_dist']:.2f} s warm "
           f"({CLI_AUDIOS / walls['warm_dist']:.1f} captions/s); files identical; "
-          f"conv3x3_i8/avgpool2x2_i8 launches per card {convD}/{poolD} "
+          f"stem_conv3x3_i8/conv3x3_i8/avgpool2x2_i8 launches per card "
+          f"{'/'.join(map(str, per_card[True]))} "
           f"(calibration on card 0 {calib}) ({SMI})")
     return {k: v - before_all[k] for k, v in read_counts().items()}
 
@@ -3992,6 +4141,10 @@ def build_phase():
                 line.strip() for line in log.splitlines() if "registers" in line
                 or "spill" in line or "Compiling entry" in line
                 or "warning" in line))
+            if src.stem == "conv_i8":
+                spilled = stem_spills(log)
+                print(f"ptxas: the stem kernels spill {spilled} bytes")
+                check(spilled == 0, f"the stem kernels spill registers: {spilled} B")
     counts = sass_counts()
     for name, c in counts.items():
         print(f"sass {name}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
@@ -3999,6 +4152,20 @@ def build_phase():
     check(body.get("IGMMA", 0) > 0 and body.get("IMMA", 0) == 0,
           f"the conv body kernel is not on wgmma (IGMMA) alone: {body}")
     check(body.get("IDP4A", 0) == 0, f"the conv body kernel still has IDP4A: {body}")
+    stem = counts.get("conv3x3_c1_kernel", {})
+    check(stem.get("IMMA", 0) > 0, f"the stem kernel is not on the tensor cores: {stem}")
+
+
+def stem_spills(log):
+    """Bytes of spill stores ptxas reports over the stem kernels
+    (conv3x3_c1_kernel's instantiations) in a build log."""
+    total, cur = 0, False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            cur = "conv3x3_c1_kernel" in line
+        elif cur and "spill stores" in line:
+            total += int(re.search(r"(\d+) bytes spill stores", line).group(1))
+    return total
 
 
 SASS_OPS = {"IGMMA": r"\bIGMMA\b", "IMMA": r"\bIMMA\b",
@@ -4059,6 +4226,7 @@ def main():
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [phase("kernels", kernel_phase, flush)]
     kernels += phase("int8 kernels", int8_kernel_phase, flush)
+    guard_plain_fma()
     del flush
     torch.cuda.empty_cache()
     phase("parity", parity_phase)
@@ -4078,13 +4246,17 @@ def main():
         by_path["export"] = phase("export", export_phase, tmp)
         by_path["tools"] = phase("tools", tools_phase, tmp, exp)
         by_path["parallel"] = phase("parallel", parallel_phase, tmp)
-    own = {"time_warp_1d": "train", "conv3x3_i8": "int8_serve",
-           "avgpool2x2_i8": "int8_serve"}
+    own = {"time_warp_1d": "train", "stem_conv3x3_i8": "int8_serve",
+           "conv3x3_i8": "int8_serve", "avgpool2x2_i8": "int8_serve"}
     for k in kernels:
         k["launches"] = by_path[own[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: by_path[p][k["name"]] for p in PATHS}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(f"kernel launches by path {by_path}")
+    print(f"plain float64 FMAs (ops/int8.py fma_f32) on card tensors after "
+          f"phase 3: {PLAIN_FMA_ON_CARD[0]}")
+    check(PLAIN_FMA_ON_CARD[0] == 0, "a path ran the plain float64 FMA on the "
+                                     "card (the stem's quantization is the kernel's)")
     print(f"chip_smoke: whole script {time.perf_counter() - t0:.1f} s ({SMI})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

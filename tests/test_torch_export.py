@@ -26,12 +26,14 @@ from acvae_tpu_torch.ops.amp import cast_floats_for_decode
 from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8,
                                                      avgpool2x2_i8_op,
                                                      conv3x3_i8, conv3x3_i8_op,
-                                                     pack_conv3x3_weight)
+                                                     pack_conv3x3_weight,
+                                                     stem_conv3x3_i8,
+                                                     stem_conv3x3_i8_op)
 from acvae_tpu_torch.ops.int8 import avgpool2x2_i8_ref, conv3x3_i8_ref
 from acvae_tpu_torch.train.checkpoints import save_experiment
 from tests.test_torch_decode import (FDIM, TMEL, one_torch_thread,  # noqa: F401
                                      port_model, small_jax_model)
-from tests.test_torch_int8_kernels import conv_case
+from tests.test_torch_int8_kernels import conv_case, stem_case, stem_plain
 from tests.test_torch_serve import jax_vocab
 
 MAXLEN = 3
@@ -110,12 +112,14 @@ def check_round_trip(tiny, mode):
             assert torch.equal(got[k], want[k]), (mode, n, k)
     assert torch.equal(decode(feats, lens, 11)["seqs"],
                        decode(feats, lens, 11)["seqs"])
-    # the int8 program calls the kernels' operators, Cnn10's 8 convs and 3
-    # pools a batch: on a card, the hand-written kernels
+    # the int8 program calls the kernels' operators, Cnn10's stem (its
+    # quantization fused in), 7 body convs and 3 pools a batch: on a card,
+    # the hand-written kernels
     targets = [str(n.target) for n in decode.module.graph.nodes
                if n.op == "call_function"]
     int8 = mode == "beam_int8"
-    assert targets.count("acvae_tpu_torch.conv3x3_i8.default") == 8 * int8
+    assert targets.count("acvae_tpu_torch.stem_conv3x3_i8.default") == int8
+    assert targets.count("acvae_tpu_torch.conv3x3_i8.default") == 7 * int8
     assert targets.count("acvae_tpu_torch.avgpool2x2_i8.default") == 3 * int8
 
 
@@ -133,6 +137,32 @@ def test_int8_operators_opcheck():
     for mode, pad in (("sym", 0), ("offset", -128), ("f32relu", 0), ("f32", 0)):
         torch.library.opcheck(conv3x3_i8_op, (x, wk, A, B, mode, pad))
     torch.library.opcheck(avgpool2x2_i8_op, (x,))
+
+
+@pytest.mark.parametrize("mode", ["sym", "offset", "f32relu", "f32"])
+@pytest.mark.parametrize("want_codes", [True, False], ids=["codes", "no_codes"])
+def test_stem_operator_opcheck(mode, want_codes):
+    torch.library.opcheck(stem_conv3x3_i8_op,
+                          (*stem_case(2, 9, 7, 64, seed=8), mode, want_codes))
+
+
+def test_fake_trace_of_the_stem_keeps_the_batch_symbolic():
+    """The stem operator exported with a symbolic batch runs at other batch
+    sizes, codes and all, and equals its plain version."""
+    _, c1, c2, w, A, B = stem_case(2, 9, 7, 64, seed=9)
+
+    class Stem(torch.nn.Module):
+        def forward(self, feats):
+            return stem_conv3x3_i8(feats, c1, c2, w, A, B, "offset", codes=True)
+
+    b = torch.export.Dim("b", min=1, max=1024)
+    ep = torch.export.export(Stem(), (stem_case(2, 9, 7, 64, seed=9)[0],),
+                             dynamic_shapes=({0: b},))
+    for n in (1, 3):
+        feats = stem_case(n, 9, 7, 64, seed=n)[0]
+        out, codes = ep.module()(feats)
+        want_out, want_codes = stem_plain(feats, c1, c2, w, A, B, "offset")
+        assert torch.equal(out, want_out) and torch.equal(codes, want_codes)
 
 
 def test_fake_trace_keeps_the_batch_symbolic():

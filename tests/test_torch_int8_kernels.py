@@ -13,9 +13,11 @@ import torch
 
 from acvae_tpu_torch.ops.cuda import build as tbuild
 from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
-                                                     pack_conv3x3_weight)
-from acvae_tpu_torch.ops.int8 import (avgpool2x2_i8_ref, conv3x3_i8_ref, fma_f32,
-                                      requantize_ref)
+                                                     pack_conv3x3_weight,
+                                                     stem_conv3x3_i8)
+from acvae_tpu_torch.ops.int8 import (MODES, avgpool2x2_i8_ref, conv3x3_i8_ref,
+                                      fma_f32, quant_stem, requantize_ref,
+                                      stem_codes, stem_coeffs)
 
 
 def conv_case(ci, co, big, seed):
@@ -71,6 +73,84 @@ def test_wrappers_check_inputs():
         avgpool2x2_i8(x.float())
     with pytest.raises(ValueError, match="unsupported device"):
         avgpool2x2_i8(meta[0])
+
+
+def stem_case(n, t, f, co, seed):
+    """(feats [n, t, f], c1, c2 [f], OHWI weights [co, 3, 3, 1], A, B) of the
+    fused stem: a mel on a grid of 1/4, and bins whose c1, c2 (1, 2, 4, 1/2
+    and 1/2, 1/4, -1/2, 3/2) put some feats·c1 + c2 on ties."""
+    rng = np.random.default_rng(seed)
+    feats = (np.round(rng.normal(size=(n, t, f)) * 24) / 4).astype(np.float32)
+    c1 = rng.uniform(5, 35, size=f).astype(np.float32)
+    c2 = (rng.normal(size=f) * 10).astype(np.float32)
+    k = min(f, 4)
+    c1[:k], c2[:k] = [1.0, 2.0, 4.0, 0.5][:k], [0.5, 0.25, -0.5, 1.5][:k]
+    w = rng.integers(-127, 128, size=(co, 3, 3, 1)).astype(np.int8)
+    A = (rng.uniform(0.5, 1.5, size=co) * 40 / (3 * 73.0 * 73.0)).astype(np.float32)
+    B = (rng.normal(size=co) * 20).astype(np.float32)
+    return tuple(torch.tensor(a) for a in (feats, c1, c2, w, A, B))
+
+
+def stem_plain(feats, c1, c2, w, A, B, mode):
+    """The fused stem's plain version, spelled out: the codes, then the
+    conv of the codes with SAME (code 0) padding."""
+    codes = stem_codes(feats, c1, c2)
+    return conv3x3_i8_ref(codes, w.permute(1, 2, 3, 0), A, B, mode, 0), codes
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stem_wrapper_runs_its_plain_version_on_the_cpu(mode):
+    feats, c1, c2, w, A, B = stem_case(2, 9, 7, 64, seed=5)
+    before = stem_conv3x3_i8.launches
+    out, codes = stem_conv3x3_i8(feats, c1, c2, w, A, B, mode, codes=True)
+    want_out, want_codes = stem_plain(feats, c1, c2, w, A, B, mode)
+    assert torch.equal(out, want_out) and torch.equal(codes, want_codes)
+    assert codes.shape == (2, 9, 7, 1) and codes.dtype == torch.int8
+    out2, none = stem_conv3x3_i8(feats, c1, c2, w, A, B, mode)
+    assert torch.equal(out2, out) and none.numel() == 0
+    assert stem_conv3x3_i8.launches == before
+    assert "conv_i8" not in tbuild._LIBS
+
+
+def test_stem_codes_equal_quant_stem():
+    """``quant_stem`` is ``stem_codes`` of ``stem_coeffs``: bn0 over the
+    stem's scale, one multiply-add, the clip at ±127 reached."""
+    rng = np.random.default_rng(6)
+    feats = torch.tensor((rng.normal(size=(2, 30, 16)) * 40).astype(np.float32))
+    s0 = torch.tensor(rng.uniform(0.2, 2.0, size=16).astype(np.float32))
+    b0 = torch.tensor(rng.normal(size=16).astype(np.float32))
+    c1, c2 = stem_coeffs(s0, b0, np.float32(0.043))
+    codes = stem_codes(feats, c1, c2)
+    assert torch.equal(codes, quant_stem(feats, s0, b0, np.float32(0.043)))
+    assert codes.min() == -127 and codes.max() == 127
+    assert torch.equal(c1, s0 / torch.tensor(0.043, dtype=torch.float32))
+
+
+def _stem_args():
+    return stem_case(2, 9, 7, 64, seed=7)
+
+
+@pytest.mark.parametrize("change,error,match", [
+    (lambda a: (a[0].double(),) + a[1:], TypeError, "float32"),
+    (lambda a: a[:1] + (a[1].half(),) + a[2:], TypeError, "float32"),
+    (lambda a: a[:4] + (a[4].double(), a[5]), TypeError, "float32"),
+    (lambda a: a[:3] + (a[3].int(),) + a[4:], TypeError, "int8 weights"),
+    (lambda a: (a[0][..., None],) + a[1:], ValueError, "feats"),
+    (lambda a: a[:3] + (a[3].expand(64, 3, 3, 2).contiguous(),) + a[4:], ValueError,
+     r"\[Co,3,3,1\]"),
+    (lambda a: a[:1] + (a[1][:6],) + a[2:], ValueError, "c1"),
+    (lambda a: a[:4] + (a[4][:32], a[5]), ValueError, "A"),
+    (lambda a: tuple(t.to("meta") for t in a), ValueError, "unsupported device"),
+], ids=["feats_f64", "c1_f16", "A_f64", "w_int32", "feats_4d", "w_two_lanes",
+        "c1_short", "A_short", "meta"])
+def test_stem_wrapper_checks_inputs(change, error, match):
+    with pytest.raises(error, match=match):
+        stem_conv3x3_i8(*change(_stem_args()), "sym")
+
+
+def test_stem_wrapper_checks_mode():
+    with pytest.raises(ValueError, match="mode"):
+        stem_conv3x3_i8(*_stem_args(), "relu")
 
 
 def border_class_conv(x, w_hwio, pad):
@@ -184,3 +264,52 @@ def test_conv3x3_i8_kernel_tile_edges(card, n, h, w, ci, co, mode, pad):
 def test_avgpool2x2_i8_kernel_matches_plain(card):
     x = torch.randint(-128, 128, (3, 11, 9, 64), dtype=torch.int8, device="cuda")
     assert torch.equal(avgpool2x2_i8(x), avgpool2x2_i8_ref(x))
+
+
+# the fused stem's cases on the card (N, T, F, Co): N = 1, T past a tile's
+# 54 rows of 64 bins and not a multiple of them, F = 1, F > 128 (TMA over
+# two column tiles; F % 4 != 0 through registers), odd F, Co 64 and 512
+STEM_EDGES = [(1, 100, 64, 64), (2, 55, 64, 512), (3, 37, 1, 64), (2, 19, 132, 128),
+              (2, 9, 200, 512), (1, 3, 7, 192), (2, 1, 1, 64), (1, 110, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,t,f,co", STEM_EDGES)
+def test_stem_kernel_matches_plain(card, n, t, f, co, mode):
+    """The fused stem kernel exactly against its plain version, codes on
+    and off, one launch a call."""
+    args = tuple(a.cuda() for a in stem_case(n, t, f, co, seed=t * f + co))
+    want_out, want_codes = stem_plain(*args, mode)
+    for codes in (True, False):
+        before = stem_conv3x3_i8.launches
+        out, got = stem_conv3x3_i8(*args, mode, codes=codes)
+        assert stem_conv3x3_i8.launches == before + 1
+        assert torch.equal(out, want_out)
+        assert torch.equal(got, want_codes) if codes else got.numel() == 0
+
+
+@pytest.mark.cuda
+def test_stem_kernel_at_the_main_path_shape(card):
+    """[512, 1024, 64] f32 -> 64, as the int8 encoder's stem runs it."""
+    args = tuple(a.cuda() for a in stem_case(512, 1024, 64, 64, seed=1))
+    out, codes = stem_conv3x3_i8(*args, "sym", codes=True)
+    want_out, want_codes = stem_plain(*args, "sym")
+    assert torch.equal(codes, want_codes)
+    for i in range(0, 512, 64):
+        assert torch.equal(out[i:i + 64], want_out[i:i + 64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64, 132])
+def test_stem_kernel_reads_an_unaligned_mel(card, f):
+    """A mel 4 bytes past a 16-byte boundary (a view into a larger buffer)
+    goes through per-thread loads instead of TMA, exactly as well."""
+    feats, c1, c2, w, A, B = (a.cuda() for a in stem_case(2, 60, f, 64, seed=f))
+    buf = torch.empty(feats.numel() + 1, device="cuda")
+    moved = buf[1:].view(feats.shape)
+    moved.copy_(feats)
+    assert moved.data_ptr() % 16 and moved.is_contiguous()
+    out, codes = stem_conv3x3_i8(moved, c1, c2, w, A, B, "sym", codes=True)
+    want_out, want_codes = stem_plain(feats, c1, c2, w, A, B, "sym")
+    assert torch.equal(out, want_out) and torch.equal(codes, want_codes)

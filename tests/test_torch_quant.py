@@ -22,8 +22,10 @@ from acvae_tpu.models.encoders import Cnn10 as JCnn10
 from acvae_tpu_torch.convert import from_flax, quant_from_flax
 from acvae_tpu_torch.models import quant as tquant
 from acvae_tpu_torch.models.encoders import Cnn10
+from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (pack_conv3x3_weight,
+                                                     stem_conv3x3_i8)
 from acvae_tpu_torch.ops.int8 import (avgpool2x2_i8_ref, conv3x3_i8_ref,
-                                      fma_f32, quant_stem)
+                                      fma_f32, quant_stem, stem_coeffs)
 from acvae_tpu_torch.train.checkpoints import load_experiment
 from tests.test_torch_int8_kernels import conv_case
 from tests.test_torch_decode import (E, T, eps_slab, fixed_eps,  # noqa: F401
@@ -129,6 +131,71 @@ def test_quant_stem_matches_jax(per_channel):
                      s[0] if per_channel else s).numpy()
     np.testing.assert_array_equal(out, ref[..., :1])
     assert out.min() == -127 and out.max() == 127      # the clip is reached
+
+
+def _stem_mel(rng, n, t, c1, c2):
+    """A mel [n, t, 8] for the bins' c1, c2 (float32): bins 0-3 on a grid
+    of 1/4, so that x·c1 + c2 lands on ties (.5) there; bins 4-7 random,
+    with the values where one rounding of x·c1 + c2 and two (the product,
+    then the sum) give different codes planted among them."""
+    feats = (np.round(rng.normal(size=(n, t, 8)) * 24) / 4).astype(np.float32)
+    for f in range(4, 8):
+        # the floats next to each (k + 1/2 - c2) / c1, where x·c1 + c2 is
+        # within a few ulps of a half: keep those whose codes differ
+        x0 = ((np.arange(-120, 120) + 0.5 - c2[f]) / c1[f]).astype(np.float32)
+        x = (x0[:, None] + np.spacing(x0)[:, None] * np.arange(-4, 5)).ravel()
+        exact = x.astype(np.float64) * c1[f] + np.float64(c2[f])   # exact sum
+        one = np.rint(exact.astype(np.float32))
+        two = np.rint((x * c1[f]) + c2[f])
+        found = rng.permutation(x[one != two])[:n * t // 4]
+        col = rng.uniform(-4, 4, size=n * t).astype(np.float32)
+        col[:found.size] = found
+        feats[:, :, f] = rng.permutation(col).reshape(n, t)
+    return feats
+
+
+@pytest.mark.parametrize("scheme,mode", [("v1", "sym"), ("v2sym", "sym"),
+                                         ("v2", "offset")])
+def test_stem_operator_matches_jax(scheme, mode):
+    """The fused stem's plain version (``stem_conv3x3_i8`` on the CPU)
+    against JAX's ``_quant_stem``, the stem's ``_conv`` and ``_requantize``,
+    compiled: codes and outputs identical, on ties and on values where two
+    roundings of the multiply-add would give another code than one."""
+    rng = np.random.default_rng(12)
+    co, n, t = 16, 2, 40
+    s0 = np.array([1.0, 2.0, 4.0, 0.5], np.float32)
+    s0 = np.concatenate([s0, rng.uniform(5, 30, size=4).astype(np.float32)])
+    b0 = np.array([0.5, 0.25, -0.5, 1.5], np.float32)
+    b0 = np.concatenate([b0, (rng.normal(size=4) * 5).astype(np.float32)])
+    # a stem scale of 1: c1, c2 are bn0's affine exactly
+    s = np.float32(1.0) if scheme == "v1" else np.array([1.0, 1e-12], np.float32)
+    feats = _stem_mel(rng, n, t, s0, b0)
+    w = rng.integers(-127, 128, size=(3, 3, 2, co)).astype(np.int8)
+    w[:, :, 1] = 0                                   # the padded lane
+    A = (rng.uniform(0.5, 1.5, size=co) * 40 / (3 * 73.0 * 73.0)).astype(np.float32)
+    B = (rng.normal(size=co) * 20).astype(np.float32)
+    jq = _bare_jax_quant(bn0=(jnp.asarray(s0), jnp.asarray(b0)), act_scales=[s],
+                         stem_lane_pad=2, offset=mode == "offset")
+    blk = {"w1": jnp.asarray(w)}
+
+    def f(feats):
+        x = jq._quant_stem(feats)
+        acc = jq._conv(x, blk, 1, offset_input=False)
+        return x, jq._requantize(acc.astype(jnp.float32) * A + B)
+    ref_codes, ref = (np.asarray(a) for a in jax.jit(f)(feats))
+    c1, c2 = stem_coeffs(torch.tensor(s0), torch.tensor(b0),
+                         s if scheme == "v1" else s[0])
+    out, codes = stem_conv3x3_i8(torch.tensor(feats), c1, c2,
+                                 pack_conv3x3_weight(torch.tensor(w[:, :, :1])),
+                                 torch.tensor(A), torch.tensor(B), mode, codes=True)
+    np.testing.assert_array_equal(codes.numpy(), ref_codes[..., :1])
+    np.testing.assert_array_equal(out.numpy(), ref)
+    # the data holds what the test is about: ties and double-rounding cases
+    y = feats.astype(np.float64) * s0 + b0
+    assert (np.abs(y - np.floor(y) - 0.5) == 0).sum() > 20
+    two = np.clip(np.rint(feats * s0 + b0), -127, 127)
+    assert (two != codes.numpy()[..., 0]).sum() >= 10
+    assert len(np.unique(ref)) > 40
 
 
 # --------------------------------------------------------------------- #
