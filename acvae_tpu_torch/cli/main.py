@@ -441,6 +441,24 @@ def _local_rank(rank: int) -> int:
     return rank % torch.cuda.device_count()
 
 
+def _log_whole_clips(logger, encoder: str, par, buckets) -> None:
+    """Under ``sequence_parallel``, the log line for what runs whole clips
+    on every rank of the model axis: an encoder the port does not split,
+    or the mel buckets whose time does not split into its shards."""
+    from acvae_tpu_torch.models.encoders import seq_split_encoders
+    if not par.seq_params:
+        logger.info(f"sequence parallelism: {encoder} runs on whole clips "
+                    f"(the port splits the time of "
+                    f"{', '.join(seq_split_encoders())})")
+        return
+    whole = [b for b in buckets if not par.seq_split(b)]
+    if whole:
+        stride = par.model.encoder.time_stride
+        logger.info(f"sequence parallelism: {encoder} runs on whole clips of "
+                    f"the mel buckets {whole} (its time splits in multiples "
+                    f"of {stride} x {par.grid.model} frames)")
+
+
 def _parallel_grid(conf: Dict[str, Any], vocab_size: int, buckets, logger):
     """The grid of a ``distributed`` run, with the JAX CLI's log lines and
     fallbacks (acvae_tpu/cli/main.py:337-392); None when it runs
@@ -517,9 +535,9 @@ def _train(conf: Config, device: torch.device, distributed: bool = False) -> str
             if distributed else None)
     if grid is not None:
         trainer.distribute(grid)
-        if grid.seq and not trainer.parallel.seq_params:
-            logger.info(f"sequence parallelism: {conf.get('encodermodel')} "
-                        f"runs on whole clips (the port splits Cnn10's time)")
+        if grid.seq:
+            _log_whole_clips(logger, conf.get("encodermodel"), trainer.parallel,
+                             train_loader.buckets)
         # the dropouts: rows of other data ranks draw masks of their own
         torch.manual_seed(seed + 1_000_003 * grid.d)
     if trainer.adversarial is not None:

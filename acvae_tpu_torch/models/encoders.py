@@ -36,12 +36,17 @@ embeddings use length-masked mean/max, as in JAX.
 
 In a parallel train step (``parallel/state.py``) a train-mode BatchNorm
 takes the global batch's statistics: its two sums per channel are
-all-reduced, with their gradient.  Under sequence parallelism Cnn10 runs on
-its rank's slice of mel time (:meth:`Cnn10.seq_split_ok`): each 3×3 conv
-reads one frame a side from the neighbour shards (zeros at the outer
-edges, as SAME padding gives), the pools halve each shard, the head masks
-each shard at its global frame offset and reduces across shards, and
-``audio_embeds`` is gathered over time.
+all-reduced, with their gradient.  Under sequence parallelism the encoders of
+:func:`seq_split_encoders` run their convolutional trunk on the rank's
+slice of mel time (``seq_split_ok``: the slice holds a whole number of the
+trunk's time stride, so every pool stays inside it): each 3×3 stride-1
+conv reads one frame a side from the neighbour shards (zeros at the outer
+edges, as SAME padding gives), 1×1 convs and the pools stay local.  The
+PANN family (Cnn10, Cnn14, ResNet38) then masks each shard at its global
+frame offset in its pooled head, reduces across shards and gathers
+``audio_embeds`` over time; the double-conv encoders (CNN10Q/D,
+CRNN8_Sub4) gather their trunk's frames and run their heads (and CRNN8's
+BiGRU) on the whole clip.
 """
 from __future__ import annotations
 
@@ -74,6 +79,11 @@ def register(name: str):
         ENCODERS[name] = cls
         return cls
     return deco
+
+
+def seq_split_encoders():
+    """The registered encoders whose trunk sequence parallelism splits."""
+    return sorted(n for n, c in ENCODERS.items() if issubclass(c, _SeqSplit))
 
 
 # ------------------------------------------------------------------ init
@@ -225,9 +235,36 @@ class ConvBlock(nn.Module):
         return _pool2d(x, pool_size, pool_type)
 
 
-class _PannEncoder(nn.Module):
-    """bn0 over the mel bins, the stem's ``stem_pad_lanes`` and the PANN
-    pooled head (``encoders.py:68-104``)."""
+class _SeqSplit:
+    """Sequence parallelism for an encoder whose trunk subsamples mel time
+    by ``time_stride`` (the product of its pools' and strides' time
+    factors) and whose head reads the trunk's output alone."""
+    time_stride = 1
+
+    @classmethod
+    def seq_split_ok(cls, T: int, model: int) -> bool:
+        """Whether T frames split over ``model`` shards whose pools stay
+        within each shard."""
+        return T % (cls.time_stride * model) == 0
+
+    def seq_split_params(self):
+        """The parameters the time shards compute partial gradients of."""
+        return list(self._trunk_params())
+
+    def _split(self):
+        """(group, index) of this rank's slice of time in a split step, or
+        None."""
+        st = pstate.active()
+        if st is None or not st.seq_split:
+            return None
+        return st.grid.model_group, st.grid.m
+
+
+class _PannEncoder(_SeqSplit, nn.Module):
+    """bn0 over the mel bins, the stem's ``stem_pad_lanes``, the trunk
+    (``_trunk``, time stride ``time_stride``) and the PANN pooled head
+    (``encoders.py:68-104``) through its Dense ``head``."""
+    head = "fc1"
 
     def __init__(self, inputdim: int, stem_channels: int, conv_dropout: float,
                  head_dropout: float, device=None):
@@ -248,6 +285,18 @@ class _PannEncoder(nn.Module):
 
     def _drop(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return F.dropout(x, self.conv_dropout, train)
+
+    def _trunk_params(self):
+        head = {id(p) for p in getattr(self, self.head).parameters()}
+        return (p for p in self.parameters() if id(p) not in head)
+
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+        split = self._split()   # feats: this rank's slice of time
+        with pstate.split_region() if split else contextlib.nullcontext():
+            x = self._trunk(self._stage_mel(feats, train), train)
+        return self._head(x, feat_lens // self.time_stride,
+                          getattr(self, self.head), train, split)
 
     def _head(self, x: torch.Tensor, lens: torch.Tensor, fc: nn.Linear,
               train: bool, split=None) -> Dict[str, torch.Tensor]:
@@ -283,6 +332,7 @@ class _PannEncoder(nn.Module):
 class Cnn10(_PannEncoder):
     """PANN Cnn10 backbone (encoder.py:651-707): 4 ConvBlocks, time
     subsampling ×16, masked max+mean pooled head."""
+    time_stride, head = 16, "embed_pooled"
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -301,28 +351,10 @@ class Cnn10(_PannEncoder):
         self.embed_pooled = _dense(embed_size, embed_size, "xavier_uniform",
                                    device)
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                train: bool = False) -> Dict[str, torch.Tensor]:
-        st = pstate.active()
-        split = st is not None and st.seq_split   # feats: this rank's time
-        with pstate.split_region() if split else contextlib.nullcontext():
-            x = self._stage_mel(feats, train)
-            for blk in self.blocks:
-                x = self._drop(blk(x, train), train)
-        return self._head(x, feat_lens // 16, self.embed_pooled, train,
-                          (st.grid.model_group, st.grid.m) if split else None)
-
-    # sequence parallelism: feats hold this rank's slice of mel time
-    @staticmethod
-    def seq_split_ok(T: int, model: int) -> bool:
-        """Whether T frames split over ``model`` shards whose 4 pools stay
-        within each shard."""
-        return T % (16 * model) == 0
-
-    def seq_split_params(self):
-        """The parameters the time shards compute partial gradients of."""
-        head = {id(p) for p in self.embed_pooled.parameters()}
-        return [p for p in self.parameters() if id(p) not in head]
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        for blk in self.blocks:
+            x = self._drop(blk(x, train), train)
+        return x
 
 
 @register("Cnn14")
@@ -330,6 +362,7 @@ class Cnn14(_PannEncoder):
     """PANN Cnn14_16k (encoder.py:871-964): 6 ConvBlocks 64->2048, the last
     unpooled; time subsampling ×32."""
     channels = (64, 128, 256, 512, 1024, 2048)
+    time_stride = 32
 
     def __init__(self, inputdim: int = 64, embed_size: int = 2048,
                  dtype=torch.float32, device=None):
@@ -342,13 +375,11 @@ class Cnn14(_PannEncoder):
             self.add_module(f"conv_block{i + 1}", blk)
         self.fc1 = _dense(2048, embed_size, "xavier_uniform", device)
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                train: bool = False) -> Dict[str, torch.Tensor]:
-        x = self._stage_mel(feats, train)
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         for i, blk in enumerate(self.blocks):
             x = blk(x, train, pool_size=(2, 2) if i < 5 else (1, 1))
             x = self._drop(x, train)
-        return self._head(x, feat_lens // 32, self.fc1, train)
+        return x
 
 
 class ResnetBasicBlock(nn.Module):
@@ -414,7 +445,9 @@ class _ResNetTrunk(nn.Module):
 @register("ResNet38")
 class ResNet38(_PannEncoder):
     """PANN ResNet38 (encoder.py:1169-1232): ConvBlock64 -> ResNet[3,4,6,3]
-    -> ConvBlock2048 -> pooled head; subsampling ×32."""
+    -> ConvBlock2048 -> pooled head; subsampling ×32 (``conv_block1``'s
+    pool, the three stride-2 stages, the pool after the trunk)."""
+    time_stride = 32
 
     def __init__(self, inputdim: int = 64, embed_size: int = 2048,
                  dtype=torch.float32, device=None):
@@ -425,13 +458,11 @@ class ResNet38(_PannEncoder):
         self.conv_block_after1 = ConvBlock(512, 2048, dtype, device)
         self.fc1 = _dense(2048, embed_size, "xavier_uniform", device)
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                train: bool = False) -> Dict[str, torch.Tensor]:
-        x = self._drop(self.conv_block1(self._stage_mel(feats, train), train),
-                       train)
+    def _trunk(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        x = self._drop(self.conv_block1(x, train), train)
         x = self._drop(F.avg_pool2d(self.resnet(x, train), 2), train)
-        x = self._drop(self.conv_block_after1(x, train, pool_size=(1, 1)), train)
-        return self._head(x, feat_lens // 32, self.fc1, train)
+        return self._drop(self.conv_block_after1(x, train, pool_size=(1, 1)),
+                          train)
 
 
 class TorchvisionBasicBlock(nn.Module):
@@ -552,10 +583,12 @@ class CRNNEncoder(nn.Module):
                 "audio_embeds_lens": lens}
 
 
-class _DoubleConvTrunk(nn.Module):
+class _DoubleConvTrunk(_SeqSplit, nn.Module):
     """bn0 and ``b<i>_conv<j>``/``b<i>_bn<j>`` double-conv blocks (BN in the
     block dtype, relu) of CNN10Q/D and CRNN8_Sub4 (``encoders.py:379-393,
-    465-479``); the JAX stem's padded lanes are not kept."""
+    465-479``); the JAX stem's padded lanes are not kept.  :meth:`_frames`
+    runs bn0, the blocks (``_blocks``) and the mean over mel bins, on the
+    rank's slice of time in a split step, then gathered."""
 
     def __init__(self, inputdim: int, channels: Sequence[int], dtype, device):
         super().__init__()
@@ -576,11 +609,27 @@ class _DoubleConvTrunk(nn.Module):
             x = F.relu(getattr(self, f"b{i}_bn{j}")(x, train, dtype=self.dtype))
         return x
 
+    def _trunk_params(self):
+        for i in range(self.n_blocks):
+            for j in (1, 2):
+                yield from getattr(self, f"b{i}_conv{j}").parameters()
+                yield from getattr(self, f"b{i}_bn{j}").parameters()
+        yield from self.bn0.parameters()
+
+    def _frames(self, feats: torch.Tensor, train: bool) -> torch.Tensor:
+        """The trunk's [N, T', C] frames of the whole clip."""
+        split = self._split()   # feats: this rank's slice of time
+        with pstate.split_region() if split else contextlib.nullcontext():
+            x = self._blocks(self.bn0(feats, train, axis=2)[:, None], train)
+            x = x.mean(dim=3).transpose(1, 2)
+        return x if split is None else gather_replicated(x, 1, split[0])
+
 
 @register("CNN10QEncoder")
 class CNN10QEncoder(_DoubleConvTrunk):
     """CNN10-Q (encoder.py:427-498): double-conv blocks with avg pools, final
     freq average, masked mean+max pooled embedding; subsampling ×16."""
+    time_stride = 16
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -593,11 +642,13 @@ class CNN10QEncoder(_DoubleConvTrunk):
         self.embedding = _dense(channels[-1], self.embed_size,
                                 "kaiming_uniform", device)
 
-    def _trunk(self, feats, feat_lens, train):
-        x = self.bn0(feats, train, axis=2)[:, None]
+    def _blocks(self, x, train):
         for i in range(self.n_blocks):
             x = F.dropout(F.avg_pool2d(self._block(x, i, train), 2), 0.2, train)
-        return x.mean(dim=3).transpose(1, 2), feat_lens // 16
+        return x
+
+    def _trunk(self, feats, feat_lens, train):
+        return self._frames(feats, train), feat_lens // 16
 
     def _pooled(self, x, lens, train):
         out = mean_with_lens(x, lens) + max_with_lens(x, lens)
@@ -673,6 +724,7 @@ class CRNN8Sub4(_DoubleConvTrunk):
     """CRNN8 (encoder.py:345-424): double-conv blocks with avg+max pooling
     -> embedding -> BiGRU; subsampling ×4."""
     pools = ((2, 2), (2, 2), (1, 2), (1, 2))
+    time_stride = 4
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -684,13 +736,15 @@ class CRNN8Sub4(_DoubleConvTrunk):
         self.gru = GRU(channels[-1], channels[-1] // 2, bidirectional=True,
                        device=device)
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
-                train: bool = False) -> Dict[str, torch.Tensor]:
-        x = self.bn0(feats, train, axis=2)[:, None]
+    def _blocks(self, x, train):
         for i, p in enumerate(self.pools):
             x = F.dropout(_pool2d(self._block(x, i, train), p, "avg+max"), 0.2,
                           train)
-        x = F.dropout(x.mean(dim=3).transpose(1, 2), 0.5, train)
+        return x
+
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+        x = F.dropout(self._frames(feats, train), 0.5, train)
         x = F.relu(promoted_linear(x, self.embedding))
         lens = feat_lens // 4
         x, _ = self.gru(x, lens)

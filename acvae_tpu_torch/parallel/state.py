@@ -5,7 +5,8 @@ draws.
 parallel.mesh.Grid`: the losses then divide by global counts
 (:func:`global_count`, :func:`batch_mean`), BatchNorm reduces its sums
 over :func:`bn_group`, a vocab-split classifier hands back its shard of the
-logits, and with ``seq_split`` Cnn10 runs on its slice of mel time.
+logits, and with ``seq_split`` the encoder runs its trunk on its slice of
+mel time (the encoders of ``models/encoders.py::seq_split_encoders``).
 Outside a step (validation, the decodes) the model is a plain one.
 
 :func:`row_shard` makes every draw of the rows a split slice of the draw

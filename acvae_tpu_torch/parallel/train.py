@@ -71,27 +71,9 @@ class Distributed:
                                     vocab_logits=self.vocab_split):
             yield
 
-    @torch.no_grad()
     def sync_grads(self, seq_split: bool) -> None:
-        """Sum the gradients over the ranks they are partial on; one
-        all-reduce a group, the grads flattened."""
-        g = self.grid
-        by_group: Dict[Any, List[torch.Tensor]] = {}
-        for p in self.model.parameters():
-            if p.grad is None:
-                continue
-            group = (g.world_group if seq_split and id(p) in self.seq_params
-                     else g.data_group)
-            size = g.world if group is g.world_group else g.data
-            if size > 1:
-                by_group.setdefault(group, []).append(p.grad)
-        for group, grads in by_group.items():
-            flat = torch.cat([t.reshape(-1).float() for t in grads])
-            dist.all_reduce(flat, group=group)
-            i = 0
-            for t in grads:
-                t.copy_(flat[i:i + t.numel()].view_as(t))
-                i += t.numel()
+        sum_partial_grads(self.model.parameters(), self.grid, self.seq_params,
+                          seq_split)
 
     def split_params(self) -> List[torch.nn.Parameter]:
         names = dict(self.model.named_parameters())
@@ -138,6 +120,30 @@ class Distributed:
         for k in self.split_names:
             sd[k] = self._gather(sd[k])
         return sd
+
+
+@torch.no_grad()
+def sum_partial_grads(params, grid: Grid, seq_params, seq_split: bool) -> None:
+    """Sum the gradients of ``params`` over the ranks they are partial on:
+    the ranks of other rows, and every rank for the parameters (ids in
+    ``seq_params``) the time shards of a split step compute parts of; one
+    all-reduce a group, the grads flattened."""
+    by_group: Dict[Any, List[torch.Tensor]] = {}
+    for p in params:
+        if p.grad is None:
+            continue
+        group = (grid.world_group if seq_split and id(p) in seq_params
+                 else grid.data_group)
+        size = grid.world if group is grid.world_group else grid.data
+        if size > 1:
+            by_group.setdefault(group, []).append(p.grad)
+    for group, grads in by_group.items():
+        flat = torch.cat([t.reshape(-1).float() for t in grads])
+        dist.all_reduce(flat, group=group)
+        i = 0
+        for t in grads:
+            t.copy_(flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
 
 
 def eval_model(trainer, cache: dict):

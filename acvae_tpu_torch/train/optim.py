@@ -24,6 +24,12 @@ defaults, update for update:
   micro-batches are averaged (Welford: ``acc += (g - acc)/(n+1)``), and
   one update of the whole chain runs on the average; the accumulator and
   its mini-step are part of :meth:`OptaxChain.state_dict`.
+* ``mu_dtype`` (Adam, AdamW) and ``accumulator_dtype`` (SGD) keep the
+  first moment or the momentum trace in that dtype, as optax does: the new
+  moment is summed in float32 (its decayed old value in the stored dtype,
+  as JAX multiplies by a Python float), the update reads that float32
+  moment, and only then is it rounded to the stored dtype.  The second
+  moment and the accumulator keep the parameters' dtype.
 
 A parameter without a gradient (off the loss path) steps with a zero
 gradient, as JAX's ``grad`` gives it one.  The learning-rate schedule is
@@ -53,11 +59,43 @@ OPTAX_ARGS: Dict[str, Tuple[str, Dict[str, Any]]] = {
 }
 # arguments optax takes whose other values the port leaves out, and why
 _DEFAULT_ONLY = {
-    "mu_dtype": (None, "the optimizer state keeps the parameters' dtype"),
-    "accumulator_dtype": (None, "the optimizer state keeps the parameters' "
-                                "dtype"),
     "mask": (None, "the port masks by name: freeze_word_embedding and "
                    "model_args.freeze_encoder")}
+# the optimizer state's dtypes by optax's names (``canonicalize_dtype``, as
+# JAX without x64 has them: float64 is float32)
+STATE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                "float32": torch.float32, "float64": torch.float32}
+
+
+def state_dtype(key: str, value) -> Optional[torch.dtype]:
+    """The torch dtype of ``optimizer_args[key]`` (``mu_dtype``,
+    ``accumulator_dtype``): None keeps the parameters' dtype; a name numpy
+    reads (``half``, ``f4``, ...) counts as its canonical name.  An integer
+    or complex dtype raises ValueError: JAX would keep the moments in it,
+    truncated."""
+    if value is None:
+        return None
+    name = str(value)
+    if name not in STATE_DTYPES:
+        try:
+            name = np.dtype(name).name
+        except TypeError:
+            raise TypeError(f"optimizer_args {key}={value!r} is not a "
+                            f"dtype") from None
+    if name not in STATE_DTYPES:
+        raise ValueError(f"optimizer_args {key}={value!r}: the optimizer "
+                         f"state must be a float dtype, one of "
+                         f"{sorted(STATE_DTYPES)}")
+    return STATE_DTYPES[name]
+
+
+def _times(t: torch.Tensor, s: float) -> torch.Tensor:
+    """``s·t`` in ``t``'s dtype, as JAX multiplies by a Python float: in a
+    half dtype the factor rounds to that dtype first (torch would keep it
+    in float32)."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t * torch.tensor(s, dtype=t.dtype)
+    return t * s
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -100,6 +138,8 @@ class OptaxChain:
                 raise NotImplementedError(
                     f"optimizer_args {k}={self.args[k]!r} is not ported "
                     f"(only optax's default {v!r}: {why})")
+        self.dtypes = {k: state_dtype(k, self.args.get(k))
+                       for k in ("mu_dtype", "accumulator_dtype")}
         self.schedule, self.max_grad_norm = schedule, max_grad_norm
         self.accum_steps = max(1, int(accum_steps or 1))
         named = list(named_params)
@@ -133,7 +173,8 @@ class OptaxChain:
         a, z = self.args, lambda: torch.zeros_like(p)  # noqa: E731
         st: Dict[str, torch.Tensor] = {}
         if self.name in ("Adam", "AdamW"):
-            st.update(mu=z(), nu=z())
+            st.update(mu=torch.zeros_like(p, dtype=self.dtypes["mu_dtype"]),
+                      nu=z())
         elif self.name == "RMSprop":
             st["nu"] = torch.full_like(p, a["initial_scale"])
             if a["centered"]:
@@ -141,7 +182,8 @@ class OptaxChain:
         elif self.name == "Adagrad":
             st["sum_of_squares"] = torch.full_like(p, a["initial_accumulator_value"])
         if a.get("momentum") is not None:
-            st["trace"] = z()
+            st["trace"] = torch.zeros_like(
+                p, dtype=self.dtypes["accumulator_dtype"])
         if self.accum_steps > 1:
             st["acc"] = z()
         return st
@@ -199,13 +241,16 @@ class OptaxChain:
         a, c = self.args, self.count
         if self.name in ("Adam", "AdamW"):
             b1, b2 = a["b1"], a["b2"]
-            st["mu"].mul_(b1).add_(g * (1 - b1))
+            # optax.scale_by_adam: the update reads the float32 moment,
+            # which is stored in mu_dtype after it
+            mu = g * (1 - b1) + _times(st["mu"], b1)
             st["nu"].mul_(b2).add_(g * g * (1 - b2))
             if a["nesterov"]:
-                mu_hat = (b1 * (st["mu"] / (1 - b1 ** (c + 1)))
+                mu_hat = (b1 * (mu / (1 - b1 ** (c + 1)))
                           + (1 - b1) * (g / (1 - b1 ** c)))
             else:
-                mu_hat = st["mu"] / (1 - b1 ** c)
+                mu_hat = mu / (1 - b1 ** c)
+            st["mu"] = mu.to(st["mu"].dtype)
             nu_hat = st["nu"] / (1 - b2 ** c)
             u = mu_hat / (torch.sqrt(nu_hat + a["eps_root"]) + a["eps"])
             if self.name == "AdamW":
@@ -238,12 +283,14 @@ class OptaxChain:
 
     def _trace(self, u: torch.Tensor, st: Dict[str, torch.Tensor]) -> torch.Tensor:
         """optax ``trace``: ``t = u + μ·t``; the update is t, or ``u + μ·t``
-        with Nesterov; ``u`` unchanged without momentum."""
+        with Nesterov, from the float32 t, which is stored in
+        ``accumulator_dtype`` after it; ``u`` unchanged without momentum."""
         mu = self.args.get("momentum")
         if mu is None:
             return u
-        st["trace"] = u + mu * st["trace"]
-        return u + mu * st["trace"] if self.args["nesterov"] else st["trace"]
+        t = u + _times(st["trace"], mu)
+        st["trace"] = t.to(st["trace"].dtype)
+        return u + mu * t if self.args["nesterov"] else t
 
     def state_dict(self) -> Dict[str, Any]:
         return {"count": self.count, "mini_step": self.mini_step,
@@ -252,7 +299,9 @@ class OptaxChain:
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Restore :meth:`state_dict` (tensors on any device); the layout
-        must match this chain's."""
+        must match this chain's, and each tensor takes this chain's dtype
+        (a float32 moment loaded into a ``mu_dtype: bfloat16`` chain is
+        rounded to it)."""
         if len(sd["state"]) != len(self.state):
             raise ValueError(f"optimizer state for {len(sd['state'])} "
                              f"parameters, this chain has {len(self.state)}")

@@ -131,7 +131,14 @@ Phases, each of which exits nonzero on failure:
    the rollout's on one batch (atol 1e-4), 3 N-SCST iterations at 5
    samples.  (d) ``average_checkpoints best,last``, ``evaluate
    --checkpoint=avg`` in bf16 and with the int8 encoder (10 + 70 + 30 launches)
-   and ``diagnose`` (its JSON keys).
+   and ``diagnose`` (its JSON keys).  (e) New, with the optimizer
+   state's dtypes: ``optimizer_args.mu_dtype: bfloat16`` (Adam) and
+   ``optimizer: SGD`` with ``momentum: 0.9, accumulator_dtype: bfloat16``:
+   two small steps card vs CPU from the same weights and draws (metrics
+   within rtol 1e-3, the stored moment within 1e-2 per tensor), 3
+   full-width flagship steps each with the time warp (the moment bfloat16
+   on the card), the state's bytes beside the float32 chain's, and the
+   Cnn14 flagship's.
 
 14. encoders: (a) every registered encoder (``models/encoders.py``) on the
    card against the CPU at ``tests/test_encoders.py``'s widths (N 2, T 64;
@@ -230,7 +237,21 @@ Phases, each of which exits nonzero on failure:
    the plain int8 evaluate, each twice (cold, warm): identical files, the
    int8 launches counted per card.  (d) With 2 or more cards, (a) over
    NCCL on all of them.  ``--only parallel`` runs phases 1, 2 and 18 alone
-   (phase 10's corpus made here).
+   (phase 10's corpus made here).  New with sequence parallelism beyond
+   Cnn10, in (a) and (d): the PANN Cnn14 (``--encodermodel=Cnn14
+   --encoder_args.embed_size=2048``, phase 14's set-up) and ResNet38 take
+   the SP step, every dropout off (they hard-code theirs).  In float32
+   with the port's BatchNorm the loss (rtol 1e-5) and the gradients per
+   tensor are held, the unsplit step probed and the dropped halo outside
+   the limits; a second float32 pass with BatchNorm in float64 on both
+   sides holds the update too (the float32 BatchNorm's rounding moves
+   Adam's sign steps; the probes read it).  Cnn14 is also timed in bf16:
+   its split held at limits of its own (``PAR_LIMITS``: the unsplit
+   bf16 step moves as far when only its BatchNorms change precision,
+   which its probe reads), at T_mel 1024 and at 3072, the largest mel
+   bucket.  The peak memory of the unsplit step and of each rank, in the
+   timed step above what the process held before, is printed for every
+   timed (bf16) case.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
 serve, cli, diverse, families, extras, encoders, aux, export, tools,
@@ -833,12 +854,12 @@ def small_conf():
         augment_args={"p": 1.0, "W": 8, "T": 10, "F": 4})
 
 
-def parity_phase():
-    """One small step on the card (kernels) and on the CPU (plain
-    versions) from the same weights and draws: metrics within rtol 1e-3."""
+def small_step_inputs():
+    """The small step's recipe, batch and fixed draws (augment and model
+    noise) for a step on the card against one on the CPU: (conf, V, F,
+    batch, draws, noise)."""
     from acvae_tpu_torch.ops.specaug import draw_span
     from acvae_tpu_torch.ops.warp import draw_anchors
-    from acvae_tpu_torch.train.trainer import Trainer
 
     conf = small_conf()
     V, N, T, F, L, E = 25, 3, 64, 16, 8, 16
@@ -860,6 +881,15 @@ def parity_phase():
              "p_eps": torch.randn((L - 1, N, E), generator=g),
              "ss_coins": torch.ones(L - 1, dtype=torch.bool),
              "dis_coins": torch.rand(L - 1, generator=g) < 0.5}
+    return conf, V, F, batch, draws, noise
+
+
+def parity_phase():
+    """One small step on the card (kernels) and on the CPU (plain
+    versions) from the same weights and draws: metrics within rtol 1e-3."""
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    conf, V, F, batch, draws, noise = small_step_inputs()
     gpu = Trainer(conf, V, F, device="cuda", total_iters=100)
     cpu = Trainer(conf, V, F, device="cpu", total_iters=100)
     cpu.model.load_state_dict({k: v.cpu() for k, v in
@@ -877,11 +907,11 @@ def parity_phase():
             torch.testing.assert_close(v.cpu(), sd_cpu[k], rtol=1e-3, atol=1e-4)
 
 
-def make_batch(rng):
-    lens = rng.integers(T_MEL // 2, T_MEL + 1, size=BATCH).astype(np.int32)
-    lens[0] = T_MEL
-    feats = rng.normal(size=(BATCH, T_MEL, DATA_DIM)).astype(np.float32)
-    feats[np.arange(T_MEL)[None, :] >= lens[:, None]] = 0.0
+def make_batch(rng, T=T_MEL):
+    lens = rng.integers(T // 2, T + 1, size=BATCH).astype(np.int32)
+    lens[0] = T
+    feats = rng.normal(size=(BATCH, T, DATA_DIM)).astype(np.float32)
+    feats[np.arange(T)[None, :] >= lens[:, None]] = 0.0
     cap_lens = rng.integers(8, CAP_LEN + 1, size=BATCH).astype(np.int32)
     cap_lens[0] = CAP_LEN
     caps = rng.integers(4, VOCAB, size=(BATCH, CAP_LEN)).astype(np.int32)
@@ -2235,7 +2265,8 @@ def extras_phase(tmp, exp):
     snapshots, a fault and a resume against an uninterrupted run; (b) one
     epoch with the other train keys; (c) SCST and N-SCST; (d)
     ``average_checkpoints``, ``evaluate --checkpoint=avg`` (bf16, int8) and
-    ``diagnose``.  Returns the kernel launches over all of it."""
+    ``diagnose``; (e) the optimizer state's dtypes.  Returns the kernel
+    launches over all of it."""
     from acvae_tpu_torch.cli import main as cli
 
     config = str(CONFIGS / "ac_vae.yaml")
@@ -2252,7 +2283,12 @@ def extras_phase(tmp, exp):
           f"{warps} train iterations")
     extras_scst(cli, exp)
     extras_average(cli, tmp, exp)
+    before = read_counts()["time_warp_1d"]
+    warps = extras_state_dtypes()
     counts = read_counts()
+    check(counts["time_warp_1d"] - before == warps,
+          f"extras state dtypes: time_warp_1d launched "
+          f"{counts['time_warp_1d'] - before} times in {warps} steps")
     for k, v in counts.items():
         check(v > 0, f"extras: {k} never launched on the path")
     print(f"extras: launches over the path {counts} ({SMI})")
@@ -2417,6 +2453,121 @@ def extras_keys(cli, tmp, args, exp):
           f"kl {m['kl']:.4f} kl_raw {m['kl_raw']:.4f}, kl_weight "
           f"{m['kl_weight']}, plateau {meta['plateau_scale']} ({SMI})")
     return CLI_ITERS
+
+
+# (e): the optimizer chains whose state takes optimizer_args' dtype, and
+# the state tensor each keeps in it
+STATE_DTYPE_CHAINS = (
+    ("Adam", {"lr": 5e-4, "mu_dtype": "bfloat16"}, "mu"),
+    ("SGD", {"lr": 5e-4, "momentum": 0.9, "accumulator_dtype": "bfloat16"},
+     "trace"))
+STATE_STEPS = 3
+
+
+def _state_bytes(opt, itemsize=None):
+    """{state key: bytes} of an ``OptaxChain``'s state (each element
+    ``itemsize`` bytes if given: the float32 chain's are 4)."""
+    out = {}
+    for st in opt.state:
+        for k, v in st.items():
+            out[k] = out.get(k, 0) + v.numel() * (itemsize or v.element_size())
+    return out
+
+
+def extras_state_dtypes():
+    """(e) ``optimizer_args.mu_dtype`` (Adam) and ``accumulator_dtype``
+    (SGD with momentum 0.9) at bfloat16: two small steps on the card
+    against the CPU from the same weights and draws (both steps' metrics
+    within rtol 1e-3, the stored moment's per-tensor relative error
+    printed and within 1e-2); STATE_STEPS full-width flagship steps of
+    each, the moment bfloat16 on the card, finite metrics and weights, its
+    bytes beside a float32 chain's (the same elements at 4 bytes); the
+    Cnn14 flagship's state bytes likewise.  Returns the card's steps taken
+    with the time warp."""
+    from acvae_tpu_torch.configs import FLAGSHIP_CONF
+    from acvae_tpu_torch.train.trainer import Trainer
+
+    warps = 0
+    for name, args, key in STATE_DTYPE_CHAINS:
+        conf, V, F, small, draws, noise = small_step_inputs()
+        conf.update(optimizer=name, optimizer_args=args)
+        pair = [Trainer(conf, V, F, device=d, total_iters=100)
+                for d in ("cuda", "cpu")]
+        pair[1].model.load_state_dict({k: v.cpu() for k, v in
+                                       pair[0].model.state_dict().items()})
+        metrics = []
+        for step in (1, 2):
+            for tr in pair:
+                metrics.append({k: float(v) for k, v in tr.step(
+                    small, step, 12, draws=draws, noise=noise).items()})
+        warps += 2
+        for (a, b) in zip(metrics[0::2], metrics[1::2]):
+            for k in ("loss", "ce", "kl", "grad_norm"):
+                check(math.isfinite(a[k]) and abs(a[k] - b[k])
+                      <= 1e-3 * abs(b[k]) + 1e-6,
+                      f"extras {name} {key} bf16: card and CPU disagree on "
+                      f"{k}: {a[k]} vs {b[k]}")
+        moments = [[st[key] for st in tr.optimizer.state] for tr in pair]
+        check(all(t.dtype == torch.bfloat16 for ts in moments for t in ts),
+              f"extras {name}: the {key} state is not bfloat16")
+        rel = max(float((a.cpu().double() - b.double()).norm()
+                        / max(float(b.double().norm()), 1e-30))
+                  for a, b in zip(*moments))
+        check(rel <= 1e-2, f"extras {name}: the card's {key} is {rel:.3g} "
+                           f"off the CPU's")
+        del pair
+        # full width, the time warp on
+        full = copy.deepcopy(FLAGSHIP_CONF)
+        full.update(optimizer=name, optimizer_args=args)
+        trainer = Trainer(full, VOCAB, DATA_DIM, device="cuda",
+                          total_iters=ITERS_PER_EPOCH * EPOCHS)
+        rng_full = np.random.default_rng(5)
+        step_ms = []
+        for i in range(STATE_STEPS):
+            batch = make_batch(rng_full)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = trainer.step(batch, ITERS_PER_EPOCH * 11 + 1 + i, 12)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(all(math.isfinite(float(v)) for v in m.values()),
+                  f"extras {name} bf16 {key}: non-finite metric at step {i + 1}")
+        warps += STATE_STEPS
+        check(all(st[key].dtype == torch.bfloat16 and st[key].is_cuda
+                  for st in trainer.optimizer.state),
+              f"extras {name}: the card's {key} state is not bfloat16")
+        check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
+              f"extras {name} bf16 {key}: non-finite parameters")
+        got = _state_bytes(trainer.optimizer)
+        ref_bytes = _state_bytes(trainer.optimizer, 4)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        del trainer
+        torch.cuda.empty_cache()
+        c14 = copy.deepcopy(cnn14_conf())
+        c14.update(optimizer=name, optimizer_args=args)
+        c14_opt = Trainer(c14, VOCAB, DATA_DIM, device="cuda",
+                          total_iters=100).optimizer
+        c14_bytes = _state_bytes(c14_opt)
+        c14_ref = _state_bytes(c14_opt, 4)
+        check(all(st[key].dtype == torch.bfloat16 for st in c14_opt.state),
+              f"extras {name}: the Cnn14 flagship's {key} is not bfloat16")
+        c14_params = sum(p.numel() for p in c14_opt.params)
+        del c14_opt
+        torch.cuda.empty_cache()
+        print(f"extras state dtypes: {name} {args}: small step pair card vs "
+              f"CPU: losses {metrics[0]['loss']:.6f}/{metrics[1]['loss']:.6f}, "
+              f"{metrics[2]['loss']:.6f}/{metrics[3]['loss']:.6f}, the stored "
+              f"{key} rel {rel:.3g}; the flagship ({n_params} params) "
+              f"{STATE_STEPS} steps ms {', '.join(f'{t:.1f}' for t in step_ms)}, "
+              f"{key} {got[key] / 1e6:.2f} MB bf16 against "
+              f"{ref_bytes[key] / 1e6:.2f} MB float32 (state {sum(got.values()) / 1e6:.2f} "
+              f"against {sum(ref_bytes.values()) / 1e6:.2f} MB); the Cnn14 "
+              f"flagship ({c14_params} params) {key} "
+              f"{c14_bytes[key] / 1e6:.2f} MB against "
+              f"{c14_ref[key] / 1e6:.2f} MB, state "
+              f"{sum(c14_bytes.values()) / 1e6:.2f} against "
+              f"{sum(c14_ref.values()) / 1e6:.2f} MB ({SMI})")
+    return warps
 
 
 def extras_scst(cli, exp):
@@ -3803,51 +3954,50 @@ PAR_VOCAB = VOCAB + 1
 PAR_EPOCH = 12
 
 
-def par_conf(dtype):
-    """The flagship with its dropouts off, its encoder in ``dtype``, and one
-    Adam step at lr 1e-4."""
+def par_conf(dtype, encoder="Cnn10"):
+    """The flagship with its dropouts off, ``encoder`` (Cnn10; the PANN
+    Cnn14 or ResNet38 with a 2048-wide pooled embedding, as phase 14 sets
+    Cnn14 up) in ``dtype``, and one Adam step at lr 1e-4.  Cnn14 and
+    ResNet38 hard-code their dropouts: the steps turn every dropout off
+    (``parity.dropout_off``)."""
     from acvae_tpu_torch.configs import flagship_conf
     conf = flagship_conf(scheduler="constant", scheduler_args={},
-                         optimizer_args={"lr": 1e-4})
-    conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype,
-                                conv_dropout=0.0, head_dropout=0.0)
+                         optimizer_args={"lr": 1e-4}, encodermodel=encoder)
+    conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype)
+    if encoder == "Cnn10":
+        conf["encoder_args"].update(conv_dropout=0.0, head_dropout=0.0)
+    else:
+        conf["encoder_args"]["embed_size"] = 2048
     conf["decoder_args"] = dict(conf["decoder_args"], dropout=0.0)
     return conf
 
 
 def par_rank_step(*args, **kwargs):
-    """A pool job: ``train_step_case`` with TF32 off, as in this process."""
+    """A pool job: ``train_step_case`` with TF32 off, as in this process,
+    and every dropout off."""
     from acvae_tpu_torch.parallel.parity import train_step_case
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return train_step_case(*args, **kwargs)
+    return train_step_case(*args, dropout=False, **kwargs)
 
 
 def par_rank_step_halo_dropped(*args, **kwargs):
     """A pool job with a planted fault: the halo exchange's backward returns
     zeros (the neighbours' edge gradients lost), which the gradient check
     must catch."""
-    from acvae_tpu_torch.parallel import collectives
-    kept = collectives._Halo.backward
-
-    def backward(ctx, g_prev, g_next):
-        shape = list(ctx.edge_shape)
-        shape[ctx.dim] = ctx.T
-        return torch.zeros(shape, dtype=g_prev.dtype,
-                           device=g_prev.device), None, None
-    collectives._Halo.backward = staticmethod(backward)
-    try:
+    from acvae_tpu_torch.parallel.parity import halo_backward_dropped
+    with halo_backward_dropped():
         return par_rank_step(*args, **kwargs)
-    finally:
-        collectives._Halo.backward = kept
 
 
-def _warm_step(trainer, batch, it, epoch):
-    """One step after a warm-up step from the same state: (metrics, ms)."""
-    start = copy.deepcopy(trainer.state())
+def _warm_step(trainer, batch, it, epoch, start):
+    """One step after a warm-up step from ``start`` (the trainer's state,
+    on the CPU): (metrics, ms); the peak memory counter restarts at the
+    timed step."""
     trainer.step(batch, it, epoch)
     trainer.load_state(start)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     m = trainer.step(batch, it, epoch)
     torch.cuda.synchronize()
@@ -3869,6 +4019,37 @@ def _warm_step(trainer, batch, it, epoch):
 # gradients, up to 0.43.
 PAR_DTYPES = {"float32": {"loss": 1e-5, "grad": 5e-3, "update": 0.1},
               "bfloat16": {"loss": 1e-4, "grad": 0.25, "update": 1.0}}
+# Cnn14's bf16 step is far more sensitive to any rounding than Cnn10's:
+# the unsplit step itself, with only its BatchNorms in float64 instead of
+# float32, moves its loss 9.28e-4 and its gradients 0.367 (at
+# decoder.word_embeddings.weight; the decoder is fed its own argmax at
+# ss_ratio 0.13).  Its splits read a loss 2.29e-4 / 4.29e-4 off and
+# gradients 0.318 / 0.417 (T_mel 1024 / 3072), gradients averaged instead
+# of summed 0.539 / 0.542 (PERF.md §5): limits between the two.
+PAR_LIMITS = {("Cnn14", "bfloat16"): {"loss": 2e-3, "grad": 0.47,
+                                      "update": 1.0}}
+HELD = ("loss", "grad", "update")
+# (encoder, its cases, its passes): a pass is (dtype, held, BatchNorm in
+# float64, probed).  The flagship's Cnn10 takes a DP, a TP and an SP step,
+# the PANN Cnn14 and ResNet38 an SP step; a bf16 pass is timed, a probed
+# float32 pass also takes the planted halo fault.  Cnn14's and ResNet38's
+# float32 BatchNorms round 5x as far as Cnn10's (the unsplit step against
+# its float64-BN twin 4.06e-3 per tensor, Cnn10 7.5e-4; PERF.md §6),
+# enough to move Adam's first update (lr·sign(g)) past its limit with no
+# fault (0.112 against 0.1): their float32 step with the port's BatchNorm
+# holds the loss and the gradients, and a second pass with BatchNorm in
+# float64 on both sides (``parity.batchnorm_float64``) holds the update.
+PAR_MODELS = (("Cnn10", ("dp", "tp", "sp"), (("float32", HELD, False, True),
+                                             ("bfloat16", HELD, False, False))),
+              ("Cnn14", ("sp",), (("float32", ("loss", "grad"), False, True),
+                                  ("float32", HELD, True, False),
+                                  ("bfloat16", HELD, False, True))),
+              ("ResNet38", ("sp",), (("float32", ("loss", "grad"), False, True),
+                                     ("float32", HELD, True, False))))
+PAR_CASES = {"dp": (1, False), "tp": (2, False), "sp": (2, True)}
+# the largest mel bucket (data/dataset.py DEFAULT_BUCKETS), where Cnn14's
+# activations peak
+T_MEL_MAX = 3072
 
 
 def _rel(err):
@@ -3876,27 +4057,40 @@ def _rel(err):
             f"{[(k, float(f'{v:.3g}')) for k, v in err['rel_top']]})")
 
 
-def _unsplit_reference(conf, batch, it, total, tmp, timed, probe):
-    """The unsplit step on the card: writes its start weights, gradients
-    and weights after the step; returns (loss, ms or None, probes).  With
-    ``probe``, the same step again from the same state twice, each
-    gradient against the first step's (``errors``): ``cudnn`` with cuDNN's
-    benchmarked conv algorithms (the convs' sums in another order), and
-    ``bn64`` with every BatchNorm's statistics and normalization in
-    float64 (the float32 rounding of BatchNorm's reductions, forward and
-    backward, which a split reorders)."""
-    from acvae_tpu_torch.models import encoders
-    from acvae_tpu_torch.parallel.parity import errors
+def _gib(b):
+    return "n/a" if b is None else f"{b / 2**30:.3f}"
+
+
+def _unsplit_reference(conf, batch, it, total, tmp, timed, probe,
+                       bn64=False):
+    """The unsplit step on the card (BatchNorm in float64 with ``bn64``):
+    writes its start weights, gradients and weights after the step;
+    returns (loss, ms or None, peak bytes of the timed step above what
+    this process held before, probes).  With ``probe``, the same step again from the
+    same state twice, its loss and each gradient against the first step's
+    (``errors``): ``cudnn`` with cuDNN's benchmarked conv algorithms (the
+    convs' sums in another order), and ``bn64`` with every BatchNorm's
+    statistics and normalization in float64 (``bn32``: in float32, as the
+    port runs, when the step itself is ``bn64``): the rounding a split
+    reorders.  Every dropout is off."""
+    from acvae_tpu_torch.parallel.parity import (batchnorm_float64,
+                                                 dropout_off, errors,
+                                                 state_on_cpu)
     from acvae_tpu_torch.train.trainer import Trainer
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     single = Trainer(conf, PAR_VOCAB, DATA_DIM, device="cuda",
                      total_iters=total)
     torch.save({k: v.cpu() for k, v in single.model.state_dict().items()},
                f"{tmp}/par_state.pt")
-    start = copy.deepcopy(single.state())
-    if timed:
-        m, ms = _warm_step(single, batch, it, PAR_EPOCH)
-    else:
-        m, ms = single.step(batch, it, PAR_EPOCH), None
+    start = state_on_cpu(single.state()) if timed or probe else None
+    with dropout_off(), batchnorm_float64(bn64):
+        if timed:
+            m, ms = _warm_step(single, batch, it, PAR_EPOCH, start)
+            peak = torch.cuda.max_memory_allocated() - base
+        else:
+            m, ms, peak = single.step(batch, it, PAR_EPOCH), None, None
+    loss = float(m["loss"])
     grads = {k: p.grad.clone() for k, p in single.model.named_parameters()
              if p.grad is not None}
     torch.save({"grads": {k: g.cpu() for k, g in grads.items()},
@@ -3904,125 +4098,142 @@ def _unsplit_reference(conf, batch, it, total, tmp, timed, probe):
                             single.model.state_dict().items()}},
                f"{tmp}/par_ref.pt")
     probes = {}
-    if probe:
-        bn_forward = encoders.BatchNorm.forward
-
-        def bn64(self, x, train, axis=1, dtype=None):
-            """A train-mode BatchNorm's output computed in float64 (its
-            running statistics left as they are)."""
-            shape = [1] * x.ndim
-            shape[axis] = -1
-            xd = x.double()
-            red = [d for d in range(x.ndim) if d != axis]
-            mean = xd.mean(dim=red)
-            var = torch.clamp_min((xd * xd).mean(dim=red) - mean * mean, 0.0)
-            mul = torch.rsqrt(var + self.eps) * self.weight.double()
-            y = ((xd - mean.view(shape)) * mul.view(shape)
-                 + self.bias.double().view(shape))
-            return y.to(dtype or x.dtype)
-        for name in ("cudnn", "bn64"):
-            single.load_state(start)
-            torch.backends.cudnn.benchmark = name == "cudnn"
-            if name == "bn64":
-                encoders.BatchNorm.forward = bn64
-            try:
-                single.step(batch, it, PAR_EPOCH)
-            finally:
-                torch.backends.cudnn.benchmark = False
-                encoders.BatchNorm.forward = bn_forward
-            probes[name] = errors({k: p.grad for k, p in
-                                   single.model.named_parameters()
-                                   if p.grad is not None}, grads, 1e-3, 2e-6)
-    return float(m["loss"]), ms, probes
+    for name in (("cudnn", "bn32" if bn64 else "bn64") if probe else ()):
+        single.load_state(start)
+        torch.backends.cudnn.benchmark = name == "cudnn"
+        try:
+            with dropout_off(), batchnorm_float64(bn64 == (name == "cudnn")):
+                pm = single.step(batch, it, PAR_EPOCH)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        probes[name] = errors({k: p.grad for k, p in
+                               single.model.named_parameters()
+                               if p.grad is not None}, grads, 1e-3, 2e-6)
+        probes[name]["loss_rel"] = abs(float(pm["loss"]) - loss) / abs(loss)
+    del single, grads, start
+    torch.cuda.empty_cache()
+    return loss, ms, peak, probes
 
 
 def parallel_steps(tmp, devices, backend, label):
-    """Phase 18 (a)/(d): a DP, a TP and an SP step of the flagship on
-    ``len(devices)`` ranks against the unsplit step on the card from the
-    same weights and global draws (the generators' whole-batch draws, each
-    rank keeping its rows), with the encoder in float32 and in bf16 as the
-    recipe has it (timed after a warm-up step): the loss, the gradients
+    """Phase 18 (a)/(d): the passes of ``PAR_MODELS`` on ``len(devices)``
+    ranks against the unsplit step on the card from the same weights and
+    global draws (the generators' whole-batch draws, each rank keeping its
+    rows), with the encoder in float32 and in bf16 as the recipe has it
+    (timed after a warm-up step, the peak memory of the unsplit step and
+    of each rank in the timed step printed): the loss, the gradients
     before Adam and the step's update of the weights within
-    ``PAR_DTYPES``'s limits, and the planted faults outside them.  Returns
-    the ranks' time_warp_1d launches."""
+    ``PAR_DTYPES``'s limits where a pass holds them, and the planted faults
+    outside them; then Cnn14's bf16 SP step at T_MEL_MAX, its peak memory a
+    rank against the unsplit step's.  Returns the ranks' time_warp_1d
+    launches."""
     from acvae_tpu_torch.parallel.pool import RankPool
 
     world = len(devices)
     it, total = ITERS_PER_EPOCH * (PAR_EPOCH - 1) + 1, ITERS_PER_EPOCH * EPOCHS
-    batch = make_batch(np.random.default_rng(18))
-    cases = [("dp", 1, False)]
-    if world % 2 == 0:
-        cases += [("tp", 2, False), ("sp", 2, True)]
     launches = 0
     with RankPool(backend, devices) as pool:
-        for dtype, lim in PAR_DTYPES.items():
-            conf, timed = par_conf(dtype), dtype == "bfloat16"
-            ref_loss, single_ms, probes = _unsplit_reference(
-                conf, batch, it, total, tmp, timed, probe=not timed)
-            print(f"parallel {label}, {dtype} encoder: the unsplit step on "
-                  f"cuda:0 loss {ref_loss:.6f}" + (
-                      f", {single_ms:.1f} ms, {BATCH / single_ms * 1e3:.1f} "
-                      f"samples/s" if timed else "") + f" ({SMI})")
-            for name, pr in probes.items():
-                print(f"parallel {label}, {dtype} encoder: the unsplit step "
-                      f"again, probe {name}: gradients rel {_rel(pr)}, "
-                      f"elementwise worst {pr['worst']:.3g} at {pr['at']} "
-                      f"({SMI})")
-            torch.cuda.empty_cache()
-            step_args = (conf, PAR_VOCAB, DATA_DIM, f"{tmp}/par_state.pt", batch)
-            for name, mp, seq in cases:
-                ranks = pool.run(par_rank_step, *step_args, model_parallel=mp,
-                                 seq=seq, iteration=it, epoch=PAR_EPOCH,
-                                 total_iters=total, warmup=int(timed),
-                                 reference=f"{tmp}/par_ref.pt")
-                r0 = ranks[0]
-                loss = r0["metrics"]["loss"]
-                rel = abs(loss - ref_loss) / abs(ref_loss)
-                grid = (f"{world // mp} data x {mp} model"
-                        + (" + seq" if seq else ""))
-                tag = f"parallel {name} ({grid}, {dtype})"
-                g, avg, upd = r0["grad_err"], r0["grad_err_averaged"], r0["update_err"]
-                check(all(r["metrics"] == r0["metrics"] for r in ranks),
-                      f"{tag}: the ranks disagree")
-                check(rel <= lim["loss"], f"{tag}: loss {loss} vs the unsplit "
-                                          f"{ref_loss} (rtol {lim['loss']})")
-                check(g["rel"] <= lim["grad"], f"{tag}: gradients {g}")
-                check(upd["rel"] <= lim["update"], f"{tag}: update {upd}")
-                summed = world // mp if not seq else world
-                if summed > 1:   # a step that averaged would be caught
-                    check(avg["rel"] > lim["grad"],
-                          f"{tag}: averaged gradients pass the check {avg}")
-                check(r0["seq_split"] == seq and r0["vocab_rows"]
-                      == PAR_VOCAB // mp, f"{tag}: not split as asked")
-                check(all(r["launches"] == 1 + int(timed) for r in ranks),
-                      f"{tag}: time_warp_1d launches "
-                      f"{[r['launches'] for r in ranks]} ({1 + int(timed)} "
-                      f"steps a rank)")
-                launches += sum(r["launches"] for r in ranks)
-                ms = [r["ms"] for r in ranks]
-                speed = (f"step ms per rank {[round(x, 1) for x in ms]} "
-                         f"({label}), {BATCH / max(ms) * 1e3:.1f} samples/s; "
-                         if timed else "")
-                print(f"{tag}: loss {loss:.6f} (rel {rel:.2e}); {speed}"
-                      f"gradients rel {_rel(g)} (limit {lim['grad']}; "
-                      f"elementwise worst {g['worst']:.3g} at {g['at']}, max "
-                      f"abs {g['max_abs']:.3g}); averaged instead of summed "
-                      + (f"rel {avg['rel']:.3g}" if summed > 1 else "n/a")
-                      + f"; update rel {_rel(upd)} (limit {lim['update']}); "
-                      f"time_warp_1d launches per rank "
-                      f"{[r['launches'] for r in ranks]} ({SMI})")
-                if seq and not timed:
-                    faulty = pool.run(par_rank_step_halo_dropped, *step_args,
-                                      model_parallel=mp, seq=seq, iteration=it,
-                                      epoch=PAR_EPOCH, total_iters=total,
-                                      reference=f"{tmp}/par_ref.pt")[0]
-                    fg, fu = faulty["grad_err"], faulty["update_err"]
-                    check(fg["rel"] > lim["grad"] and fu["rel"] > lim["update"],
-                          f"{tag}: the halo backward dropped passes the "
-                          f"checks: gradients {fg}, update {fu}")
-                    print(f"{tag}, halo backward dropped (a planted fault): "
-                          f"gradients rel {_rel(fg)}; update rel {_rel(fu)} "
-                          f"({SMI})")
+        for encoder, names, passes in PAR_MODELS:
+            cases = [(n,) + PAR_CASES[n] for n in names
+                     if PAR_CASES[n][0] == 1 or world % 2 == 0]
+            for dtype, held, bn64, probe in passes:
+                launches += _par_model_steps(
+                    pool, tmp, world, label, encoder, cases, dtype,
+                    make_batch(np.random.default_rng(18)), it, total,
+                    held=held, bn64=bn64, probe=probe)
+        if world % 2 == 0:   # Cnn14 at the largest bucket: memory a rank
+            launches += _par_model_steps(
+                pool, tmp, world, label, "Cnn14", [("sp",) + PAR_CASES["sp"]],
+                "bfloat16", make_batch(np.random.default_rng(18), T_MEL_MAX),
+                it, total, held=HELD)
+    return launches
+
+
+def _par_model_steps(pool, tmp, world, label, encoder, cases, dtype, batch,
+                     it, total, held, bn64=False, probe=False):
+    """``cases`` of ``encoder`` in ``dtype`` on the pool's ranks against
+    the unsplit step (see :func:`parallel_steps`), both with BatchNorm in
+    float64 if ``bn64``; returns the ranks' time_warp_1d launches.  The
+    ``held`` errors (of ``loss``, ``grad``, ``update``) must be within
+    ``PAR_LIMITS``'s or ``PAR_DTYPES``'s limits, the others are printed; a
+    pass holding the gradients also fails the averaged ones.  With
+    ``probe`` the unsplit step is probed, and a float32 split takes the
+    dropped halo."""
+    lim = PAR_LIMITS.get((encoder, dtype), PAR_DTYPES[dtype])
+    conf, timed = par_conf(dtype, encoder), dtype == "bfloat16"
+    T = batch["feats"].shape[1]
+    ref_loss, single_ms, single_peak, probes = _unsplit_reference(
+        conf, batch, it, total, tmp, timed, probe=probe, bn64=bn64)
+    what = (f"{encoder}, T_mel {T}, {dtype} encoder"
+            + (", BatchNorm in float64" if bn64 else ""))
+    print(f"parallel {label}, {what}: the unsplit step on cuda:0 loss "
+          f"{ref_loss:.6f}" + (
+              f", {single_ms:.1f} ms, {BATCH / single_ms * 1e3:.1f} "
+              f"samples/s, peak {_gib(single_peak)} GiB" if timed else "")
+          + f" ({SMI})")
+    for name, pr in probes.items():
+        print(f"parallel {label}, {what}: the unsplit step again, probe "
+              f"{name}: loss rel {pr['loss_rel']:.3g}; gradients rel "
+              f"{_rel(pr)}, elementwise worst {pr['worst']:.3g} at "
+              f"{pr['at']} ({SMI})")
+    step_args = (conf, PAR_VOCAB, DATA_DIM, f"{tmp}/par_state.pt", batch)
+    step_kw = dict(iteration=it, epoch=PAR_EPOCH, total_iters=total,
+                   reference=f"{tmp}/par_ref.pt", bn64=bn64)
+    launches = 0
+    for name, mp, seq in cases:
+        ranks = pool.run(par_rank_step, *step_args, model_parallel=mp,
+                         seq=seq, warmup=int(timed), **step_kw)
+        r0 = ranks[0]
+        loss = r0["metrics"]["loss"]
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        grid = f"{world // mp} data x {mp} model" + (" + seq" if seq else "")
+        tag = f"parallel {name} ({grid}, {what})"
+        g, avg, upd = r0["grad_err"], r0["grad_err_averaged"], r0["update_err"]
+        check(all(r["metrics"] == r0["metrics"] for r in ranks),
+              f"{tag}: the ranks disagree")
+        check(math.isfinite(loss), f"{tag}: loss {loss}")
+        summed = world // mp if not seq else world
+        if "loss" in held:
+            check(rel <= lim["loss"], f"{tag}: loss {loss} vs the unsplit "
+                                      f"{ref_loss} (rtol {lim['loss']})")
+        if "grad" in held:
+            check(g["rel"] <= lim["grad"], f"{tag}: gradients {g}")
+            if summed > 1:   # a step that averaged would be caught
+                check(avg["rel"] > lim["grad"],
+                      f"{tag}: averaged gradients pass the check {avg}")
+        if "update" in held:
+            check(upd["rel"] <= lim["update"], f"{tag}: update {upd}")
+        check(r0["seq_split"] == seq and r0["vocab_rows"] == PAR_VOCAB // mp,
+              f"{tag}: not split as asked")
+        check(all(r["launches"] == 1 + int(timed) for r in ranks),
+              f"{tag}: time_warp_1d launches {[r['launches'] for r in ranks]} "
+              f"({1 + int(timed)} steps a rank)")
+        launches += sum(r["launches"] for r in ranks)
+        ms = [r["ms"] for r in ranks]
+        speed = (f"step ms per rank {[round(x, 1) for x in ms]} ({label}), "
+                 f"{BATCH / max(ms) * 1e3:.1f} samples/s; peak GiB per rank "
+                 f"{[_gib(r['peak_bytes']) for r in ranks]} against the "
+                 f"unsplit {_gib(single_peak)}; " if timed else "")
+
+        def lim_of(k):
+            return f"limit {lim[k]}" if k in held else "not held"
+        print(f"{tag}: loss {loss:.6f} (rel {rel:.2e}, {lim_of('loss')}); "
+              f"{speed}gradients rel {_rel(g)} ({lim_of('grad')}; elementwise "
+              f"worst {g['worst']:.3g} at {g['at']}, max abs "
+              f"{g['max_abs']:.3g}); averaged instead of summed "
+              + (f"rel {avg['rel']:.3g}" if summed > 1 else "n/a")
+              + f"; update rel {_rel(upd)} ({lim_of('update')}); "
+              f"time_warp_1d launches per rank "
+              f"{[r['launches'] for r in ranks]} ({SMI})")
+        if seq and not timed and probe:
+            faulty = pool.run(par_rank_step_halo_dropped, *step_args,
+                              model_parallel=mp, seq=seq, **step_kw)[0]
+            fg, fu = faulty["grad_err"], faulty["update_err"]
+            check(fg["rel"] > lim["grad"] and fu["rel"] > lim["update"],
+                  f"{tag}: the halo backward dropped passes the checks: "
+                  f"gradients {fg}, update {fu}")
+            print(f"{tag}, halo backward dropped (a planted fault): "
+                  f"gradients rel {_rel(fg)}; update rel {_rel(fu)} ({SMI})")
     return launches
 
 
@@ -4105,9 +4316,10 @@ def parallel_evaluate(tmp, exp):
 
 def parallel_phase(tmp):
     """Phase 18, parallelism: (a) 2 ranks sharing the card over gloo take a
-    DP, a TP and an SP step of the full-width flagship against the unsplit
-    step; (b) ``cli train --distributed=true``; (c) ``evaluate
-    --distributed --encoder_int8`` against the plain int8 evaluate; (d)
+    DP, a TP and an SP step of the full-width flagship, and an SP step with
+    the PANN Cnn14 and ResNet38, against the unsplit step; (b) ``cli train
+    --distributed=true``; (c) ``evaluate --distributed --encoder_int8``
+    against the plain int8 evaluate; (d)
     with 2 or more cards, (a) over NCCL on all of them.  Returns the
     launches over the path (the ranks' included)."""
     reset_counts()

@@ -19,6 +19,16 @@ Adam at rtol 1e-3 / atol 2e-6 (float32 sum order over ranks; the single
 step's port check is 1e-3 / 1e-6), BatchNorm running statistics at 1e-5,
 the weights after one Adam step (lr 1e-4) at rtol 5e-3 / atol 5e-4, as
 ``tests/test_parallel.py`` holds the JAX mesh step to the unsharded one.
+
+The encoders that sequence parallelism splits (Cnn14 and ResNet38 at their
+fixed widths, the double-conv ones at channels 4-8-8-16) run their
+train-mode forward and a backward on the pool's 2 data x 2 model grid,
+time split over the model ranks, against the JAX encoder's forward and
+``jax.vjp`` on the same weights and batch: the outputs at rtol 1e-5 /
+atol 1e-4 (``tests/test_torch_encoders.py``'s train-mode tolerance),
+BatchNorm's running statistics at 1e-5, the summed gradients per tensor
+within ``SPLIT_GRAD_REL`` of JAX's in norm (a planted fault, the halo
+exchange's backward dropped, must fall outside it).
 """
 import concurrent.futures
 
@@ -40,9 +50,12 @@ from acvae_tpu_torch.configs import flagship_conf
 from acvae_tpu_torch.convert import from_flax
 from acvae_tpu_torch.data import dataset as tds
 from acvae_tpu_torch.data.vocab import Vocabulary
+from acvae_tpu_torch.models.encoders import ENCODERS, seq_split_encoders
 from acvae_tpu_torch.parallel import mesh as tmesh
-from acvae_tpu_torch.parallel.parity import train_step_case
+from acvae_tpu_torch.parallel.parity import (encoder_split_case, errors,
+                                             train_step_case)
 from acvae_tpu_torch.parallel.pool import RankPool
+from tests.test_torch_encoders import _init as _jax_encoder_init
 from tests.test_torch_train_step import _jax_forward, _recovered_noise
 from tests.test_torch_warp import jax_augment_draws
 
@@ -184,7 +197,10 @@ def _capture(tx):
 # (port grid, the batch's rows): on 16 rows every word is fed back (the
 # global argmax) and every z is the prior's; on 6 (padded to 8) all teacher
 CASES = {"dp16": ("dp", 16), "tp": ("tp", 16), "sp": ("sp", 16),
-         "dp6": ("dp", 6)}
+         "dp6": ("dp", 6), "sp_warm": ("sp", 16)}
+# cases whose step follows warm-up steps from the same state, restored
+# from a snapshot on the CPU
+WARMUP = {"sp_warm": 2}
 RATIOS = {16: (0.0, 1.0), 6: (1.0, 0.0)}
 KEY = 7
 
@@ -243,14 +259,15 @@ def jax_refs(pool, jax_model):
 def test_parallel_step_matches_jax_mesh_step(pool, jax_model, jax_refs, case):
     """One step of 4 ranks against JAX's 4-device mesh step: DP on 4 data
     ranks (a batch of 16; one of 6 padded to 8 with its first rows), vocab
-    TP and TP + sequence parallelism on 2 data x 2 model."""
+    TP and TP + sequence parallelism on 2 data x 2 model; the last again
+    after two warm-up steps, the state restored between."""
     kind, n = CASES[case]
     ss, dis = RATIOS[n]
     b, (new_state, ref), (draws, noise) = jax_refs[n]
     full = from_flax(jax.tree_util.tree_map(np.asarray, jax_model[1]))
     ranks = pool.run(train_step_case, PORT_CONF, V, FDIM, full, b,
                      model_parallel=1 if kind == "dp" else 2, seq=kind == "sp",
-                     draws=draws, noise=noise,
+                     draws=draws, noise=noise, warmup=WARMUP.get(case, 0),
                      ratios={"ss_ratio": ss, "dis_ratio": dis, "kl_weight": 0.5})
     r0 = ranks[0]
     assert r0["vocab_rows"] == (V if kind == "dp" else V // 2)
@@ -276,3 +293,108 @@ def test_parallel_step_matches_jax_mesh_step(pool, jax_model, jax_refs, case):
         tol = ((TOL["stats"], TOL["stats"]) if "running" in k else TOL["param"])
         np.testing.assert_allclose(r0["weights"][k].numpy(), w.numpy(),
                                    rtol=tol[0], atol=tol[1], err_msg=k)
+
+
+# ------------------------------------------------------ split encoders
+SUB_ENC = {"embed_size": 16, "channels": (4, 8, 8, 16)}
+# (encoder, args, T): T = 64 splits every one over 2 model ranks; Cnn14's
+# T = 32·2 + 16 does not (its 5 pools need 32 frames a shard), so each
+# rank runs whole clips
+SPLIT_CASES = {"Cnn14": ("Cnn14", {}, 64), "ResNet38": ("ResNet38", {}, 64),
+               "CNN10QEncoder": ("CNN10QEncoder", SUB_ENC, 64),
+               "CNN10DEncoder": ("CNN10DEncoder", SUB_ENC, 64),
+               "CRNN8_Sub4": ("CRNN8_Sub4", SUB_ENC, 64),
+               "Cnn14_whole_clips": ("Cnn14", {}, 80)}
+ENC_F = 64
+# the largest ||split - JAX|| / ||JAX|| of a gradient tensor: float32 sum
+# order reads up to 2.7e-5 (the unsplit port reads 1.1e-5 on Cnn14, whose
+# deep BatchNorms over 2x2 maps put single elements 150x outside the
+# step's elementwise 1e-3 / 2e-6)
+SPLIT_GRAD_REL = 1e-3
+
+
+def test_split_encoders_are_the_listed_ones():
+    """The PANN family and the double-conv encoders split; their time
+    strides are their trunks' subsampling."""
+    assert seq_split_encoders() == ["CNN10DEncoder", "CNN10QEncoder",
+                                    "CRNN8_Sub4", "Cnn10", "Cnn14", "ResNet38"]
+    strides = {n: ENCODERS[n].time_stride for n in seq_split_encoders()}
+    assert strides == {"CNN10DEncoder": 16, "CNN10QEncoder": 16,
+                       "CRNN8_Sub4": 4, "Cnn10": 16, "Cnn14": 32,
+                       "ResNet38": 32}
+    for name, stride in strides.items():
+        for m in (1, 2, 4, 8):
+            assert ENCODERS[name].seq_split_ok(256 * 4, m)
+        assert not ENCODERS[name].seq_split_ok(stride * 2 + stride // 2, 2)
+
+
+@pytest.fixture(scope="module")
+def split_encoders(tmp_path_factory):
+    """Per encoder: the JAX module and variables (initialised once), the
+    port's weights written to a file for the ranks."""
+    out, cache = tmp_path_factory.mktemp("split_enc"), {}
+
+    def get(name, args):
+        if name not in cache:
+            enc, v = _jax_encoder_init(name, args)
+            path = str(out / f"{name}.pt")
+            torch.save(from_flax(v), path)
+            cache[name] = enc, v, path
+        return cache[name]
+    return get
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_encoder_matches_jax(pool, split_encoders, case):
+    """The train-mode forward on 2 data x 2 model ranks, the time split
+    over the model ranks (whole clips where T does not split), and the
+    backward of a fixed scalar of its outputs, against JAX's forward and
+    vjp: outputs, lengths, running statistics, summed gradients; for
+    CNN10QEncoder the halo's backward dropped fails the gradient check."""
+    name, args, T = SPLIT_CASES[case]
+    enc, v, path = split_encoders(name, args)
+    rng = np.random.default_rng(T)
+    feats = rng.normal(size=(2, T, ENC_F)).astype(np.float32)
+    lens = np.array([T, T // 2 + 9], np.int32)   # the second ends in shard 2
+
+    def forward(params):
+        return enc.apply({"params": params, "batch_stats": v["batch_stats"]},
+                         jnp.asarray(feats), jnp.asarray(lens), train=True,
+                         mutable=["batch_stats"])
+
+    def loss(params, probe):
+        out, upd = forward(params)
+        value = (jnp.sum(out["audio_embeds"] * probe["embeds"])
+                 + jnp.sum(out["audio_embeds_pooled"] * probe["pooled"]))
+        return value, (out, upd)
+    shapes = jax.eval_shape(forward, v["params"])[0]
+    probe = {k: rng.normal(size=shapes[key].shape).astype(np.float32)
+             for k, key in (("embeds", "audio_embeds"),
+                            ("pooled", "audio_embeds_pooled"))}
+    (_, (ref, upd)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        v["params"], probe)
+    ranks = pool.run(encoder_split_case, name, args, ENC_F, path, feats, lens,
+                     probe, model_parallel=2)
+    r0 = ranks[0]
+    assert all(r["seq_split"] == (case != "Cnn14_whole_clips") for r in ranks)
+    for k in ("audio_embeds", "audio_embeds_pooled"):
+        np.testing.assert_allclose(r0["outputs"][k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(r0["outputs"]["audio_embeds_lens"].numpy(),
+                                  np.asarray(ref["audio_embeds_lens"]))
+    want = from_flax({"params": v["params"], "batch_stats": jax.tree_util.tree_map(
+        np.asarray, upd["batch_stats"])})
+    for k, val in want.items():
+        if "running" in k:
+            np.testing.assert_allclose(r0["state"][k].numpy(), val.numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+    g_want = from_flax({"params": jax.tree_util.tree_map(np.asarray, grads)})
+    assert not g_want.pop("stem_pad_lanes", torch.zeros(1)).any()
+    assert set(r0["grads"]) == set(g_want)
+    err = errors(r0["grads"], g_want, TOL["grad"][0], TOL["grad"][1])
+    assert err["rel"] <= SPLIT_GRAD_REL, err
+    if case == "CNN10QEncoder":   # a planted fault fails the check
+        bad = pool.run(encoder_split_case, name, args, ENC_F, path, feats,
+                       lens, probe, model_parallel=2, halo_dropped=True)[0]
+        err = errors(bad["grads"], g_want, TOL["grad"][0], TOL["grad"][1])
+        assert err["rel"] > SPLIT_GRAD_REL, err

@@ -240,3 +240,31 @@ def test_launched_rank_takes_its_node_local_card(monkeypatch, env, rank,
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
     assert cli._local_rank(rank) == want
+
+
+@pytest.mark.parametrize("encoder,buckets,want", [
+    ("Cnn14", (256, 1024, 3072), None),
+    ("Cnn14", (256, 80, 1024), "sequence parallelism: Cnn14 runs on whole "
+     "clips of the mel buckets [80] (its time splits in multiples of 32 x 2 "
+     "frames)"),
+    ("CNN10Encoder", (256,), "sequence parallelism: CNN10Encoder runs on "
+     "whole clips (the port splits the time of CNN10DEncoder, CNN10QEncoder, "
+     "CRNN8_Sub4, Cnn10, Cnn14, ResNet38)")],
+    ids=["splits", "a_bucket_whole", "encoder_whole"])
+def test_sequence_parallel_logs_whole_clips(encoder, buckets, want):
+    """``train`` names what runs whole clips under ``sequence_parallel``:
+    an encoder the port does not split, or the buckets whose time does not
+    split over the model axis; nothing when every bucket splits."""
+    from types import SimpleNamespace
+
+    from acvae_tpu_torch.models.encoders import ENCODERS
+    from acvae_tpu_torch.parallel.train import Distributed
+    cls = ENCODERS[encoder]
+    par = SimpleNamespace(
+        seq_params={1} if hasattr(cls, "seq_split_ok") else set(),
+        model=SimpleNamespace(encoder=cls), grid=SimpleNamespace(model=2))
+    par.seq_split = lambda T: Distributed.seq_split(par, T)
+    lines = []
+    cli._log_whole_clips(SimpleNamespace(info=lines.append), encoder, par,
+                         buckets)
+    assert lines == ([] if want is None else [want])

@@ -14,6 +14,7 @@ uninterrupted run.
 import json
 import os
 import pickle
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +43,9 @@ from acvae_tpu_torch.train import checkpoints as tckpt
 from acvae_tpu_torch.train import pretrained as tpre
 from acvae_tpu_torch.train.optim import OptaxChain, ReduceLROnPlateau
 from acvae_tpu_torch.train.schedules import kl_weight_for, parse_kl_anneal
+from acvae_tpu_torch.train import trainer as ttr
 from acvae_tpu_torch.train.trainer import Trainer
-from tests.test_torch_cli import _exp, _metrics, ws  # noqa: F401
+from tests.test_torch_cli import ROOT, _exp, _metrics, ws  # noqa: F401
 from tests.test_torch_decode import SMALL as DEC_SMALL
 from tests.test_torch_families_rnn import one_torch_thread  # noqa: F401
 from tests.test_torch_train_step import (FDIM, SMALL, V, _batch,  # noqa: F401
@@ -148,7 +150,15 @@ OPTIMIZERS = [("Adam", {}), ("AdamW", {}), ("SGD", {}),
               ("Adagrad", {}), ("Adam", {"b1": 0.8, "nesterov": True}),
               ("RMSprop", {"centered": True}),
               ("RMSprop", {"bias_correction": True}),
-              ("RMSprop", {"centered": True, "bias_correction": True})]
+              ("RMSprop", {"centered": True, "bias_correction": True}),
+              # the optimizer state's dtype (optax's mu_dtype, accumulator_dtype)
+              ("Adam", {"mu_dtype": "bfloat16"}), ("AdamW", {"mu_dtype": "bfloat16"}),
+              ("Adam", {"mu_dtype": "float16"}),
+              ("Adam", {"nesterov": True, "mu_dtype": "bfloat16"}),
+              ("SGD", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}),
+              ("SGD", {"momentum": 0.9, "nesterov": True,
+                       "accumulator_dtype": "bfloat16"}),
+              ("SGD", {"accumulator_dtype": "bfloat16"})]
 
 
 def _tree(flat):
@@ -171,7 +181,8 @@ def _run_both(name, kwargs, frozen=("word_embedding",), accum=1, steps=3,
               max_grad_norm=1.0, scales=(3.0, 0.05, 1.7, 0.2), lr=1e-3,
               resume_at=None):
     """``steps`` updates of the optax chain and of the port's on the same
-    gradients; yields (step, JAX params, port params)."""
+    gradients; yields (step, JAX params, port params, JAX optimizer state,
+    the port's chain)."""
     rng = np.random.default_rng(5)
     params = {k: rng.normal(size=s).astype(np.float32) for k, s in SHAPES.items()}
     j_params = _tree(params)
@@ -189,7 +200,7 @@ def _run_both(name, kwargs, frozen=("word_embedding",), accum=1, steps=3,
                           accum_steps=accum, **dict(kwargs))
     opt = chain()
     yield -1, _flat(j_params), {k: p.detach().numpy().copy()
-                                for k, p in t_params.items()}
+                                for k, p in t_params.items()}, j_state, opt
     for step in range(steps):
         grads = {k: (rng.normal(size=s) * scales[step % len(scales)]).astype(
             np.float32) for k, s in SHAPES.items()}
@@ -205,30 +216,112 @@ def _run_both(name, kwargs, frozen=("word_embedding",), accum=1, steps=3,
             opt = chain()
             opt.load_state_dict(saved)
         yield step, _flat(j_params), {k: p.detach().numpy()
-                                      for k, p in t_params.items()}
+                                      for k, p in t_params.items()}, j_state, opt
+
+
+def _moments(j_state):
+    """optax's first moments (``ScaleByAdamState.mu``) and momentum traces
+    (``TraceState.trace``) by parameter name."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_leaves_with_path(j_state):
+        names = [getattr(k, "name", None) for k in path]
+        kind = next((n for n in ("mu", "trace") if n in names), None)
+        if kind is None:
+            continue
+        at = names.index(kind)
+        out[kind, "/".join(str(k.key) for k in path[at + 1:])] = leaf
+    return out
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of ``a`` from ``b`` in units in the last place
+    of their (common) float dtype."""
+    bits = {2: torch.int16, 4: torch.int32}[a.element_size()]
+
+    def order(x):   # sign-magnitude bits -> a monotonic integer
+        i = x.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & (2 ** (8 * x.element_size() - 1) - 1)), i)
+    return int((order(a) - order(b)).abs().max()) if a.numel() else 0
+
+
+def _assert_moments_match(j_state, opt, frozen=("word_embedding",)):
+    """The port's stored first moment or trace of every trainable tensor
+    has optax's dtype and is within one ulp of it; neither side keeps one
+    where optax keeps no state (SGD without momentum)."""
+    want = _moments(j_state)
+    names = [k for k in SHAPES if not any(f in k for f in frozen)]
+    assert {n for _, n in want} == (set(names) if want else set())
+    assert bool(want) == any({"mu", "trace"} & set(st) for st in opt.state)
+    for (kind, name), ref in want.items():
+        got = opt.state[names.index(name)][kind]
+        ref = np.asarray(ref)
+        assert str(got.dtype) == f"torch.{ref.dtype}", (kind, name)
+        ref_t = torch.tensor(ref.astype(np.float32)).to(got.dtype)
+        assert _ulps(got, ref_t) <= 1, (kind, name, got, ref_t)
+
+
+def _kw_id(n, kw):
+    return n + "".join(f"_{k}" + (f"_{v}" if k.endswith("dtype") else "")
+                       for k, v in kw.items())
 
 
 @pytest.mark.parametrize("weight_decay", [None, 0.01], ids=["no_wd", "wd"])
 @pytest.mark.parametrize("name,kwargs", OPTIMIZERS,
-                         ids=[f"{n}{''.join(f'_{k}' for k in kw)}"
-                              for n, kw in OPTIMIZERS])
+                         ids=[_kw_id(n, kw) for n, kw in OPTIMIZERS])
 def test_optimizer_matches_optax(name, kwargs, weight_decay):
     """Three steps of the chain (clip at 1.0 with gradient norms above and
     below it, coupled L2 or AdamW's decay, the base, the word embeddings
     frozen) against ``build_optimizer``: parameters atol 1e-6; the frozen
-    ones never move."""
+    ones never move.  With ``mu_dtype``/``accumulator_dtype`` the chain is
+    also saved and loaded after the second step, and after every step its
+    stored moments have optax's dtype, within one ulp."""
     kw = dict(kwargs) if weight_decay is None else dict(kwargs,
                                                         weight_decay=weight_decay)
+    dtyped = any(k.endswith("dtype") for k in kw)
     first = None
-    for step, ref, ours in _run_both(name, kw):
+    for step, ref, ours, j_state, opt in _run_both(
+            name, kw, resume_at=1 if dtyped else None):
         first = first or {k: v.copy() for k, v in ours.items()}
         assert step >= 0 or all(np.array_equal(ours[k], ref[k]) for k in SHAPES)
         for k in SHAPES:
             np.testing.assert_allclose(ours[k], ref[k], rtol=0, atol=1e-6,
                                        err_msg=f"{k} step {step}")
+        if dtyped:
+            _assert_moments_match(j_state, opt)
     for k in SHAPES:
         if "word_embedding" in k:
             assert np.array_equal(ours[k], first[k])
+
+
+@pytest.mark.parametrize("name,key", [("Adam", "mu"), ("SGD", "trace")])
+def test_state_dtype_survives_a_load(name, key):
+    """A chain keeps its recipe's state dtype across ``load_state_dict``: a
+    float32 snapshot loaded into a bfloat16 chain is rounded to bfloat16,
+    a bfloat16 one loaded into a float32 chain is widened exactly; a
+    pickled bfloat16 snapshot loads back bit for bit."""
+    arg = {"Adam": "mu_dtype", "SGD": "accumulator_dtype"}[name]
+    extra = {"momentum": 0.9} if name == "SGD" else {}
+    p = torch.nn.Parameter(torch.tensor(
+        np.random.default_rng(0).normal(size=(4, 3)).astype(np.float32)))
+
+    def chain(dtype):
+        return OptaxChain([("w", p)], name, **extra, **{arg: dtype})
+    f32, bf16 = chain(None), chain("bfloat16")
+    for opt in (f32, bf16):
+        p.grad = torch.full_like(p, 0.3) + p.detach()
+        opt.step()
+    assert f32.state[0][key].dtype == torch.float32
+    assert bf16.state[0][key].dtype == torch.bfloat16
+    into = chain("bfloat16")
+    into.load_state_dict(pickle.loads(pickle.dumps(f32.state_dict())))
+    assert into.state[0][key].dtype == torch.bfloat16
+    assert torch.equal(into.state[0][key], f32.state[0][key].bfloat16())
+    into = chain(None)
+    into.load_state_dict(bf16.state_dict())
+    assert torch.equal(into.state[0][key], bf16.state[0][key].float())
+    into = chain("bfloat16")
+    into.load_state_dict(pickle.loads(pickle.dumps(bf16.state_dict())))
+    assert torch.equal(into.state[0][key], bf16.state[0][key])
 
 
 def test_optimizer_arguments_refused_as_optax():
@@ -246,6 +339,89 @@ def test_optimizer_arguments_refused_as_optax():
         jtr.build_optimizer("Lion", 1e-3)
     with pytest.raises(KeyError):
         OptaxChain(p, "Lion")
+    # optax's mask (a pytree or a callable) has no YAML form: the port
+    # freezes by name instead
+    jtr.build_optimizer("AdamW", 1e-3, mask=lambda t: t)
+    with pytest.raises(NotImplementedError, match="mask"):
+        OptaxChain(p, "AdamW", mask=lambda t: t)
+    # the state's float dtypes by optax's names; an integer one raises
+    # (optax would keep the moments truncated)
+    jtr.build_optimizer("Adam", 1e-3, mu_dtype="int8")
+    for name, key, extra in (("Adam", "mu_dtype", {}),
+                             ("SGD", "accumulator_dtype", {"momentum": 0.9})):
+        with pytest.raises(ValueError, match=f"{key}='int8'"):
+            OptaxChain(p, name, **extra, **{key: "int8"})
+    for value, want in (("float64", torch.float32), ("half", torch.float16),
+                        ("float32", torch.float32), (None, torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        assert OptaxChain(p, "Adam", mu_dtype=value).state[0]["mu"].dtype == want
+        assert jtr.build_optimizer("Adam", 1e-3, mu_dtype=value).init(
+            {"w": jnp.zeros(2)})[0][0].mu["w"].dtype == jnp.dtype(str(want)[6:])
+
+
+XE_TINY = {"encoder_args": {"embed_size": 16, "channels": [4, 8, 8, 16]},
+           "decoder_args": {"embed_size": 16, "nhead": 2, "nlayers": 2,
+                            "hidden_size": 32, "dropout": 0.0},
+           "epochs": 1, "batch_size": 8, "train_percent": 75}
+
+
+def test_cli_train_with_a_bf16_first_moment_matches_jax(ws, tmp_path,  # noqa: F811
+                                                        monkeypatch):
+    """``train configs/xe_baseline.yaml --optimizer_args.mu_dtype=bfloat16``
+    (a captioner without latent draws; dropouts off, no augments) from the
+    JAX runner's initial weights, against JAX's run of the same recipe: the
+    epoch's train loss at rtol 1e-5 (as the parallel CLI's parity holds
+    it) and its mean gradient norm at 1e-3 (the same run with float32
+    moments reads 1.6e-4: Adam's early steps turn float32 noise into
+    ±lr moves, which the later gradients see); the checkpoint's first
+    moments in bfloat16, its second ones in float32."""
+    captured = {}
+    real_create = jtr.TrainState.create.__func__
+
+    def create(cls, variables, tx):
+        captured["v"] = jax.tree_util.tree_map(np.asarray, variables)
+        return real_create(cls, variables, tx)
+    monkeypatch.setattr(jtr.TrainState, "create", classmethod(create))
+    monkeypatch.setattr(jenc._DropoutMixin, "_dropout",
+                        lambda self, x, rate, train: x)
+    cfg = str(ROOT / "configs/xe_baseline.yaml")
+    common = dict(XE_TINY, caption_file=str(ws / "text.json"),
+                  vocab_file=str(ws / "vocab.pkl"))
+    jdir = Path(Runner().train(cfg, h5_csv=str(ws / "h5.csv"),
+                               outputpath=str(tmp_path / "jax"),
+                               **{"optimizer_args.mu_dtype": "bfloat16"},
+                               **common))
+    real_build = ttr.build_model
+
+    def from_jax(*a, **k):
+        model = real_build(*a, **k)
+        model.load_state_dict(from_flax(captured["v"]), strict=True)
+        return model
+    monkeypatch.setattr(ttr, "build_model", from_jax)
+    monkeypatch.setattr(torch.nn.functional, "dropout",
+                        lambda x, p=0.5, training=True, inplace=False: x)
+    argv = [f"--{k}={_yaml(v)}" for k, v in common.items()]
+    pdir = Path(cli.main(["train", cfg, f"--h5_csv={ws / 'mels.csv'}",
+                          f"--outputpath={tmp_path / 'port'}",
+                          "--optimizer_args.mu_dtype=bfloat16",
+                          "--device=cpu"] + argv))
+    assert pdir.parts[-3:] == jdir.parts[-3:]
+    (got,), (want,) = _metrics(pdir), _metrics(jdir)
+    for k, rtol in (("train_loss", 1e-5), ("grad_norm", 1e-3)):
+        np.testing.assert_allclose(got[k], want[k], rtol=rtol, err_msg=k)
+    conf = json.loads((pdir / "config.json").read_text())
+    assert conf["optimizer_args"] == {"lr": 5e-4, "mu_dtype": "bfloat16"}
+    state = torch.load(pdir / "last.pt", weights_only=True)["optimizer"]["state"]
+    assert {st["mu"].dtype for st in state.values()} == {torch.bfloat16}
+    assert {st["nu"].dtype for st in state.values()} == {torch.float32}
+
+
+def _yaml(v):
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{k}: {_yaml(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, list):
+        return "[" + ", ".join(map(_yaml, v)) + "]"
+    return str(v)
 
 
 def test_frozen_set_matches_freeze_mask(jax_model):  # noqa: F811
@@ -278,8 +454,8 @@ def test_accum_steps_matches_multisteps(name, kwargs):
     (parameters still after micro-batches 1 and 3), the chain's state saved
     and loaded mid-accumulation: atol 1e-6."""
     before = None
-    for step, ref, ours in _run_both(name, kwargs, accum=2, steps=4,
-                                     resume_at=0):
+    for step, ref, ours, *_ in _run_both(name, kwargs, accum=2, steps=4,
+                                         resume_at=0):
         for k in SHAPES:
             np.testing.assert_allclose(ours[k], ref[k], rtol=0, atol=1e-6,
                                        err_msg=f"{k} micro-batch {step}")
