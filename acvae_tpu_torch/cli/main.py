@@ -443,13 +443,16 @@ def _local_rank(rank: int) -> int:
 
 def _log_whole_clips(logger, encoder: str, par, buckets) -> None:
     """Under ``sequence_parallel``, the log line for what runs whole clips
-    on every rank of the model axis: an encoder the port does not split,
-    or the mel buckets whose time does not split into its shards."""
+    on every rank of the model axis: an encoder the port does not split
+    (RNNEncoder, whose GRU reads the input frames in order, or a composite
+    with such a branch), or the mel buckets whose time does not split into
+    its shards."""
     from acvae_tpu_torch.models.encoders import seq_split_encoders
     if not par.seq_params:
         logger.info(f"sequence parallelism: {encoder} runs on whole clips "
                     f"(the port splits the time of "
-                    f"{', '.join(seq_split_encoders())})")
+                    f"{', '.join(seq_split_encoders())}; a composite's when "
+                    f"every branch splits)")
         return
     whole = [b for b in buckets if not par.seq_split(b)]
     if whole:

@@ -36,21 +36,40 @@ embeddings use length-masked mean/max, as in JAX.
 
 In a parallel train step (``parallel/state.py``) a train-mode BatchNorm
 takes the global batch's statistics: its two sums per channel are
-all-reduced, with their gradient.  Under sequence parallelism the encoders of
-:func:`seq_split_encoders` run their convolutional trunk on the rank's
-slice of mel time (``seq_split_ok``: the slice holds a whole number of the
-trunk's time stride, so every pool stays inside it): each 3×3 stride-1
-conv reads one frame a side from the neighbour shards (zeros at the outer
-edges, as SAME padding gives), 1×1 convs and the pools stay local.  The
-PANN family (Cnn10, Cnn14, ResNet38) then masks each shard at its global
-frame offset in its pooled head, reduces across shards and gathers
-``audio_embeds`` over time; the double-conv encoders (CNN10Q/D,
-CRNN8_Sub4) gather their trunk's frames and run their heads (and CRNN8's
-BiGRU) on the whole clip.
+all-reduced, with their gradient.  Under sequence parallelism every encoder
+of :func:`seq_split_encoders` runs its trunk on the rank's slice of mel
+time (``seq_split_ok``: the slice holds a whole number of the trunk's time
+stride, so every VALID pool stays inside it and every stride-2 layer meets
+even offsets).  A conv or padded pool of ``k`` frames at stride ``s``,
+padded by ``p``, reads ``p`` frames before its shard and ``k - p - s``
+after from the neighbour shards (:func:`_time_halo`; zeros at the outer
+edges, as SAME or explicit zero padding gives, the pool's own padding for a
+pool); a geometry whose shards do not tile the whole clip's output raises.
+Then, by encoder:
+
+* the PANN family (Cnn10, Cnn14, ResNet38), ResNetEncoder and
+  CNN10Encoder pool over time at each shard's global frame offset
+  (:func:`_time_pool`), reduced over the shards, and gather
+  ``audio_embeds``; CNNEncoder's unmasked time mean is the shards' sums
+  over the padded global T;
+* the encoders with a recurrent or per-frame head (CNN10Q/D, CRNN8_Sub4,
+  CRNNEncoder, E2EASREncoder) gather their trunk's frames and run the head
+  (the BiGRUs included) on the whole clip;
+* the transformers (TransformerEncoder, M2TransformerEncoder) keep their
+  projections, residuals, LayerNorms and FFNs on the shard's frames and
+  attend with the shard's queries against the keys and values of every
+  frame (:func:`~acvae_tpu_torch.parallel.collectives.gather_split`), the
+  query mask at the shard's offset, M2's positions too;
+* the composites (PreTrainedCNN, CNN10CRNNEncoder) split when every branch
+  does, each branch splitting and gathering itself.
+
+RNNEncoder reads its frames in order straight from the input, so no split
+saves its memory: it runs whole clips on every rank of the model axis.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -66,7 +85,7 @@ from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_len
 from acvae_tpu_torch.parallel import state as pstate
 from acvae_tpu_torch.parallel.collectives import (all_reduce_sum,
                                                   gather_replicated,
-                                                  halo_exchange,
+                                                  gather_split, halo_exchange,
                                                   reduce_to_replicated)
 
 STEM_LANE_PAD = 2  # the JAX stem conv's input lanes (zero-padded from 1)
@@ -123,17 +142,59 @@ def _dense(cin: int, cout: int, init: str = "lecun", device=None) -> nn.Linear:
     return lin
 
 
-def _conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype, stride: int = 1,
-           padding: int = 1) -> torch.Tensor:
-    """``conv`` on ``x`` [N, C, T, F] with input and weights in ``dtype``
-    (flax's ``nn.Conv(dtype=...)``)."""
-    bias = None if conv.bias is None else conv.bias.to(dtype)
+def _time_halo(x: torch.Tensor, k: int, p: int, s: int,
+               fill: float = 0.0) -> Tuple[torch.Tensor, int]:
+    """``x`` [N, C, T, F] and the time padding to give a window of ``k``
+    frames at stride ``s``, padded by ``p``: outside a split region ``x``
+    and ``p``; inside one ``x`` with the frames of the neighbour shards it
+    reads, ``p`` before and ``k - p - s`` after (``fill`` at the outer
+    edges, as the window's own padding), and 0.  Raises for a geometry
+    whose shards' outputs do not tile the whole clip's (the shards' output
+    lengths T/s must add up to ``(T + 2p - k) // s + 1``)."""
     st = pstate.active()
-    if st is not None and st.in_split and padding == 1 and stride == 1:
-        # time split over the model axis: the neighbours' edge frames pad
-        prev, nxt = halo_exchange(x, 2, st.grid.model_group)
-        x, padding = torch.cat([prev, x, nxt], dim=2), (0, 1)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride, padding)
+    if st is None or not st.in_split:
+        return x, p
+    T = x.shape[2]
+    if T % s or not k - s <= 2 * p <= k - 1:
+        raise ValueError(f"a time-split shard of {T} frames cannot run a "
+                         f"{k}-frame window at stride {s} padded by {p}")
+    nxt = max(k - p - s, 0)
+    if p == nxt == 0:
+        return x, 0
+    before, after = halo_exchange(x, 2, st.grid.model_group, p, nxt, fill)
+    return torch.cat([before, x, after], dim=2), 0
+
+
+def _conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype, stride: int = 1,
+            padding: int = 1) -> torch.Tensor:
+    """``conv`` on ``x`` [N, C, T, F] with input and weights in ``dtype``
+    (flax's ``nn.Conv(dtype=...)``); in a split region time pads with the
+    neighbour shards' frames (:func:`_time_halo`)."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    x, tpad = _time_halo(x, conv.kernel_size[0], padding, stride)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, stride,
+                    (tpad, padding))
+
+
+def _time_pool(x: torch.Tensor, lens: torch.Tensor, split,
+               kind: str) -> torch.Tensor:
+    """The length-masked ``mean`` or ``max`` over time (axis 1) of ``x``
+    [N, T, ...]; with ``split`` = (group, index) ``x`` is the index-th
+    slice of the clip's time over the group: the slice masked at its
+    global offset, the sums (over the global ``lens``) or the maxima
+    reduced over the group."""
+    if split is None:
+        return (mean_with_lens if kind == "mean" else max_with_lens)(x, lens)
+    group, index = split
+    Tl = x.shape[1]
+    mask = length_mask(torch.clamp(lens - index * Tl, 0, Tl), Tl)
+    mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
+    if kind == "mean":
+        total = reduce_to_replicated(torch.sum(x.float() * mask, dim=1), group)
+        lens = torch.clamp_min(lens.to(x.dtype), 1.0)
+        return total.to(x.dtype) / lens.reshape(lens.shape + (1,) * (x.ndim - 2))
+    mx = torch.amax(x.masked_fill(~mask, torch.finfo(x.dtype).min), dim=1)
+    return torch.amax(gather_replicated(mx[None], 0, group), dim=0)
 
 
 def _pool2d(x: torch.Tensor, size: Tuple[int, int], kind: str) -> torch.Tensor:
@@ -238,18 +299,20 @@ class ConvBlock(nn.Module):
 class _SeqSplit:
     """Sequence parallelism for an encoder whose trunk subsamples mel time
     by ``time_stride`` (the product of its pools' and strides' time
-    factors) and whose head reads the trunk's output alone."""
+    factors); the parameters of the submodules named by a prefix in
+    ``unsplit`` run on the gathered frames, every other one on a shard."""
     time_stride = 1
+    unsplit: Tuple[str, ...] = ()
 
-    @classmethod
-    def seq_split_ok(cls, T: int, model: int) -> bool:
+    def seq_split_ok(self, T: int, model: int) -> bool:
         """Whether T frames split over ``model`` shards whose pools stay
         within each shard."""
-        return T % (cls.time_stride * model) == 0
+        return T % (self.time_stride * model) == 0
 
     def seq_split_params(self):
         """The parameters the time shards compute partial gradients of."""
-        return list(self._trunk_params())
+        return [p for n, p in self.named_parameters()
+                if not n.startswith(self.unsplit)]
 
     def _split(self):
         """(group, index) of this rank's slice of time in a split step, or
@@ -258,6 +321,33 @@ class _SeqSplit:
         if st is None or not st.seq_split:
             return None
         return st.grid.model_group, st.grid.m
+
+    @staticmethod
+    def _region(split):
+        return pstate.split_region() if split else contextlib.nullcontext()
+
+
+class _SplitComposite(_SeqSplit):
+    """An encoder of encoders (``_branches``): it splits when every branch
+    does, each branch splitting and gathering itself."""
+
+    def _branches(self):
+        raise NotImplementedError
+
+    @property
+    def time_stride(self) -> int:
+        return functools.reduce(math.lcm, (getattr(b, "time_stride", 1)
+                                           for b in self._branches()))
+
+    def seq_split_ok(self, T: int, model: int) -> bool:
+        return all(isinstance(b, _SeqSplit) and b.seq_split_ok(T, model)
+                   for b in self._branches())
+
+    def seq_split_params(self):
+        branches = self._branches()
+        if not all(isinstance(b, _SeqSplit) for b in branches):
+            return []
+        return [p for b in branches for p in b.seq_split_params()]
 
 
 class _PannEncoder(_SeqSplit, nn.Module):
@@ -286,14 +376,14 @@ class _PannEncoder(_SeqSplit, nn.Module):
     def _drop(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         return F.dropout(x, self.conv_dropout, train)
 
-    def _trunk_params(self):
-        head = {id(p) for p in getattr(self, self.head).parameters()}
-        return (p for p in self.parameters() if id(p) not in head)
+    @property
+    def unsplit(self) -> Tuple[str, ...]:
+        return (self.head,)
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
         split = self._split()   # feats: this rank's slice of time
-        with pstate.split_region() if split else contextlib.nullcontext():
+        with self._region(split):
             x = self._trunk(self._stage_mel(feats, train), train)
         return self._head(x, feat_lens // self.time_stride,
                           getattr(self, self.head), train, split)
@@ -301,26 +391,14 @@ class _PannEncoder(_SeqSplit, nn.Module):
     def _head(self, x: torch.Tensor, lens: torch.Tensor, fc: nn.Linear,
               train: bool, split=None) -> Dict[str, torch.Tensor]:
         """The pooled head; ``split`` = (group, index) when ``x`` holds the
-        index-th slice of time over the group (sequence parallelism): each
-        slice masked at its global offset, the pools reduced over the
-        group, ``audio_embeds`` gathered."""
+        index-th slice of time over the group (sequence parallelism): the
+        pools over the whole clip (:func:`_time_pool`), ``audio_embeds``
+        gathered."""
         x = x.mean(dim=3).transpose(1, 2)             # [N, T', C]
-        if split is None:
-            pooled = max_with_lens(x, lens) + mean_with_lens(x, lens)
-        else:
-            group, index = split
-            Tl = x.shape[1]
-            local = torch.clamp(lens - index * Tl, 0, Tl)
-            mask = length_mask(local, Tl)[..., None]
-            total = reduce_to_replicated(torch.sum(x.float() * mask, dim=1),
-                                         group)
-            mean = (total.to(x.dtype)
-                    / torch.clamp_min(lens.to(x.dtype), 1.0)[:, None])
-            mx = torch.amax(x.masked_fill(~mask, torch.finfo(x.dtype).min),
-                            dim=1)
-            pooled = torch.amax(gather_replicated(mx[None], 0, group),
-                                dim=0) + mean
-            x = gather_replicated(x, 1, group)
+        pooled = (_time_pool(x, lens, split, "max")
+                  + _time_pool(x, lens, split, "mean"))
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
         pooled = F.dropout(pooled.float(), self.head_dropout, train)
         pooled = F.relu(promoted_linear(pooled, fc))
         pooled = F.dropout(pooled, self.head_dropout, train)
@@ -496,12 +574,14 @@ class TorchvisionBasicBlock(nn.Module):
 
 
 @register("ResNetEncoder")
-class ResNetEncoder(nn.Module):
+class ResNetEncoder(_SeqSplit, nn.Module):
     """torchvision-style ResNet18 trunk (encoder.py:808-863): 7×7/2 stem ->
     3×3/2 max-pool -> 4 stages of 2 BasicBlocks (stride 2 from stage 2) ->
     mean over the mel axis; five stride-2 halvings, so the lengths are
     ``(l - 1) // 2 + 1`` five times.  The JAX package's names
-    (``stem_conv``, ``layer<s>_<b>``, ``ds_conv``/``ds_bn``)."""
+    (``stem_conv``, ``layer<s>_<b>``, ``ds_conv``/``ds_bn``).  Split, the
+    shards' offsets stay even at every halving (``time_stride`` 32)."""
+    time_stride = 32
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -525,16 +605,22 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = _conv2d(feats[:, None], self.stem_conv, self.dtype, 2, 3)
-        x = F.relu(self.stem_bn(x, train, dtype=torch.float32))
-        x = F.max_pool2d(x, 3, 2, padding=1)
-        for blk in self.layers:
-            x = blk(x, train)
+        split = self._split()   # feats: this rank's slice of time
+        with self._region(split):
+            x = _conv2d(feats[:, None], self.stem_conv, self.dtype, 2, 3)
+            x = F.relu(self.stem_bn(x, train, dtype=torch.float32))
+            x, tpad = _time_halo(x, 3, 1, 2, fill=-math.inf)
+            x = F.max_pool2d(x, 3, 2, padding=(tpad, 1))
+            for blk in self.layers:
+                x = blk(x, train)
         x = x.float().mean(dim=3).transpose(1, 2)     # [N, T', C]
         lens = feat_lens
         for _ in range(5):
             lens = (lens - 1) // 2 + 1
-        return {"audio_embeds": x, "audio_embeds_pooled": mean_with_lens(x, lens),
+        pooled = _time_pool(x, lens, split, "mean")
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
+        return {"audio_embeds": x, "audio_embeds_pooled": pooled,
                 "audio_embeds_lens": lens}
 
 
@@ -553,9 +639,11 @@ def _run_block2d(owner: nn.Module, name: str, x: torch.Tensor, train: bool,
 
 
 @register("CRNNEncoder")
-class CRNNEncoder(nn.Module):
+class CRNNEncoder(_SeqSplit, nn.Module):
     """CRNN (encoder.py:271-342): Block2D conv stack with LPPool -> BiGRU(128);
-    time subsampling ×4; pooled = masked mean."""
+    time subsampling ×4; pooled = masked mean.  Split, the conv stack runs
+    on the shard and the BiGRU on the gathered frames."""
+    time_stride, unsplit = 4, ("gru",)
     plan = (("b1", 32, (2, 4)), ("b2", 128, None), ("b3", 128, (2, 4)),
             ("b4", 128, None), ("b5", 128, (1, 4)))
 
@@ -571,12 +659,16 @@ class CRNNEncoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = feats[:, None]
-        for name, _, pool in self.plan:
-            x = _run_block2d(self, name, x, train, self.dtype)
-            if pool:
-                x = lp_pool(x, 4.0, pool)
-        x = _to_tfc(F.dropout(x, 0.3, train))
+        split = self._split()   # feats: this rank's slice of time
+        with self._region(split):
+            x = feats[:, None]
+            for name, _, pool in self.plan:
+                x = _run_block2d(self, name, x, train, self.dtype)
+                if pool:
+                    x = lp_pool(x, 4.0, pool)
+            x = _to_tfc(F.dropout(x, 0.3, train))
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
         lens = feat_lens // 4
         x, _ = self.gru(x.float(), lens)
         return {"audio_embeds": x, "audio_embeds_pooled": mean_with_lens(x, lens),
@@ -609,17 +701,10 @@ class _DoubleConvTrunk(_SeqSplit, nn.Module):
             x = F.relu(getattr(self, f"b{i}_bn{j}")(x, train, dtype=self.dtype))
         return x
 
-    def _trunk_params(self):
-        for i in range(self.n_blocks):
-            for j in (1, 2):
-                yield from getattr(self, f"b{i}_conv{j}").parameters()
-                yield from getattr(self, f"b{i}_bn{j}").parameters()
-        yield from self.bn0.parameters()
-
     def _frames(self, feats: torch.Tensor, train: bool) -> torch.Tensor:
         """The trunk's [N, T', C] frames of the whole clip."""
         split = self._split()   # feats: this rank's slice of time
-        with pstate.split_region() if split else contextlib.nullcontext():
+        with self._region(split):
             x = self._blocks(self.bn0(feats, train, axis=2)[:, None], train)
             x = x.mean(dim=3).transpose(1, 2)
         return x if split is None else gather_replicated(x, 1, split[0])
@@ -629,7 +714,7 @@ class _DoubleConvTrunk(_SeqSplit, nn.Module):
 class CNN10QEncoder(_DoubleConvTrunk):
     """CNN10-Q (encoder.py:427-498): double-conv blocks with avg pools, final
     freq average, masked mean+max pooled embedding; subsampling ×16."""
-    time_stride = 16
+    time_stride, unsplit = 16, ("embedding",)
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -666,6 +751,7 @@ class CNN10DEncoder(CNN10QEncoder):
     """CNN10-D (encoder.py:500-514): the Q trunk; its ``embedding`` Dense
     (channels[-1] wide) maps the pooled vector and, relu'd, every frame,
     and ``outputlayer`` maps the frames to ``embed_size``."""
+    unsplit = ("embedding", "outputlayer")
 
     def _make_head(self, channels, device) -> None:
         self.embedding = _dense(channels[-1], channels[-1], "kaiming_uniform",
@@ -684,10 +770,12 @@ class CNN10DEncoder(CNN10QEncoder):
 
 
 @register("CNNEncoder")
-class CNNEncoder(nn.Module):
+class CNNEncoder(_SeqSplit, nn.Module):
     """GLU conv stack (encoder.py:91-141): conv -> BN -> GLU over channels
     -> freq max-pool; time-mean pooled into one utterance vector, the
-    temporal embeds that vector as one frame (lens 1)."""
+    temporal embeds that vector as one frame (lens 1).  The time mean is
+    over the padded T, as in JAX; split, the shards' sums over it."""
+    unsplit = ("outputlayer",)
 
     def __init__(self, inputdim: int = 64, embed_size: int = 256,
                  filters: Sequence[int] = (32, 32, 32),
@@ -704,15 +792,29 @@ class CNNEncoder(nn.Module):
             cin, f = c // 2, f // 2
         self.outputlayer = _dense(f * cin, embed_size, "kaiming_uniform", device)
 
+    def seq_split_ok(self, T: int, model: int) -> bool:
+        """Odd kernels (``padding=k // 2`` is SAME), each halo within a
+        shard."""
+        return (super().seq_split_ok(T, model)
+                and all(k % 2 and k // 2 <= T // model for k in self.kernels))
+
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = feats[:, None]
-        for i, k in enumerate(self.kernels):
-            x = _conv2d(x, getattr(self, f"conv{i}"), self.dtype, padding=k // 2)
-            x = getattr(self, f"bn{i}")(x, train, dtype=self.dtype)
-            a, b = x.chunk(2, dim=1)
-            x = F.max_pool2d(a * torch.sigmoid(b), (1, 2))
-        x = x.mean(dim=2)                              # [N, C, F']
+        split = self._split()   # feats: this rank's slice of time
+        with self._region(split):
+            x = feats[:, None]
+            for i, k in enumerate(self.kernels):
+                x = _conv2d(x, getattr(self, f"conv{i}"), self.dtype,
+                            padding=k // 2)
+                x = getattr(self, f"bn{i}")(x, train, dtype=self.dtype)
+                a, b = x.chunk(2, dim=1)
+                x = F.max_pool2d(a * torch.sigmoid(b), (1, 2))
+        if split is None:
+            x = x.mean(dim=2)                          # [N, C, F']
+        else:   # the mean over the padded global T
+            N, T = x.shape[0], x.shape[2] * dist.get_world_size(split[0])
+            x = _time_pool(x.transpose(1, 2), torch.full(
+                (N,), T, dtype=feat_lens.dtype, device=x.device), split, "mean")
         x = x.transpose(1, 2).reshape(x.shape[0], -1)  # freq-major
         out = promoted_linear(x, self.outputlayer)
         return {"audio_embeds": out[:, None, :], "audio_embeds_pooled": out,
@@ -724,7 +826,7 @@ class CRNN8Sub4(_DoubleConvTrunk):
     """CRNN8 (encoder.py:345-424): double-conv blocks with avg+max pooling
     -> embedding -> BiGRU; subsampling ×4."""
     pools = ((2, 2), (2, 2), (1, 2), (1, 2))
-    time_stride = 4
+    time_stride, unsplit = 4, ("embedding", "gru")
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -752,13 +854,24 @@ class CRNN8Sub4(_DoubleConvTrunk):
                 "audio_embeds_lens": lens}
 
 
+def _split_extent(split, T: int) -> Tuple[int, int]:
+    """(the shard's first global frame, the clip's frames) of a shard of
+    ``T`` frames; (0, T) unsplit."""
+    if split is None:
+        return 0, T
+    group, index = split
+    return index * T, T * dist.get_world_size(group)
+
+
 @register("TransformerEncoder")
-class TransformerAudioEncoder(nn.Module):
+class TransformerAudioEncoder(_SeqSplit, nn.Module):
     """Projects features through a post-norm transformer encoder
     (encoder.py:1256-1306).  Padded positions are masked as queries and as
     keys; a padded query row attends uniformly, as flax's masked softmax
     gives it, so its ``audio_embeds`` row matches JAX's.  LayerNorm eps
-    1e-6 (flax's)."""
+    1e-6 (flax's).  Split, each shard's queries attend to every frame's
+    keys and values (``gather_split``), so every parameter's gradient is a
+    shard's part."""
 
     def __init__(self, inputdim: int, embed_size: int = 512, nhead: int = 8,
                  nlayers: int = 2, dim_feedforward: int = 2048,
@@ -780,24 +893,31 @@ class TransformerAudioEncoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
+        split = self._split()   # feats: this rank's slice of time
         x = self.proj(feats)
-        mask = length_mask(feat_lens, x.shape[1])
-        attn_mask = mask[:, None, :] & mask[:, :, None]
+        off, T = _split_extent(split, x.shape[1])
+        attn_mask = (length_mask(feat_lens, T)[:, None, :]
+                     & length_mask(feat_lens - off, x.shape[1])[:, :, None])
         for i in range(self.nlayers):
-            sa = getattr(self, f"layer{i}_attn")(x, x, attn_mask, train)
+            mem = x if split is None else gather_split(x, 1, split[0])
+            sa = getattr(self, f"layer{i}_attn")(x, mem, attn_mask, train)
             x = getattr(self, f"layer{i}_norm1")(x + sa)
             ff = F.relu(getattr(self, f"layer{i}_ff1")(x))
             ff = getattr(self, f"layer{i}_ff2")(F.dropout(ff, self.dropout, train))
             x = getattr(self, f"layer{i}_norm2")(x + ff)
-        return {"audio_embeds": x, "audio_embeds_pooled": mean_with_lens(x, feat_lens),
+        pooled = _time_pool(x, feat_lens, split, "mean")
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
+        return {"audio_embeds": x, "audio_embeds_pooled": pooled,
                 "audio_embeds_lens": feat_lens}
 
 
 @register("CNN10Encoder")
-class CNN10Encoder(nn.Module):
+class CNN10Encoder(_SeqSplit, nn.Module):
     """Block2D+LPPool CNN10 (encoder.py:516-575): four double-Block2D stages
     with LPPool(4) pools (2,4)/(2,2)/(1,2)/(1,2), freq averaged; time
     subsampling ×4; pooled = masked time mean."""
+    time_stride = 4
     plan = ((64, (2, 4)), (128, (2, 2)), (256, (1, 2)), (512, (1, 2)))
 
     def __init__(self, inputdim: int = 64, embed_size: int = 512,
@@ -814,19 +934,24 @@ class CNN10Encoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = feats[:, None]
-        for i, (_, pool) in enumerate(self.plan):
-            x = _run_block2d(self, f"b{i}_1", x, train, self.dtype)
-            x = _run_block2d(self, f"b{i}_2", x, train, self.dtype)
-            x = lp_pool(x, 4.0, pool)
+        split = self._split()   # feats: this rank's slice of time
+        with self._region(split):
+            x = feats[:, None]
+            for i, (_, pool) in enumerate(self.plan):
+                x = _run_block2d(self, f"b{i}_1", x, train, self.dtype)
+                x = _run_block2d(self, f"b{i}_2", x, train, self.dtype)
+                x = lp_pool(x, 4.0, pool)
         x = F.dropout(x, 0.3, train).mean(dim=3).transpose(1, 2)
         lens = feat_lens // 4
-        return {"audio_embeds": x, "audio_embeds_pooled": mean_with_lens(x, lens),
+        pooled = _time_pool(x, lens, split, "mean")
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
+        return {"audio_embeds": x, "audio_embeds_pooled": pooled,
                 "audio_embeds_lens": lens}
 
 
 @register("PreTrainedCNN")
-class PreTrainedCNN(nn.Module):
+class PreTrainedCNN(_SplitComposite, nn.Module):
     """A pretrained encoder ``trunk`` + a fresh linear head (encoder.py:
     144-177).  The trunk runs with ``train=False`` (its BatchNorms on
     running statistics, no dropout) and, with ``freeze``, its outputs are
@@ -840,6 +965,9 @@ class PreTrainedCNN(nn.Module):
         self.outputlayer = _dense(trunk.embed_size, embed_size, "xavier_uniform",
                                   device)
 
+    def _branches(self):
+        return (self.trunk,)
+
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
         out = self.trunk(feats, feat_lens, train=False)
@@ -852,7 +980,7 @@ class PreTrainedCNN(nn.Module):
 
 
 @register("CNN10CRNNEncoder")
-class CNN10CRNNEncoder(nn.Module):
+class CNN10CRNNEncoder(_SplitComposite, nn.Module):
     """Fusion encoder (encoder.py:577-591): a CRNN and a CNN10 branch on
     the same mels, concatenated on the feature axis; the sequences cut to
     the shorter one's T and the lengths to the smaller."""
@@ -862,6 +990,9 @@ class CNN10CRNNEncoder(nn.Module):
         super().__init__()
         self.crnn, self.cnn = crnn, cnn
         self.embed_size = crnn.embed_size + cnn.embed_size
+
+    def _branches(self):
+        return (self.crnn, self.cnn)
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
@@ -879,11 +1010,13 @@ class CNN10CRNNEncoder(nn.Module):
 
 
 @register("E2EASREncoder")
-class E2EASREncoder(nn.Module):
+class E2EASREncoder(_SeqSplit, nn.Module):
     """ESPnet-style ASR encoder (encoder.py:14-54): VGG2L (two stages of
     2× conv3x3 with bias + relu, then a 2×2 max-pool: time ×4) into
     ``nlayers`` BiGRUs, each followed by a tanh projection; pooled =
-    masked time mean."""
+    masked time mean.  Split, VGG2L runs on the shard and the BiGRUs on
+    the gathered frames."""
+    time_stride, unsplit = 4, ("bgru", "proj")
 
     def __init__(self, inputdim: int = 64, embed_size: int = 320,
                  hidden_size: int = 320, nlayers: int = 2,
@@ -906,12 +1039,17 @@ class E2EASREncoder(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 train: bool = False) -> Dict[str, torch.Tensor]:
-        x = feats[:, None]
-        for i in range(2):
-            for j in (1, 2):
-                x = F.relu(_conv2d(x, getattr(self, f"vgg{i}_conv{j}"), self.dtype))
-            x = F.max_pool2d(x, 2)
-        x = _to_tfc(x).float()
+        split = self._split()   # feats: this rank's slice of time
+        with self._region(split):
+            x = feats[:, None]
+            for i in range(2):
+                for j in (1, 2):
+                    x = F.relu(_conv2d(x, getattr(self, f"vgg{i}_conv{j}"),
+                                       self.dtype))
+                x = F.max_pool2d(x, 2)
+            x = _to_tfc(x).float()
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
         lens = feat_lens // 4
         for i in range(self.nlayers):
             x, _ = getattr(self, f"bgru{i}")(x, lens)
@@ -921,12 +1059,14 @@ class E2EASREncoder(nn.Module):
 
 
 @register("M2TransformerEncoder")
-class M2TransformerEncoder(nn.Module):
+class M2TransformerEncoder(_SeqSplit, nn.Module):
     """Meshed-memory transformer encoder (encoder.py:1309-1348): each layer
     appends ``memory_slots`` learnt key/value slots (keys scaled by √d_k,
     values by √m) to its projected keys and values; the slots are always
     attendable, padded positions masked as keys only.  Sinusoidal positions
-    are added after the input projection."""
+    are added after the input projection.  Split as TransformerEncoder,
+    the positions at the shard's global offset and the slots on every
+    shard."""
 
     def __init__(self, inputdim: int, embed_size: int = 512, nhead: int = 8,
                  nlayers: int = 2, dim_feedforward: int = 2048,
@@ -952,10 +1092,12 @@ class M2TransformerEncoder(nn.Module):
                 train: bool = False) -> Dict[str, torch.Tensor]:
         D, H, M = self.embed_size, self.nhead, self.memory_slots
         dh = D // H
+        split = self._split()   # feats: this rank's slice of time
         x = self.attn_proj(feats)
         N, T = x.shape[:2]
-        x = x + sinusoidal_pe(T, D).to(x.device)[None]
-        kv_mask = torch.cat([length_mask(feat_lens, T),
+        off, T_all = _split_extent(split, T)
+        x = x + sinusoidal_pe(T_all, D)[off:off + T].to(x.device)[None]
+        kv_mask = torch.cat([length_mask(feat_lens, T_all),
                              torch.ones((N, M), dtype=torch.bool, device=x.device)],
                             dim=1)
 
@@ -965,8 +1107,9 @@ class M2TransformerEncoder(nn.Module):
             layer = lambda name: getattr(self, f"l{i}_{name}")  # noqa: E731
             mk = (dh ** 0.5) * layer("mem_k").expand(N, M, D)
             mv = (M ** 0.5) * layer("mem_v").expand(N, M, D)
-            k = torch.cat([layer("wk")(x), mk], dim=1)
-            v = torch.cat([layer("wv")(x), mv], dim=1)
+            mem = x if split is None else gather_split(x, 1, split[0])
+            k = torch.cat([layer("wk")(mem), mk], dim=1)
+            v = torch.cat([layer("wv")(mem), mv], dim=1)
             scores = heads(layer("wq")(x)) @ heads(k).transpose(2, 3) / (dh ** 0.5)
             scores = scores.masked_fill(~kv_mask[:, None, None, :], -1e9)
             out = (torch.softmax(scores, dim=-1) @ heads(v)).transpose(1, 2)
@@ -975,7 +1118,10 @@ class M2TransformerEncoder(nn.Module):
             ff = layer("ff2")(F.dropout(F.relu(layer("ff1")(x)), self.dropout,
                                         train))
             x = layer("norm2")(x + F.dropout(ff, self.dropout, train))
-        return {"audio_embeds": x, "audio_embeds_pooled": mean_with_lens(x, feat_lens),
+        pooled = _time_pool(x, feat_lens, split, "mean")
+        if split is not None:
+            x = gather_replicated(x, 1, split[0])
+        return {"audio_embeds": x, "audio_embeds_pooled": pooled,
                 "audio_embeds_lens": feat_lens}
 
 
@@ -984,7 +1130,8 @@ class RNNEncoder(nn.Module):
     """GRU encoder (encoder.py:709-762): the frames are the GRU's outputs;
     the pooled vector is the last valid output (``representation="time"``)
     or the masked mean (``"mean"``), through ``outputlayer`` and a
-    BatchNorm at flax momentum 0.01."""
+    BatchNorm at flax momentum 0.01.  Its GRU reads the input frames in
+    order, so sequence parallelism runs it on whole clips."""
 
     def __init__(self, inputdim: int, embed_size: int = 256,
                  hidden_size: int = 256, bidirectional: bool = False,

@@ -16,9 +16,14 @@ time split), the copies count once.  So:
 * :func:`gather_replicated` — forward all-gather, backward the own slice:
   shards that every rank of the group then uses alike (the logits for a
   decode, ``audio_embeds`` under sequence parallelism);
+* :func:`gather_split` — forward all-gather, backward sum then the own
+  slice: shards that every rank then uses differently (the keys and values
+  that each rank's own queries read under sequence parallelism, each
+  frame's gradient the sum of every rank's queries' terms);
 * :func:`halo_exchange` — the neighbours' edge frames of a time-split
-  activation, zeros at the outer edges; backward returns each halo's
-  gradient to the rank it came from.
+  activation, ``prev`` frames before and ``nxt`` after, ``fill`` at the
+  outer edges; backward returns each halo's gradient to the rank it came
+  from.
 
 Only ``all_reduce``, ``all_gather`` and ``broadcast`` are used, which NCCL
 and gloo both take on CUDA tensors; bfloat16 travels as float32 (exact).
@@ -101,6 +106,19 @@ class _GatherOwn(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.size, ctx.group = dim, x.shape[dim], group
+        ctx.index = dist.get_rank(group)
+        return torch.cat(_all_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _all_reduce(g, ctx.group)
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, None
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _SumSum.apply(x, group)
 
@@ -117,45 +135,57 @@ def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _GatherOwn.apply(x, dim, group)
 
 
+def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherSum.apply(x, dim, group)
+
+
 class _Halo(torch.autograd.Function):
     """x [..., T, ...] split along ``dim`` over the group -> (the previous
-    shard's last frame, the next shard's first frame), each with ``dim`` of
-    size 1, zeros past the ends."""
+    shard's last ``prev`` frames, the next shard's first ``nxt`` frames),
+    ``fill`` past the ends."""
 
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        ctx.index, ctx.n = dist.get_rank(group), dist.get_world_size(group)
-        edges = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)],
+    def forward(ctx, x, dim, group, prev, nxt, fill):
+        T = x.shape[dim]
+        if max(prev, nxt) > T:
+            raise ValueError(f"a halo of {prev} and {nxt} frames needs shards "
+                             f"of at least that many; these hold {T}")
+        i, n = dist.get_rank(group), dist.get_world_size(group)
+        ctx.dim, ctx.group, ctx.index, ctx.n = dim, group, i, n
+        ctx.prev, ctx.nxt, ctx.T = prev, nxt, T
+        # each shard's edges: its first nxt frames, then its last prev
+        edges = torch.cat([x.narrow(dim, 0, nxt), x.narrow(dim, T - prev, prev)],
                           dim=dim)
         ctx.edge_shape = edges.shape
         got = _all_gather(edges, group)
-        zero = torch.zeros_like(x.narrow(dim, 0, 1))
-        i = ctx.index
-        prev = got[i - 1].narrow(dim, 1, 1) if i > 0 else zero
-        nxt = got[i + 1].narrow(dim, 0, 1) if i < ctx.n - 1 else zero
-        ctx.T = x.shape[dim]
-        return prev, nxt
+
+        def outer(k):
+            shape = list(x.shape)
+            shape[dim] = k
+            return torch.full(shape, fill, dtype=x.dtype, device=x.device)
+        before = got[i - 1].narrow(dim, nxt, prev) if i > 0 else outer(prev)
+        after = got[i + 1].narrow(dim, 0, nxt) if i < n - 1 else outer(nxt)
+        return before, after
 
     @staticmethod
     def backward(ctx, g_prev, g_next):
-        dim, i = ctx.dim, ctx.index
+        dim, i, p, q = ctx.dim, ctx.index, ctx.prev, ctx.nxt
         # every rank's halo gradients in its neighbours' edge slots, summed
         buf = [torch.zeros(ctx.edge_shape, dtype=g_prev.dtype, device=g_prev.device)
                for _ in range(ctx.n)]
         if i > 0:
-            buf[i - 1].narrow(dim, 1, 1).copy_(g_prev)
+            buf[i - 1].narrow(dim, q, p).copy_(g_prev)
         if i < ctx.n - 1:
-            buf[i + 1].narrow(dim, 0, 1).copy_(g_next)
+            buf[i + 1].narrow(dim, 0, q).copy_(g_next)
         mine = _all_reduce(torch.stack(buf), ctx.group)[i]
         shape = list(ctx.edge_shape)
         shape[dim] = ctx.T
         gx = torch.zeros(shape, dtype=g_prev.dtype, device=g_prev.device)
-        gx.narrow(dim, 0, 1).add_(mine.narrow(dim, 0, 1))
-        gx.narrow(dim, ctx.T - 1, 1).add_(mine.narrow(dim, 1, 1))
-        return gx, None, None
+        gx.narrow(dim, 0, q).add_(mine.narrow(dim, 0, q))
+        gx.narrow(dim, ctx.T - p, p).add_(mine.narrow(dim, q, p))
+        return gx, None, None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, dim: int, group) -> Tuple[torch.Tensor,
-                                                              torch.Tensor]:
-    return _Halo.apply(x, dim, group)
+def halo_exchange(x: torch.Tensor, dim: int, group, prev: int, nxt: int,
+                  fill: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _Halo.apply(x, dim, group, prev, nxt, fill)

@@ -241,8 +241,8 @@ def halo_backward_dropped():
     def backward(ctx, g_prev, g_next):
         shape = list(ctx.edge_shape)
         shape[ctx.dim] = ctx.T
-        return torch.zeros(shape, dtype=g_prev.dtype,
-                           device=g_prev.device), None, None
+        return (torch.zeros(shape, dtype=g_prev.dtype, device=g_prev.device),
+                None, None, None, None, None)
     collectives._Halo.backward = staticmethod(backward)
     try:
         yield
@@ -250,10 +250,53 @@ def halo_backward_dropped():
         collectives._Halo.backward = kept
 
 
+@contextlib.contextmanager
+def kv_gathered_replicated():
+    """A planted fault while it is open: the split transformers gather their
+    keys and values with ``gather_replicated`` (each frame's gradient only
+    from its own rank's queries), which a split's gradient check must
+    catch."""
+    from acvae_tpu_torch.models import encoders
+    from acvae_tpu_torch.parallel.collectives import gather_replicated
+    kept = encoders.gather_split
+    encoders.gather_split = gather_replicated
+    try:
+        yield
+    finally:
+        encoders.gather_split = kept
+
+
+FAULTS = {"halo_dropped": halo_backward_dropped,
+          "kv_replicated": kv_gathered_replicated}
+
+
+def halo_case(x, prev: int, nxt: int, probe_prev, probe_next,
+              model_parallel: int, device: str = DEFAULT_DEVICE
+              ) -> Dict[str, Any]:
+    """``halo_exchange`` of this rank's slice of the global ``x`` [N, C,
+    T, F] (time split over the model ranks of a ``(world /
+    model_parallel, model_parallel)`` grid), ``prev`` and ``nxt`` frames
+    wide, ``-1`` at the outer edges, and the backward of ``Σ before·
+    probe_prev[m] + Σ after·probe_next[m]`` (the probes [model, N, C,
+    width, F]).  Returns the model index, the halos and the slice's
+    gradient."""
+    from acvae_tpu_torch.parallel.collectives import halo_exchange
+    grid = make_mesh_2d(model_parallel)
+    t = np.shape(x)[2] // grid.model
+    xs = torch.as_tensor(np.asarray(x)[:, :, grid.m * t:(grid.m + 1) * t],
+                         device=device).requires_grad_(True)
+    before, after = halo_exchange(xs, 2, grid.model_group, prev, nxt, -1.0)
+    loss = ((before * torch.as_tensor(probe_prev[grid.m], device=device)).sum()
+            + (after * torch.as_tensor(probe_next[grid.m], device=device)).sum())
+    loss.backward()
+    return {"m": grid.m, "before": _cpu(before), "after": _cpu(after),
+            "grad": _cpu(xs.grad)}
+
+
 def encoder_split_case(name: str, args: Dict[str, Any], data_dim: int,
                        state_dict, feats, lens, probe: Dict[str, Any],
                        model_parallel: int = 2, seq: bool = True,
-                       halo_dropped: bool = False,
+                       fault: Optional[str] = None,
                        device: str = DEFAULT_DEVICE) -> Dict[str, Any]:
     """The train-mode forward of encoder ``name`` (``build_encoder(name,
     args, data_dim)``, weights ``state_dict``, dropouts off) on a rank of
@@ -265,7 +308,7 @@ def encoder_split_case(name: str, args: Dict[str, Any], data_dim: int,
     sums them (``sum_partial_grads``).  Rank 0 returns the outputs of every
     row (gathered over the data ranks), the gradients, the state dict after
     the forward (BatchNorm's running statistics) and ``seq_split``.
-    ``halo_dropped`` plants :func:`halo_backward_dropped`."""
+    ``fault`` plants one of :data:`FAULTS` over the forward and backward."""
     from acvae_tpu_torch.models.encoders import build_encoder
     if isinstance(state_dict, str):
         state_dict = torch.load(state_dict, map_location=device,
@@ -284,12 +327,13 @@ def encoder_split_case(name: str, args: Dict[str, Any], data_dim: int,
     if split:
         t = T // grid.model
         x = x[:, grid.m * t:(grid.m + 1) * t]
-    with pstate.step_context(grid, seq_split=split), dropout_off():
-        out = enc(x, n, train=True)
-    loss = ((out["audio_embeds"] * torch.as_tensor(local["embeds"], device=device)
-             ).sum() + (out["audio_embeds_pooled"] * torch.as_tensor(
-                 local["pooled"], device=device)).sum())
-    with halo_backward_dropped() if halo_dropped else contextlib.nullcontext():
+    with FAULTS[fault]() if fault else contextlib.nullcontext():
+        with pstate.step_context(grid, seq_split=split), dropout_off():
+            out = enc(x, n, train=True)
+        loss = ((out["audio_embeds"] * torch.as_tensor(local["embeds"],
+                                                       device=device)).sum()
+                + (out["audio_embeds_pooled"] * torch.as_tensor(
+                    local["pooled"], device=device)).sum())
         loss.backward()
     seq_params = {id(p) for p in enc.seq_split_params()} if split else set()
     sum_partial_grads(enc.parameters(), grid, seq_params, split)

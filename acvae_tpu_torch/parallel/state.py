@@ -6,7 +6,9 @@ parallel.mesh.Grid`: the losses then divide by global counts
 (:func:`global_count`, :func:`batch_mean`), BatchNorm reduces its sums
 over :func:`bn_group`, a vocab-split classifier hands back its shard of the
 logits, and with ``seq_split`` the encoder runs its trunk on its slice of
-mel time (the encoders of ``models/encoders.py::seq_split_encoders``).
+mel time (every encoder of ``models/encoders.py::seq_split_encoders``: all
+but RNNEncoder, whose GRU reads the input frames in order; the
+transformers attend with the slice's queries to every frame).
 Outside a step (validation, the decodes) the model is a plain one.
 
 :func:`row_shard` makes every draw of the rows a split slice of the draw

@@ -251,7 +251,21 @@ Phases, each of which exits nonzero on failure:
    which its probe reads), at T_mel 1024 and at 3072, the largest mel
    bucket.  The peak memory of the unsplit step and of each rank, in the
    timed step above what the process held before, is printed for every
-   timed (bf16) case.
+   timed case.  New with sequence parallelism for every encoder but
+   RNNEncoder, in (a) and (d): a float32 SP step of ResNetEncoder (strided
+   and wide halos, a padded max pool), CNNEncoder (5-frame halos, the
+   unmasked time mean), CNN10Encoder (Block2D and LP pools),
+   E2EASREncoder (VGG2L, its BiGRUs on the gathered frames),
+   TransformerEncoder and M2TransformerEncoder (the shard's queries
+   against every frame's keys and values), each at its own full width
+   with the flagship's decoder, the loss, gradients and update held at
+   ``PAR_DTYPES``'s float32 limits against the unsplit step, the
+   unsplit step probed; two more planted faults outside them
+   (ResNetEncoder's halo backward dropped; TransformerEncoder's keys and
+   values gathered with ``gather_replicated``).  TransformerEncoder
+   (float32: it takes no dtype in either package) is also timed at
+   T_mel 1024 and 3072, its peak memory a rank beside the unsplit
+   step's.
 
 Kernel launches are counted from 0 over each path (train, serve, int8
 serve, cli, diverse, families, extras, encoders, aux, export, tools,
@@ -3954,39 +3968,60 @@ PAR_VOCAB = VOCAB + 1
 PAR_EPOCH = 12
 
 
+# the encoders that take no dtype (float32 in both packages)
+PAR_TRANSFORMERS = ("TransformerEncoder", "M2TransformerEncoder")
+
+
 def par_conf(dtype, encoder="Cnn10"):
-    """The flagship with its dropouts off, ``encoder`` (Cnn10; the PANN
-    Cnn14 or ResNet38 with a 2048-wide pooled embedding, as phase 14 sets
-    Cnn14 up) in ``dtype``, and one Adam step at lr 1e-4.  Cnn14 and
-    ResNet38 hard-code their dropouts: the steps turn every dropout off
+    """The flagship with its dropouts off, ``encoder`` in ``dtype``, and
+    one Adam step at lr 1e-4: Cnn10 as the recipe has it; the PANN Cnn14
+    or ResNet38 with a 2048-wide pooled embedding, as phase 14 sets Cnn14
+    up; any other encoder at its own default widths (the transformers,
+    which take no dtype, in float32).  The encoders but Cnn10 hard-code
+    their dropouts or default them on: the steps turn every dropout off
     (``parity.dropout_off``)."""
     from acvae_tpu_torch.configs import flagship_conf
     conf = flagship_conf(scheduler="constant", scheduler_args={},
                          optimizer_args={"lr": 1e-4}, encodermodel=encoder)
-    conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype)
     if encoder == "Cnn10":
-        conf["encoder_args"].update(conv_dropout=0.0, head_dropout=0.0)
+        conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype,
+                                    conv_dropout=0.0, head_dropout=0.0)
+    elif encoder in ("Cnn14", "ResNet38"):
+        conf["encoder_args"] = dict(conf["encoder_args"], dtype=dtype,
+                                    embed_size=2048)
+    elif encoder in PAR_TRANSFORMERS:
+        check(dtype == "float32", f"{encoder} has no {dtype} mode")
+        conf["encoder_args"] = {}
     else:
-        conf["encoder_args"]["embed_size"] = 2048
+        conf["encoder_args"] = {"dtype": dtype}
     conf["decoder_args"] = dict(conf["decoder_args"], dropout=0.0)
     return conf
 
 
 def par_rank_step(*args, **kwargs):
     """A pool job: ``train_step_case`` with TF32 off, as in this process,
-    and every dropout off."""
+    and every dropout off; the rank's cached blocks are freed after it, so
+    that the next job's ranks and unsplit step find the card empty."""
+    import gc
+
     from acvae_tpu_torch.parallel.parity import train_step_case
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return train_step_case(*args, dropout=False, **kwargs)
+    try:
+        return train_step_case(*args, dropout=False, **kwargs)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
-def par_rank_step_halo_dropped(*args, **kwargs):
-    """A pool job with a planted fault: the halo exchange's backward returns
-    zeros (the neighbours' edge gradients lost), which the gradient check
-    must catch."""
-    from acvae_tpu_torch.parallel.parity import halo_backward_dropped
-    with halo_backward_dropped():
+def par_rank_step_faulty(fault, *args, **kwargs):
+    """A pool job with a planted fault of ``parity.FAULTS``: the halo
+    exchange's backward returning zeros (the neighbours' edge gradients
+    lost), or the transformers' keys and values gathered with
+    ``gather_replicated`` (each frame's gradient from its own rank's
+    queries only); the gradient check must catch either."""
+    from acvae_tpu_torch.parallel.parity import FAULTS
+    with FAULTS[fault]():
         return par_rank_step(*args, **kwargs)
 
 
@@ -4029,27 +4064,60 @@ PAR_DTYPES = {"float32": {"loss": 1e-5, "grad": 5e-3, "update": 0.1},
 PAR_LIMITS = {("Cnn14", "bfloat16"): {"loss": 2e-3, "grad": 0.47,
                                       "update": 1.0}}
 HELD = ("loss", "grad", "update")
+F32_PROBED = ("float32", HELD, False, True, False)
 # (encoder, its cases, its passes): a pass is (dtype, held, BatchNorm in
-# float64, probed).  The flagship's Cnn10 takes a DP, a TP and an SP step,
-# the PANN Cnn14 and ResNet38 an SP step; a bf16 pass is timed, a probed
-# float32 pass also takes the planted halo fault.  Cnn14's and ResNet38's
-# float32 BatchNorms round 5x as far as Cnn10's (the unsplit step against
-# its float64-BN twin 4.06e-3 per tensor, Cnn10 7.5e-4; PERF.md §6),
-# enough to move Adam's first update (lr·sign(g)) past its limit with no
-# fault (0.112 against 0.1): their float32 step with the port's BatchNorm
-# holds the loss and the gradients, and a second pass with BatchNorm in
-# float64 on both sides (``parity.batchnorm_float64``) holds the update.
-PAR_MODELS = (("Cnn10", ("dp", "tp", "sp"), (("float32", HELD, False, True),
-                                             ("bfloat16", HELD, False, False))),
-              ("Cnn14", ("sp",), (("float32", ("loss", "grad"), False, True),
-                                  ("float32", HELD, True, False),
-                                  ("bfloat16", HELD, False, True))),
-              ("ResNet38", ("sp",), (("float32", ("loss", "grad"), False, True),
-                                     ("float32", HELD, True, False))))
+# float64, probed, timed).  The flagship's Cnn10 takes a DP, a TP and an SP
+# step, every other encoder an SP step; a timed pass takes a warm-up step
+# first, and a probed float32 SP pass of an encoder in PAR_FAULTS also
+# takes its planted fault.  Cnn14's and ResNet38's float32 BatchNorms
+# round 5x as far as Cnn10's (the unsplit step against its float64-BN
+# twin 4.06e-3 per tensor, Cnn10 7.5e-4; PERF.md §6), enough to move
+# Adam's first update (lr·sign(g)) past its limit with no fault (0.112
+# against 0.1): their float32 step with the port's BatchNorm holds the
+# loss and the gradients, and a second pass with BatchNorm in float64 on
+# both sides (``parity.batchnorm_float64``) holds the update.  The
+# encoders split since (ResNetEncoder, CNNEncoder, CNN10Encoder,
+# E2EASREncoder and the transformers, one of each way to split) take one
+# float32 pass each; TransformerEncoder's is timed, for its memory a rank.
+PAR_MODELS = (("Cnn10", ("dp", "tp", "sp"),
+               (F32_PROBED, ("bfloat16", HELD, False, False, True))),
+              ("Cnn14", ("sp",), (("float32", ("loss", "grad"), False, True, False),
+                                  ("float32", HELD, True, False, False),
+                                  ("bfloat16", HELD, False, True, True))),
+              ("ResNet38", ("sp",), (("float32", ("loss", "grad"), False, True,
+                                      False),
+                                     ("float32", HELD, True, False, False))),
+              ("ResNetEncoder", ("sp",), (F32_PROBED,)),
+              ("CNNEncoder", ("sp",), (F32_PROBED,)),
+              ("CNN10Encoder", ("sp",), (F32_PROBED,)),
+              ("E2EASREncoder", ("sp",), (F32_PROBED,)),
+              ("TransformerEncoder", ("sp",), (("float32", HELD, False, True,
+                                                True),)),
+              ("M2TransformerEncoder", ("sp",), (F32_PROBED,)))
+# The encoders whose norms' scales and biases are drawn from a seed (as a
+# trained model has them) before the unsplit step writes the weights the
+# ranks load.  At init (scale 1, bias 0) CNN10Encoder's first BatchNorm,
+# over the one mel channel, reaches the next BatchNorm through a conv and a
+# leaky relu alone, which normalize its scale away: the scale's gradient
+# is zero in exact arithmetic and all rounding (`b0_1_bn.weight` moved
+# 1.19e-2 when only cuDNN's conv algorithms changed, 8.5e-3 with
+# BatchNorm in float64; PERF.md §6), which no relative check can
+# hold.  The other encoders keep the init's norms: drawn, ResNetEncoder's
+# 20 BatchNorms of scales up to 2 compound through its residuals and its
+# unsplit step's float32 BatchNorm moved 9.8e-3 off its float64 twin.  The
+# CPU tests draw every new encoder's norms
+# (tests/test_torch_parallel_encoders.py).
+PAR_DRAWN_NORMS = ("CNN10Encoder",)
+# the planted fault each encoder's probed float32 SP pass must fail
+PAR_FAULTS = {"Cnn10": "halo_dropped", "Cnn14": "halo_dropped",
+              "ResNet38": "halo_dropped", "ResNetEncoder": "halo_dropped",
+              "TransformerEncoder": "kv_replicated"}
 PAR_CASES = {"dp": (1, False), "tp": (2, False), "sp": (2, True)}
 # the largest mel bucket (data/dataset.py DEFAULT_BUCKETS), where Cnn14's
-# activations peak
+# activations and the transformer's [N, 8, T, T] attention buffers peak;
+# the timed SP steps taken there, memory a rank against the unsplit step's
 T_MEL_MAX = 3072
+PAR_LONG = (("Cnn14", "bfloat16"), ("TransformerEncoder", "float32"))
 
 
 def _rel(err):
@@ -4061,9 +4129,23 @@ def _gib(b):
     return "n/a" if b is None else f"{b / 2**30:.3f}"
 
 
+def _draw_norms(model, seed=17):
+    """Every BatchNorm's and LayerNorm's scale drawn from U(0.5, 2) and
+    bias from N(0, 0.3) with a generator of ``seed``, in place."""
+    from acvae_tpu_torch.models.encoders import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, torch.nn.LayerNorm)):
+                shape = m.weight.shape
+                m.weight.copy_(torch.rand(shape, generator=g) * 1.5 + 0.5)
+                m.bias.copy_(torch.randn(shape, generator=g) * 0.3)
+
+
 def _unsplit_reference(conf, batch, it, total, tmp, timed, probe,
-                       bn64=False):
-    """The unsplit step on the card (BatchNorm in float64 with ``bn64``):
+                       bn64=False, draw_norms=False):
+    """The unsplit step on the card (BatchNorm in float64 with ``bn64``;
+    the encoder's norms drawn by :func:`_draw_norms` with ``draw_norms``):
     writes its start weights, gradients and weights after the step;
     returns (loss, ms or None, peak bytes of the timed step above what
     this process held before, probes).  With ``probe``, the same step again from the
@@ -4081,6 +4163,8 @@ def _unsplit_reference(conf, batch, it, total, tmp, timed, probe,
     base = torch.cuda.memory_allocated()
     single = Trainer(conf, PAR_VOCAB, DATA_DIM, device="cuda",
                      total_iters=total)
+    if draw_norms:
+        _draw_norms(single.model.encoder)
     torch.save({k: v.cpu() for k, v in single.model.state_dict().items()},
                f"{tmp}/par_state.pt")
     start = state_on_cpu(single.state()) if timed or probe else None
@@ -4124,9 +4208,9 @@ def parallel_steps(tmp, devices, backend, label):
     of each rank in the timed step printed): the loss, the gradients
     before Adam and the step's update of the weights within
     ``PAR_DTYPES``'s limits where a pass holds them, and the planted faults
-    outside them; then Cnn14's bf16 SP step at T_MEL_MAX, its peak memory a
-    rank against the unsplit step's.  Returns the ranks' time_warp_1d
-    launches."""
+    outside them; then ``PAR_LONG``'s timed SP steps at T_MEL_MAX, their
+    peak memory a rank against the unsplit step's.  Returns the ranks'
+    time_warp_1d launches."""
     from acvae_tpu_torch.parallel.pool import RankPool
 
     world = len(devices)
@@ -4136,35 +4220,38 @@ def parallel_steps(tmp, devices, backend, label):
         for encoder, names, passes in PAR_MODELS:
             cases = [(n,) + PAR_CASES[n] for n in names
                      if PAR_CASES[n][0] == 1 or world % 2 == 0]
-            for dtype, held, bn64, probe in passes:
+            for dtype, held, bn64, probe, timed in passes:
                 launches += _par_model_steps(
                     pool, tmp, world, label, encoder, cases, dtype,
                     make_batch(np.random.default_rng(18)), it, total,
-                    held=held, bn64=bn64, probe=probe)
-        if world % 2 == 0:   # Cnn14 at the largest bucket: memory a rank
-            launches += _par_model_steps(
-                pool, tmp, world, label, "Cnn14", [("sp",) + PAR_CASES["sp"]],
-                "bfloat16", make_batch(np.random.default_rng(18), T_MEL_MAX),
-                it, total, held=HELD)
+                    held=held, bn64=bn64, probe=probe, timed=timed)
+        for encoder, dtype in PAR_LONG if world % 2 == 0 else ():
+            launches += _par_model_steps(   # the largest bucket: memory a rank
+                pool, tmp, world, label, encoder, [("sp",) + PAR_CASES["sp"]],
+                dtype, make_batch(np.random.default_rng(18), T_MEL_MAX),
+                it, total, held=HELD, timed=True)
     return launches
 
 
 def _par_model_steps(pool, tmp, world, label, encoder, cases, dtype, batch,
-                     it, total, held, bn64=False, probe=False):
+                     it, total, held, bn64=False, probe=False, timed=False):
     """``cases`` of ``encoder`` in ``dtype`` on the pool's ranks against
     the unsplit step (see :func:`parallel_steps`), both with BatchNorm in
-    float64 if ``bn64``; returns the ranks' time_warp_1d launches.  The
-    ``held`` errors (of ``loss``, ``grad``, ``update``) must be within
-    ``PAR_LIMITS``'s or ``PAR_DTYPES``'s limits, the others are printed; a
-    pass holding the gradients also fails the averaged ones.  With
-    ``probe`` the unsplit step is probed, and a float32 split takes the
-    dropped halo."""
+    float64 if ``bn64`` and ``timed`` after a warm-up step; returns the
+    ranks' time_warp_1d launches.  The ``held`` errors (of ``loss``,
+    ``grad``, ``update``) must be within ``PAR_LIMITS``'s or
+    ``PAR_DTYPES``'s limits, the others are printed; a pass holding the
+    gradients also fails the averaged ones.  With ``probe`` the unsplit
+    step is probed, and a float32 split takes the encoder's planted fault
+    of ``PAR_FAULTS``."""
     lim = PAR_LIMITS.get((encoder, dtype), PAR_DTYPES[dtype])
-    conf, timed = par_conf(dtype, encoder), dtype == "bfloat16"
+    conf = par_conf(dtype, encoder)
     T = batch["feats"].shape[1]
     ref_loss, single_ms, single_peak, probes = _unsplit_reference(
-        conf, batch, it, total, tmp, timed, probe=probe, bn64=bn64)
+        conf, batch, it, total, tmp, timed, probe=probe, bn64=bn64,
+        draw_norms=encoder in PAR_DRAWN_NORMS)
     what = (f"{encoder}, T_mel {T}, {dtype} encoder"
+            + (", norms drawn" if encoder in PAR_DRAWN_NORMS else "")
             + (", BatchNorm in float64" if bn64 else ""))
     print(f"parallel {label}, {what}: the unsplit step on cuda:0 loss "
           f"{ref_loss:.6f}" + (
@@ -4225,15 +4312,16 @@ def _par_model_steps(pool, tmp, world, label, encoder, cases, dtype, batch,
               + f"; update rel {_rel(upd)} ({lim_of('update')}); "
               f"time_warp_1d launches per rank "
               f"{[r['launches'] for r in ranks]} ({SMI})")
-        if seq and not timed and probe:
-            faulty = pool.run(par_rank_step_halo_dropped, *step_args,
+        fault = PAR_FAULTS.get(encoder)
+        if seq and dtype == "float32" and probe and fault:
+            faulty = pool.run(par_rank_step_faulty, fault, *step_args,
                               model_parallel=mp, seq=seq, **step_kw)[0]
             fg, fu = faulty["grad_err"], faulty["update_err"]
             check(fg["rel"] > lim["grad"] and fu["rel"] > lim["update"],
-                  f"{tag}: the halo backward dropped passes the checks: "
+                  f"{tag}: the planted fault {fault} passes the checks: "
                   f"gradients {fg}, update {fu}")
-            print(f"{tag}, halo backward dropped (a planted fault): "
-                  f"gradients rel {_rel(fg)}; update rel {_rel(fu)} ({SMI})")
+            print(f"{tag}, {fault} (a planted fault): gradients rel "
+                  f"{_rel(fg)}; update rel {_rel(fu)} ({SMI})")
     return launches
 
 

@@ -50,7 +50,8 @@ from acvae_tpu_torch.configs import flagship_conf
 from acvae_tpu_torch.convert import from_flax
 from acvae_tpu_torch.data import dataset as tds
 from acvae_tpu_torch.data.vocab import Vocabulary
-from acvae_tpu_torch.models.encoders import ENCODERS, seq_split_encoders
+from acvae_tpu_torch.models.encoders import (ENCODERS, build_encoder,
+                                             seq_split_encoders)
 from acvae_tpu_torch.parallel import mesh as tmesh
 from acvae_tpu_torch.parallel.parity import (encoder_split_case, errors,
                                              train_step_case)
@@ -313,19 +314,56 @@ ENC_F = 64
 SPLIT_GRAD_REL = 1e-3
 
 
+# the encoders sequence parallelism splits, each with its time stride (a
+# composite's the lcm of its branches', built with COMPOSITE_ARGS)
+SPLIT_STRIDES = {"CNN10CRNNEncoder": 16, "CNN10DEncoder": 16,
+                 "CNN10Encoder": 4, "CNN10QEncoder": 16, "CNNEncoder": 1,
+                 "CRNN8_Sub4": 4, "CRNNEncoder": 4, "Cnn10": 16, "Cnn14": 32,
+                 "E2EASREncoder": 4, "M2TransformerEncoder": 1,
+                 "PreTrainedCNN": 16, "ResNet38": 32, "ResNetEncoder": 32,
+                 "TransformerEncoder": 1}
+COMPOSITE_ARGS = {"PreTrainedCNN": {"trunk": {"name": "Cnn10"}},
+                  "CNN10CRNNEncoder": {"crnn": {"name": "CRNNEncoder"},
+                                       "cnn": {"name": "CNN10QEncoder"}}}
+
+
 def test_split_encoders_are_the_listed_ones():
-    """The PANN family and the double-conv encoders split; their time
-    strides are their trunks' subsampling."""
-    assert seq_split_encoders() == ["CNN10DEncoder", "CNN10QEncoder",
-                                    "CRNN8_Sub4", "Cnn10", "Cnn14", "ResNet38"]
-    strides = {n: ENCODERS[n].time_stride for n in seq_split_encoders()}
-    assert strides == {"CNN10DEncoder": 16, "CNN10QEncoder": 16,
-                       "CRNN8_Sub4": 4, "Cnn10": 16, "Cnn14": 32,
-                       "ResNet38": 32}
-    for name, stride in strides.items():
+    """Every registered encoder but RNNEncoder splits; the time strides
+    are the trunks' subsampling (the lcm of a composite's branches'), and a
+    composite with a branch that does not split runs whole clips."""
+    assert seq_split_encoders() == sorted(SPLIT_STRIDES)
+    assert set(ENCODERS) - set(SPLIT_STRIDES) == {"RNNEncoder"}
+    for name, stride in SPLIT_STRIDES.items():
+        enc = build_encoder(name, COMPOSITE_ARGS.get(name, {}), 64,
+                            device="meta")
+        assert enc.time_stride == stride, name
         for m in (1, 2, 4, 8):
-            assert ENCODERS[name].seq_split_ok(256 * 4, m)
-        assert not ENCODERS[name].seq_split_ok(stride * 2 + stride // 2, 2)
+            assert enc.seq_split_ok(256 * 4, m), name
+        assert not enc.seq_split_ok(stride * 2 + max(stride // 2, 1), 2), name
+        assert enc.seq_split_params(), name
+    rnn_trunk = build_encoder("PreTrainedCNN", {"trunk": {"name": "RNNEncoder"}},
+                              64, device="meta")
+    assert not rnn_trunk.seq_split_ok(256 * 4, 2)
+    assert rnn_trunk.seq_split_params() == []
+
+
+@pytest.mark.parametrize("k,s,p,T", [(3, 1, 0, 8), (4, 1, 1, 8), (4, 1, 2, 8),
+                                     (1, 1, 1, 8), (3, 2, 2, 8), (3, 2, 1, 7)])
+def test_split_conv_raises_where_the_halo_does_not_cover(k, s, p, T):
+    """Inside a split region a conv whose shards' outputs would not tile
+    the whole clip's (a VALID or even kernel, padding past SAME, a shard
+    that does not divide by the stride) raises instead of padding each
+    shard's edges with zeros."""
+    from types import SimpleNamespace
+
+    from acvae_tpu_torch.models.encoders import _conv2d
+    from acvae_tpu_torch.parallel import state as pstate
+    conv = torch.nn.Conv2d(2, 2, k, bias=False)
+    x = torch.zeros(1, 2, T, 8)
+    _conv2d(x, conv, torch.float32, s, p)   # unsplit: any geometry
+    with pstate.step_context(SimpleNamespace(model=2), seq_split=True), \
+            pstate.split_region(), pytest.raises(ValueError, match="cannot run"):
+        _conv2d(x, conv, torch.float32, s, p)
 
 
 @pytest.fixture(scope="module")
@@ -344,21 +382,26 @@ def split_encoders(tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("case", list(SPLIT_CASES))
-def test_split_encoder_matches_jax(pool, split_encoders, case):
-    """The train-mode forward on 2 data x 2 model ranks, the time split
-    over the model ranks (whole clips where T does not split), and the
-    backward of a fixed scalar of its outputs, against JAX's forward and
-    vjp: outputs, lengths, running statistics, summed gradients; for
-    CNN10QEncoder the halo's backward dropped fails the gradient check."""
-    name, args, T = SPLIT_CASES[case]
+def check_split_matches_jax(pool, split_encoders, name, args, T, split,
+                            faults=(), rows=2, zero_grads=()):
+    """Encoder ``name``'s train-mode forward on ``rows`` clips on the pool's
+    2 data x 2 model ranks (its time split over the model ranks when
+    ``split``, else whole clips) and the backward of a fixed scalar of its
+    outputs, against JAX's forward and vjp: outputs, lengths, running
+    statistics, summed gradients; each planted fault of ``faults``
+    (``parity.FAULTS``) fails the gradient check.  The gradients named in
+    ``zero_grads`` are zero in exact arithmetic (a bias a train-mode
+    BatchNorm subtracts again), so both sides' are rounding: they are held
+    below 1e-6 of the largest gradient's norm instead."""
     enc, v, path = split_encoders(name, args)
     rng = np.random.default_rng(T)
-    feats = rng.normal(size=(2, T, ENC_F)).astype(np.float32)
-    lens = np.array([T, T // 2 + 9], np.int32)   # the second ends in shard 2
+    feats = rng.normal(size=(rows, T, ENC_F)).astype(np.float32)
+    # the second ends in shard 2
+    lens = np.array([T, T // 2 + 9, T - 5, T // 4 + 3][:rows], np.int32)
 
     def forward(params):
-        return enc.apply({"params": params, "batch_stats": v["batch_stats"]},
+        return enc.apply({"params": params,
+                          "batch_stats": v.get("batch_stats", {})},
                          jnp.asarray(feats), jnp.asarray(lens), train=True,
                          mutable=["batch_stats"])
 
@@ -376,25 +419,44 @@ def test_split_encoder_matches_jax(pool, split_encoders, case):
     ranks = pool.run(encoder_split_case, name, args, ENC_F, path, feats, lens,
                      probe, model_parallel=2)
     r0 = ranks[0]
-    assert all(r["seq_split"] == (case != "Cnn14_whole_clips") for r in ranks)
+    assert all(r["seq_split"] == split for r in ranks)
     for k in ("audio_embeds", "audio_embeds_pooled"):
         np.testing.assert_allclose(r0["outputs"][k].numpy(), np.asarray(ref[k]),
                                    rtol=1e-5, atol=1e-4, err_msg=k)
     np.testing.assert_array_equal(r0["outputs"]["audio_embeds_lens"].numpy(),
                                   np.asarray(ref["audio_embeds_lens"]))
     want = from_flax({"params": v["params"], "batch_stats": jax.tree_util.tree_map(
-        np.asarray, upd["batch_stats"])})
+        np.asarray, upd.get("batch_stats", {}))})
     for k, val in want.items():
         if "running" in k:
             np.testing.assert_allclose(r0["state"][k].numpy(), val.numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=k)
     g_want = from_flax({"params": jax.tree_util.tree_map(np.asarray, grads)})
     assert not g_want.pop("stem_pad_lanes", torch.zeros(1)).any()
+    g_want = {k: g for k, g in g_want.items() if k in r0["grads"] or g.any()}
     assert set(r0["grads"]) == set(g_want)
+    scale = max(float(g.norm()) for g in g_want.values())
+    for k in zero_grads:
+        assert max(float(g_want.pop(k).norm()),
+                   float(r0["grads"][k].norm())) <= 1e-6 * scale, k
     err = errors(r0["grads"], g_want, TOL["grad"][0], TOL["grad"][1])
     assert err["rel"] <= SPLIT_GRAD_REL, err
-    if case == "CNN10QEncoder":   # a planted fault fails the check
+    for fault in faults:   # a planted fault fails the check
         bad = pool.run(encoder_split_case, name, args, ENC_F, path, feats,
-                       lens, probe, model_parallel=2, halo_dropped=True)[0]
+                       lens, probe, model_parallel=2, fault=fault)[0]
         err = errors(bad["grads"], g_want, TOL["grad"][0], TOL["grad"][1])
-        assert err["rel"] > SPLIT_GRAD_REL, err
+        assert err["rel"] > SPLIT_GRAD_REL, (fault, err)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_encoder_matches_jax(pool, split_encoders, case):
+    """The train-mode forward on 2 data x 2 model ranks, the time split
+    over the model ranks (whole clips where T does not split), and the
+    backward of a fixed scalar of its outputs, against JAX's forward and
+    vjp: outputs, lengths, running statistics, summed gradients; for
+    CNN10QEncoder the halo's backward dropped fails the gradient check."""
+    name, args, T = SPLIT_CASES[case]
+    check_split_matches_jax(
+        pool, split_encoders, name, args, T,
+        split=case != "Cnn14_whole_clips",
+        faults=("halo_dropped",) if case == "CNN10QEncoder" else ())

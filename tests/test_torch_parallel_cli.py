@@ -247,9 +247,12 @@ def test_launched_rank_takes_its_node_local_card(monkeypatch, env, rank,
     ("Cnn14", (256, 80, 1024), "sequence parallelism: Cnn14 runs on whole "
      "clips of the mel buckets [80] (its time splits in multiples of 32 x 2 "
      "frames)"),
-    ("CNN10Encoder", (256,), "sequence parallelism: CNN10Encoder runs on "
-     "whole clips (the port splits the time of CNN10DEncoder, CNN10QEncoder, "
-     "CRNN8_Sub4, Cnn10, Cnn14, ResNet38)")],
+    ("RNNEncoder", (256,), "sequence parallelism: RNNEncoder runs on "
+     "whole clips (the port splits the time of CNN10CRNNEncoder, "
+     "CNN10DEncoder, CNN10Encoder, CNN10QEncoder, CNNEncoder, CRNN8_Sub4, "
+     "CRNNEncoder, Cnn10, Cnn14, E2EASREncoder, M2TransformerEncoder, "
+     "PreTrainedCNN, ResNet38, ResNetEncoder, TransformerEncoder; a "
+     "composite's when every branch splits)")],
     ids=["splits", "a_bucket_whole", "encoder_whole"])
 def test_sequence_parallel_logs_whole_clips(encoder, buckets, want):
     """``train`` names what runs whole clips under ``sequence_parallel``:
@@ -257,12 +260,12 @@ def test_sequence_parallel_logs_whole_clips(encoder, buckets, want):
     split over the model axis; nothing when every bucket splits."""
     from types import SimpleNamespace
 
-    from acvae_tpu_torch.models.encoders import ENCODERS
+    from acvae_tpu_torch.models.encoders import build_encoder
     from acvae_tpu_torch.parallel.train import Distributed
-    cls = ENCODERS[encoder]
+    enc = build_encoder(encoder, {}, 64, device="meta")
     par = SimpleNamespace(
-        seq_params={1} if hasattr(cls, "seq_split_ok") else set(),
-        model=SimpleNamespace(encoder=cls), grid=SimpleNamespace(model=2))
+        seq_params=set(map(id, getattr(enc, "seq_split_params", list)())),
+        model=SimpleNamespace(encoder=enc), grid=SimpleNamespace(model=2))
     par.seq_split = lambda T: Distributed.seq_split(par, T)
     lines = []
     cli._log_whole_clips(SimpleNamespace(info=lines.append), encoder, par,
