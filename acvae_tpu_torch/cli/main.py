@@ -117,6 +117,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from acvae_tpu_torch import DEFAULT_DEVICE, END_IDX, START_IDX
 from acvae_tpu_torch.core.config import (Config, _coerce, _fix_yaml11_floats,
@@ -276,15 +277,18 @@ def _to_device(batch, device: torch.device,
     """The loader's stage hook: the batch's arrays as tensors on
     ``device``, moved in the producer thread.  ``feats_dtype`` casts the
     mels on the host before the upload; on the card they are float32 again,
-    the mels rounded to ``feats_dtype``."""
+    the mels rounded to ``feats_dtype``.  The copies are the ``upload``
+    range of a trace."""
     put = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    feats = (put(batch.feats) if feats_dtype is None else
-             torch.from_numpy(batch.feats).to(feats_dtype).to(device).float())
-    embeds = None if batch.cap_embeds is None else put(batch.cap_embeds)
-    return dataclasses.replace(batch, feats=feats,
-                               feat_lens=put(batch.feat_lens),
-                               caps=put(batch.caps), cap_lens=put(batch.cap_lens),
-                               cap_embeds=embeds)
+    with record_function("upload"):
+        feats = (put(batch.feats) if feats_dtype is None else
+                 torch.from_numpy(batch.feats).to(feats_dtype).to(device).float())
+        embeds = None if batch.cap_embeds is None else put(batch.cap_embeds)
+        return dataclasses.replace(batch, feats=feats,
+                                   feat_lens=put(batch.feat_lens),
+                                   caps=put(batch.caps),
+                                   cap_lens=put(batch.cap_lens),
+                                   cap_embeds=embeds)
 
 
 def _build_dataloaders(conf: Config, vocab: Vocabulary,

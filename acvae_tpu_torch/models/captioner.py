@@ -34,6 +34,7 @@ from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            forced_logprob, stack_steps)
 from acvae_tpu_torch.models.encoders import _dense
 from acvae_tpu_torch.ops.masked import length_mask, mean_with_lens
+from acvae_tpu_torch.train.profiling import mark_backward
 
 
 def _dbs_config(max_length, beam_size, model, **dbs_kwargs) -> DBSConfig:
@@ -110,8 +111,8 @@ class AttnCaptionModel(_PlainCaptioner):
         N, L = caps.shape
         dev = caps.device
         with record_function("encoder"):
-            encoded = self.encode(feats, feat_lens, train)
-        ctx = self._ctx(encoded)
+            ctx = mark_backward("encoder", self._ctx(
+                self.encode(feats, feat_lens, train)))
         ss_coins = (noise or {}).get("ss_coins")
         if ss_coins is None:
             ss_coins = torch.rand((L - 1,), generator=generator, device=dev) < ss_ratio
@@ -127,7 +128,7 @@ class AttnCaptionModel(_PlainCaptioner):
                 for k, v in (("logits", d["logits"]), ("output", d["output"]),
                              ("seqs", word)):
                     ys[k].append(v)
-        out = stack_steps(ys)
+            out = mark_backward("decode_loop", stack_steps(ys))
         if self.seq_output_size is not None:
             # CaptionSentenceModel.train_process (word_model.py:421-427)
             seq = mean_with_lens(out["output"], cap_lens - 1)
@@ -226,12 +227,14 @@ class TransformerCaptionModel(_PlainCaptioner):
         """One causal pass: input caps[:, :-1], logits for caps[:, 1:]; the
         ratios and the noise do not apply."""
         with record_function("encoder"):
-            encoded = self.encode(feats, feat_lens, train)
+            encoded = mark_backward("encoder",
+                                    self.encode(feats, feat_lens, train))
         words = caps[:, :-1].long()
         pad = ~length_mask(cap_lens - 1, words.shape[1])        # True = padded
         with record_function("decode_loop"):
             out = self.decoder(words, *self._mem(encoded), pad, train=train)
-        return {"logits": out["logits"], "output": out["output"]}
+            return mark_backward("decode_loop", {"logits": out["logits"],
+                                                 "output": out["output"]})
 
     def _prefix_logits(self, words_buf, t: int, mem):
         """The decoder over the prefix buffer [N, P], positions past ``t``

@@ -35,6 +35,7 @@ from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask
 from acvae_tpu_torch.parallel import state as pstate
+from acvae_tpu_torch.train.profiling import mark_backward
 
 
 class TransVAECaptionModel(CaptionModel):
@@ -89,13 +90,14 @@ class TransVAECaptionModel(CaptionModel):
         T, E, dev, dt = L - 1, self.decoder.embed_size, caps.device, self._dtype()
         noise = noise or {}
         with record_function("encoder"):
-            encoded = self.encode(feats, feat_lens, train)
-        enc_mem, lens, enc_mask, p_proj = self._prep(encoded)
+            enc_mem, lens, enc_mask, p_proj = mark_backward(
+                "encoder", self._prep(self.encode(feats, feat_lens, train)))
         q_eps = noise.get("q_eps")
         if q_eps is None:
             q_eps = pstate.randn((N, T, E), generator, dev)
         with record_function("posterior"):
-            qnetout = self.qnet(caps, cap_lens, q_eps.to(dev, dt))
+            qnetout = mark_backward("posterior",
+                                    self.qnet(caps, cap_lens, q_eps.to(dev, dt)))
         ss_coins = noise.get("ss_coins")
         if ss_coins is None:
             ss_coins = torch.rand((T,), generator=generator, device=dev) < ss_ratio
@@ -129,7 +131,7 @@ class TransVAECaptionModel(CaptionModel):
                              ("p_means", p["mean"]), ("p_logs", p["log"]),
                              ("p_z", p["z"]), ("seqs", word)):
                     ys[k].append(v)
-        output = stack_steps(ys)
+            output = mark_backward("decode_loop", stack_steps(ys))
         if output["p_means"].ndim == 4:
             # GMM prior: [K, T, N, E] -> [K, N, T, E], as models/vae.py
             output["p_means"] = output["p_means"].transpose(1, 2)

@@ -54,6 +54,7 @@ from acvae_tpu_torch.models.common import (CaptionModel, check_decode_method,
                                            stack_steps)
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
 from acvae_tpu_torch.parallel import state as pstate
+from acvae_tpu_torch.train.profiling import mark_backward
 
 # the eval prior's scale, e^{0.5·1} (vae_model.py:593-595), in float32
 EVAL_Z_SCALE = float(torch.exp(torch.tensor(0.5)))
@@ -109,13 +110,16 @@ class VAECaptionModel(CaptionModel):
         noise = noise or {}
         with record_function("encoder"):
             encoded = self.encode(feats, feat_lens, train)
-        enc_mem, enc_mask, p_proj, d_proj = self._prep_ctx(encoded)
+            encoded, ctx = mark_backward("encoder",
+                                         (encoded, self._prep_ctx(encoded)))
+        enc_mem, enc_mask, p_proj, d_proj = ctx
 
         q_eps = noise.get("q_eps")
         if q_eps is None:
             q_eps = pstate.randn((N, T, E), generator, dev)
         with record_function("posterior"):
-            qnetout = self.qnet(caps, cap_lens, q_eps.to(dev))
+            qnetout = mark_backward("posterior",
+                                    self.qnet(caps, cap_lens, q_eps.to(dev)))
         ss_coins = noise.get("ss_coins")
         if ss_coins is None:
             ss_coins = torch.rand((T,), generator=generator, device=dev) < ss_ratio
@@ -150,7 +154,7 @@ class VAECaptionModel(CaptionModel):
                              ("p_means", p["mean"]), ("p_logs", p["log"]),
                              ("p_z", p["z"]), ("seqs", w_t)):
                     ys[k].append(v)
-        output = stack_steps(ys)
+            output = mark_backward("decode_loop", stack_steps(ys))
         if output["p_means"].ndim == 4:
             # GMM prior: [K, T, N, E] -> the reference buffer layout
             # [K, N, T, E] (vae_model.py:100-101), with the mixture logits
@@ -418,7 +422,7 @@ class SimpleVAECaptionModel(CaptionModel):
                 for k, v in (("logits", d["logits"]), ("output", d["output"]),
                              ("seqs", w_t), ("sampled_logprobs", lp_t)):
                     ys[k].append(v)
-        return stack_steps(ys)
+            return mark_backward("decode_loop", stack_steps(ys))
 
     def train_forward(self, feats, feat_lens, caps, cap_lens,
                       ss_ratio: float = 1.0, dis_ratio: float = 0.0,
@@ -433,13 +437,15 @@ class SimpleVAECaptionModel(CaptionModel):
         draw = lambda k, shape: (noise[k] if k in noise else pstate.randn(  # noqa: E731
             shape, generator, dev)).to(dev)
         with record_function("encoder"):
-            encoded = self.encode(feats, feat_lens, train)
+            ctx = mark_backward("encoder", self._ctx(
+                self.encode(feats, feat_lens, train)))
         with record_function("posterior"):
-            qnetout = self.qnet(caps, cap_lens, draw("q_eps", (N, E)))
+            qnetout = mark_backward("posterior", self.qnet(
+                caps, cap_lens, draw("q_eps", (N, E))))
         ss_coins = noise.get("ss_coins")
         if ss_coins is None:
             ss_coins = torch.rand((L - 1,), generator=generator, device=dev) < ss_ratio
-        out = self._decode_with_z(self._ctx(encoded), qnetout["q_z"], L - 1,
+        out = self._decode_with_z(ctx, qnetout["q_z"], L - 1,
                                   caps=caps, ss_coins=ss_coins.to(dev),
                                   train=train)
         out.update(qnetout)

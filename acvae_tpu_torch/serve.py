@@ -61,6 +61,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from acvae_tpu_torch import DEFAULT_DEVICE
 from acvae_tpu_torch.data.vocab import Vocabulary
@@ -282,10 +283,10 @@ class CaptionService:
                 qi, s, o = self.validate_q(*entry)
                 q[i], lens[i] = self._prep_q(qi, s, o)
                 scales[i], offsets[i] = s, o
-            dev = self.device
-            feats = (torch.from_numpy(q).to(dev).float()
-                     * torch.from_numpy(scales).to(dev)[:, None, None])
-            feats = feats + torch.from_numpy(offsets).to(dev)[:, None, None]
+            with record_function("upload"):
+                q, scales, offsets, lens = (torch.from_numpy(a).to(self.device)
+                                            for a in (q, scales, offsets, lens))
+            feats = q.float() * scales[:, None, None] + offsets[:, None, None]
             return self._decode(feats, lens, len(mels))
         feats = np.zeros((self.batch_size, self.bucket, self.data_dim),
                          np.float32)
@@ -299,11 +300,12 @@ class CaptionService:
         feats = torch.from_numpy(feats)
         if self._upload_dtype is not None:
             # halve the upload; the encoder computes in float32 again
-            feats = feats.to(self._upload_dtype).to(self.device).float()
-        return self._decode(feats.to(self.device), lens, len(mels))
+            feats = feats.to(self._upload_dtype)
+        with record_function("upload"):
+            feats, lens = (t.to(self.device) for t in (feats, torch.from_numpy(lens)))
+        return self._decode(feats.float(), lens, len(mels))
 
-    def _decode(self, feats: torch.Tensor, lens: np.ndarray, n: int) -> List[str]:
-        lens = torch.from_numpy(lens).to(self.device)
+    def _decode(self, feats: torch.Tensor, lens: torch.Tensor, n: int) -> List[str]:
         with self._lock:
             if self.exported is not None:
                 seed = int(self._seed)

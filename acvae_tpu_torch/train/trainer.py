@@ -47,6 +47,7 @@ from acvae_tpu_torch.parallel import state as pstate
 from acvae_tpu_torch.parallel.train import Distributed
 from acvae_tpu_torch.parallel.vocab import full_logits
 from acvae_tpu_torch.train.optim import OptaxChain
+from acvae_tpu_torch.train.profiling import mark_backward
 from acvae_tpu_torch.train.schedules import (build_schedule,
                                              dis_ratio_for_epoch,
                                              kl_weight_for, parse_kl_anneal,
@@ -170,6 +171,7 @@ def compute_loss(model, batch: Dict[str, torch.Tensor], ss_ratio: float,
             g = normal_kl_loss(qm, ql, pm, pl)
         loss = loss + alpha * g
         metrics["global"] = g
+    loss = mark_backward("loss", loss)
     metrics["loss"] = loss
     # the CE of an augment batch is over the kept tokens: weight by those
     metrics["ntokens"] = (mask.sum() if keep is None else

@@ -672,29 +672,19 @@ def test_word_embeddings_match_jax(jax_model, tmp_path, ws):  # noqa: F811
 # --------------------------------------------------------------------- #
 # profiling
 # --------------------------------------------------------------------- #
-def test_step_timer_and_trace(tmp_path):
-    """``StepTimer`` skips its warm-up steps, calls ``sync`` at every step's
-    end and summarises as JAX's does; ``trace`` writes one Chrome trace
-    (and nothing without a directory)."""
-    from acvae_tpu.train.profiling import StepTimer as JStepTimer
-    from acvae_tpu_torch.train.profiling import StepTimer, trace
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """``Trace`` profiles until :meth:`stop`, which writes one Chrome trace
+    holding the ranges opened meanwhile and returns its path."""
+    from acvae_tpu_torch.train.profiling import Trace
 
-    synced = []
-    timer = StepTimer(warmup=2, sync=lambda: synced.append(1))
-    for _ in range(5):
-        with timer:
-            torch.ones(8).sum()
-    assert len(synced) == 5 and len(timer.times) == 3
-    ref = JStepTimer(warmup=2)
-    ref.times = list(timer.times)
-    assert timer.summary() == ref.summary()
-    assert StepTimer().summary() == {}
-    with trace(None):
-        pass
-    with trace(str(tmp_path / "t")):
+    t = Trace(str(tmp_path / "t"))
+    with torch.profiler.record_function("step"):
         torch.ones(4) @ torch.ones(4)
-    (path,) = (tmp_path / "t").glob("*.json")
-    assert "traceEvents" in json.loads(path.read_text())
+    path = t.stop()
+    assert [str(p) for p in (tmp_path / "t").glob("*.json")] == [path]
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("step") == 1
 
 
 # --------------------------------------------------------------------- #
