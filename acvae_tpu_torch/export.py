@@ -20,8 +20,10 @@ convention, ``(feats, feat_lens, seed) -> {seqs, scores}``: it draws the
 noise from ``torch.Generator(device).manual_seed(seed)``.
 
 The int8 serving encoder's convs and pools are the operators of
-``ops/cuda/conv_i8_kernel.py``, so an int8 artifact launches the
-hand-written kernels on the card and runs their plain versions on the CPU.
+``ops/cuda/conv_i8_kernel.py``, and the PANN ConvBlock's BatchNorm, ReLU
+and pool at inference the operator of ``ops/cuda/bn_relu_kernel.py``, so
+an artifact launches the hand-written kernels on the card and runs their
+plain versions on the CPU.
 The port reads no ``.jaxexport`` (StableHLO) artifact: JAX weights cross
 through ``convert.py``.
 """
@@ -36,9 +38,9 @@ import torch
 import torch.nn as nn
 
 from acvae_tpu_torch import DEFAULT_DEVICE
-# registers the int8 operators before a program that calls them is traced
-# or loaded
-from acvae_tpu_torch.ops.cuda import conv_i8_kernel  # noqa: F401
+# registers the int8 operators and the ConvBlock epilogue's before a
+# program that calls them is traced or loaded
+from acvae_tpu_torch.ops.cuda import bn_relu_kernel, conv_i8_kernel  # noqa: F401
 from acvae_tpu_torch.decoding.dbs import dbs_bdash
 from acvae_tpu_torch.decoding.sampling import gumbel_noise
 from acvae_tpu_torch.models.captioner import _PlainCaptioner

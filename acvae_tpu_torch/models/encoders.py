@@ -81,6 +81,7 @@ import torch.nn.functional as F
 from acvae_tpu_torch.models.decoders import MultiheadAttention, sinusoidal_pe
 from acvae_tpu_torch.models.rnn import GRU
 from acvae_tpu_torch.ops.amp import promoted_linear
+from acvae_tpu_torch.ops.cuda import bn_relu_kernel
 from acvae_tpu_torch.ops.masked import length_mask, max_with_lens, mean_with_lens
 from acvae_tpu_torch.parallel import state as pstate
 from acvae_tpu_torch.parallel.collectives import (all_reduce_sum,
@@ -275,7 +276,12 @@ class BatchNorm(nn.Module):
 
 class ConvBlock(nn.Module):
     """PANN ConvBlock (encoder.py:606-649): 2× [conv3x3 (no bias) -> BN ->
-    relu], then ``pool_type`` pooling over ``pool_size`` (``(1, 1)``: none)."""
+    relu], then ``pool_type`` pooling over ``pool_size`` (``(1, 1)``: none).
+
+    At inference (``train`` false, no autograd graph recorded) each BN and
+    relu, and a 2×2 average pool after the second, is one pass of
+    :func:`~acvae_tpu_torch.ops.cuda.bn_relu_kernel.bn_relu` (its kernel on
+    the card), with the same bits as the unfused ops."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype=torch.float32, device=None):
@@ -291,9 +297,27 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 pool_size: Tuple[int, int] = (2, 2),
                 pool_type: str = "avg") -> torch.Tensor:
-        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
-            x = F.relu(bn(_conv2d(x, conv, self.dtype), train, dtype=self.dtype))
-        return _pool2d(x, pool_size, pool_type)
+        if not self._one_pass(train):
+            for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
+                x = F.relu(bn(_conv2d(x, conv, self.dtype), train, dtype=self.dtype))
+            return _pool2d(x, pool_size, pool_type)
+        pool = tuple(pool_size) == (2, 2) and pool_type == "avg"
+        for conv, bn, fuse in ((self.conv1, self.bn1, False),
+                               (self.conv2, self.bn2, pool)):
+            x = bn_relu_kernel.bn_relu(_conv2d(x, conv, self.dtype), bn.running_mean,
+                                       bn.running_var, bn.weight, bn.bias, bn.eps,
+                                       fuse)
+        return x if pool else _pool2d(x, pool_size, pool_type)
+
+    def _one_pass(self, train: bool) -> bool:
+        """Inference with no autograd graph, in dtypes whose unfused
+        arithmetic is the kernel's float32."""
+        return (not train and not torch.is_grad_enabled()
+                and self.dtype in bn_relu_kernel.DTYPES
+                and all(t.dtype in bn_relu_kernel.STAT_DTYPES
+                        for bn in (self.bn1, self.bn2)
+                        for t in (bn.running_mean, bn.running_var, bn.weight,
+                                  bn.bias)))
 
 
 class _SeqSplit:

@@ -28,6 +28,10 @@ Phases, each of which exits nonzero on failure:
    beside its plain quantize alone and the pair the port ran before (the
    plain quantize, then the int8 stem kernel), and its bound; Cnn10's body
    (7 convs), Cnn14's stem and 11 body convs, and their 3 and 5 pools.
+   ``bn_relu`` (the bf16 ConvBlock's inference epilogue: BatchNorm, ReLU
+   and the 2x2 pool as one pass): the 12 launches of a bf16 Cnn14 batch of
+   512 and odd shapes, bit for bit against the unfused ops, summed beside
+   its bytes bound and the unfused ops' time.
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -347,11 +351,13 @@ PLAIN_FMA_ON_CARD = [0]
 
 def kernel_fns():
     """Every kernel wrapper of the port, by kernel name."""
+    from acvae_tpu_torch.ops.cuda.bn_relu_kernel import bn_relu
     from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
                                                          stem_conv3x3_i8)
     from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
     return {"time_warp_1d": time_warp_1d, "stem_conv3x3_i8": stem_conv3x3_i8,
-            "conv3x3_i8": conv3x3_i8, "avgpool2x2_i8": avgpool2x2_i8}
+            "conv3x3_i8": conv3x3_i8, "avgpool2x2_i8": avgpool2x2_i8,
+            "bn_relu": bn_relu}
 
 
 def int8_launches(counts, before=None):
@@ -856,6 +862,93 @@ def int8_kernel_phase(flush):
                         "bound_ms": pool14["bound"], "bf16_cudnn_ms": pool14["bf16"]})]
 
 
+# bn_relu: the bf16 Cnn14's conv outputs (C, H, W) at T_mel 1024, F 64, and
+# whether the launch pools (each block's conv1, then its conv2; block 6
+# unpooled): the 12 launches of a batch; odd shapes (N, C, H, W)
+BN_RELU_LAUNCHES = [((c, T_MEL >> b, DATA_DIM >> b), pool)
+                    for b, c in enumerate((64, 128, 256, 512, 1024, 2048))
+                    for pool in (False, b < 5)]
+BN_RELU_EDGES = [(3, 5, 33, 65), (2, 4, 9, 2), (2, 4, 10, 4), (2, 3, 7, 9),
+                 (1, 6, 5, 1), (2, 16, 4, 12), (2, 4, 17, 4), (2, 3, 33, 32)]
+CNN10_BN_RELU_PER_BATCH, CNN14_BN_RELU_PER_BATCH = 8, len(BN_RELU_LAUNCHES)
+
+
+def bn_relu_kernel_phase(flush):
+    """bn_relu against the unfused ops (BatchNorm on running statistics,
+    relu, avg_pool2d) bit for bit, at the 12 launches of a bf16 Cnn14 batch
+    of 512 and at odd shapes in bf16 and float32; times summed over the
+    batch's launches beside the bytes bound and the unfused ops."""
+    from acvae_tpu_torch.models.encoders import BatchNorm
+    from acvae_tpu_torch.ops.cuda.bn_relu_kernel import bn_relu
+
+    F = torch.nn.functional
+    g = torch.Generator("cuda").manual_seed(5)
+
+    def case(shape, dtype):
+        bn = BatchNorm(shape[1], device="cuda")
+        with torch.no_grad():
+            for t, lo, hi in ((bn.running_mean, -1, 1), (bn.running_var, 0.05, 2),
+                              (bn.weight, -1.5, 1.5), (bn.bias, -0.5, 0.5)):
+                t.uniform_(lo, hi, generator=g)
+        x = (torch.randn(shape, generator=g, device="cuda") * 2).to(dtype)
+        return bn, x
+
+    def fused(bn, x, pool):
+        return bn_relu(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                       bn.eps, pool)
+
+    def unfused(bn, x, pool):
+        y = F.relu(bn(x, False, dtype=x.dtype))
+        return F.avg_pool2d(y, 2) if pool else y
+
+    def bits(a, b):
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+    tot = dict(ms=0.0, plain=0.0, bound=0.0, nbytes=0)
+    with torch.inference_mode():
+        for (C, H, W), pool in BN_RELU_LAUNCHES:
+            bn, x = case((DEC_BATCH, C, H, W), torch.bfloat16)
+            check(bits(fused(bn, x, pool), unfused(bn, x, pool)),
+                  f"bn_relu disagrees with the unfused ops at [{DEC_BATCH},{C},{H},"
+                  f"{W}] pool={pool}")
+            torch.cuda.empty_cache()
+            k_ms = time_ms(lambda: fused(bn, x, pool), flush)
+            p_ms = time_ms(lambda: unfused(bn, x, pool), flush, reps=5)
+            nbytes = x.numel() * 2 * (1 + (0.25 if pool else 1))
+            b_ms, _ = bound(0, nbytes, FP32_FLOPS)
+            print(f"bn_relu [{DEC_BATCH},{C},{H},{W}] bf16 pool={pool}: kernel "
+                  f"{k_ms:.4f} ms ({nbytes / k_ms / 1e9:.2f} TB/s, {b_ms / k_ms:.1%} "
+                  f"of the bound), unfused ops {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"(bytes)")
+            tot["ms"] += k_ms
+            tot["plain"] += p_ms
+            tot["bound"] += b_ms
+            tot["nbytes"] += nbytes
+            del bn, x
+            torch.cuda.empty_cache()
+        for shape in BN_RELU_EDGES:
+            for dtype in (torch.bfloat16, torch.float32):
+                bn, x = case(shape, dtype)
+                for pool in (False, True) if min(shape[2:]) >= 2 else (False,):
+                    check(bits(fused(bn, x, pool), unfused(bn, x, pool)),
+                          f"bn_relu disagrees with the unfused ops at {shape} "
+                          f"{dtype} pool={pool}")
+        print(f"bn_relu edges {BN_RELU_EDGES}, bf16 and float32, pooled and not: "
+              f"bit for bit")
+    print(f"bn_relu, a bf16 Cnn14 batch of {DEC_BATCH} ({len(BN_RELU_LAUNCHES)} "
+          f"launches, {tot['nbytes'] / 1e9:.2f} GB): kernel {tot['ms']:.3f} ms "
+          f"({tot['bound'] / tot['ms']:.1%} of the {tot['bound']:.3f} ms bound), "
+          f"unfused ops {tot['plain']:.3f} ms ({SMI})")
+    return {"name": "bn_relu", "route": "cuda",
+            "source": "acvae_tpu_torch/csrc/bn_relu.cu",
+            "replaces": "acvae_tpu/models/encoders.py:38-60 (XLA's fusion; no Pallas)",
+            "launches": None, "max_abs_err": 0, "ms": tot["ms"],
+            "plain_ms": tot["plain"], "bound_ms": tot["bound"], "bound_by": "bytes",
+            "library_ms": None,
+            "timed": f"the 12 launches of a bf16 Cnn14 batch of {DEC_BATCH}"}
+
+
 def small_conf():
     from acvae_tpu_torch.configs import flagship_conf
     return flagship_conf(
@@ -1136,6 +1229,9 @@ def serve_phase(profile_dir=None):
                                            **BEAM_KW)
         counts = decode_rate("serve decode", decode, model.encode, model,
                              vocab)[0]
+        want = CNN10_BN_RELU_PER_BATCH * (1 + DEC_TIMED)
+        check(counts["bn_relu"] == want, f"serve decode: bn_relu launched "
+                                         f"{counts['bn_relu']} times (expected {want})")
         beam_topk_times()
         if profile_dir:
             profile_decode(decode, profile_dir, "decode")
@@ -2818,7 +2914,7 @@ def cnn14_train(conf):
               f"encoders Cnn14 train: non-finite metric at step {i + 1}: {vals}")
     counts = read_counts()
     check(counts == {"time_warp_1d": ENC_STEPS, "stem_conv3x3_i8": 0,
-                     "conv3x3_i8": 0, "avgpool2x2_i8": 0},
+                     "conv3x3_i8": 0, "avgpool2x2_i8": 0, "bn_relu": 0},
           f"encoders Cnn14 train: launches {counts} in {ENC_STEPS} steps")
     check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
           "encoders Cnn14 train: non-finite parameters after the steps")
@@ -2855,7 +2951,10 @@ def cnn14_serve(conf):
             "encoders Cnn14 bf16 decode",
             lambda f, l, g: model.inference_forward(f, l, generator=g, **BEAM_KW),
             model.encode, model, vocab)
-        check(sum(counts.values()) == 0, f"the bf16 decode launched {counts}")
+        want = dict.fromkeys(counts, 0)
+        want["bn_relu"] = CNN14_BN_RELU_PER_BATCH * (1 + DEC_TIMED)
+        check(counts == want, f"the bf16 decode launched {counts} in "
+                              f"{1 + DEC_TIMED} batches (expected {want})")
         t0 = time.perf_counter()
         quant = quant_encoder_for(conf, model, **scheme_kwargs("v2sym"))
         torch.cuda.synchronize()
@@ -3513,7 +3612,8 @@ def export_decodes(exp, conf, arts):
     eager decode of the same experiment: one warm-up and DEC_TIMED timed
     batches of 512 each, in turns, on the same noise; tokens identical,
     scores within 1e-6 (float32 on the same kernels).  Returns the
-    launches of these batches: 1 + 7 + 3 an int8 batch, either way."""
+    launches of these batches: 1 + 7 + 3 an int8 batch and 8 bn_relu a
+    bf16 one, either way."""
     from acvae_tpu_torch.export import load_exported
     from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
                                               scheme_kwargs)
@@ -3576,9 +3676,10 @@ def export_decodes(exp, conf, arts):
             check(err <= 1e-6 * (1 + b["scores"].abs().max().item()),
                   f"export {tag}: scores differ by {err}")
         n = 1 + DEC_TIMED
-        want = (per_batches(CNN10_PER_BATCH, n) if tag == "int8" else (0, 0, 0)) + (0,)
+        want = ((per_batches(CNN10_PER_BATCH, n) if tag == "int8" else (0, 0, 0))
+                + (0, 0 if tag == "int8" else CNN10_BN_RELU_PER_BATCH * n))
         for arm, c in got.items():
-            check(int8_launches(c) + (c["time_warp_1d"],) == want,
+            check(int8_launches(c) + (c["time_warp_1d"], c["bn_relu"]) == want,
                   f"export {tag} {arm}: launches {c} in {n} batches (expected {want})")
             counts = {k: counts[k] + c[k] for k in counts}
         rates = {arm: DEC_BATCH * DEC_TIMED / (sum(v[1:]) / 1e3)
@@ -3742,8 +3843,10 @@ def tools_phase(tmp, exp):
     tools_doctor(cli)
     total = read_counts()
     print(f"tools: launches over the path {total} ({SMI})")
-    check(total == counts, f"tools: launches outside the evaluates {total} "
-                           f"vs {counts}")
+    # bn_relu runs wherever a PANN encoder infers, the sweeps' validation too
+    outside = {k: total[k] - counts[k] for k in total if k != "bn_relu"}
+    check(not any(outside.values()), f"tools: launches outside the evaluates "
+                                     f"{total} vs {counts}")
     return total
 
 
@@ -4526,6 +4629,7 @@ def main():
     flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
     kernels = [phase("kernels", kernel_phase, flush)]
     kernels += phase("int8 kernels", int8_kernel_phase, flush)
+    kernels.append(phase("bn_relu kernel", bn_relu_kernel_phase, flush))
     guard_plain_fma()
     del flush
     torch.cuda.empty_cache()
@@ -4547,7 +4651,8 @@ def main():
         by_path["tools"] = phase("tools", tools_phase, tmp, exp)
         by_path["parallel"] = phase("parallel", parallel_phase, tmp)
     own = {"time_warp_1d": "train", "stem_conv3x3_i8": "int8_serve",
-           "conv3x3_i8": "int8_serve", "avgpool2x2_i8": "int8_serve"}
+           "conv3x3_i8": "int8_serve", "avgpool2x2_i8": "int8_serve",
+           "bn_relu": "serve"}
     for k in kernels:
         k["launches"] = by_path[own[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: by_path[p][k["name"]] for p in PATHS}

@@ -113,11 +113,13 @@ def check_round_trip(tiny, mode):
     assert torch.equal(decode(feats, lens, 11)["seqs"],
                        decode(feats, lens, 11)["seqs"])
     # the int8 program calls the kernels' operators, Cnn10's stem (its
-    # quantization fused in), 7 body convs and 3 pools a batch: on a card,
+    # quantization fused in), 7 body convs and 3 pools a batch; the others
+    # Cnn10's 8 BatchNorm epilogues (ConvBlock at inference): on a card,
     # the hand-written kernels
     targets = [str(n.target) for n in decode.module.graph.nodes
                if n.op == "call_function"]
     int8 = mode == "beam_int8"
+    assert targets.count("acvae_tpu_torch.bn_relu.default") == 8 * (not int8)
     assert targets.count("acvae_tpu_torch.stem_conv3x3_i8.default") == int8
     assert targets.count("acvae_tpu_torch.conv3x3_i8.default") == 7 * int8
     assert targets.count("acvae_tpu_torch.avgpool2x2_i8.default") == 3 * int8
