@@ -1,7 +1,8 @@
 """What every driver and reader of the benchmark shares: finding a cell's
 files by name, the port's model built from the benchmark's weights, the
-traffic's log-mels, the host clock's window, and the reduction of a
-profiler trace to kernel time by range, busy time and idle gaps.
+traffic's log-mels, the host clock's window, the reduction of a profiler
+trace to kernel time by range, busy time and idle gaps, and the ranks of a
+cell on several cards (:class:`Ranks`).
 
 The trace reduction follows this repo's ``chip_smoke.py::profile_decode``
 (:1345-1386) and ``profile_steps`` (:992-1047): kernels, copies and sets
@@ -180,16 +181,19 @@ class Trace:
         return [[k, v] for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:top]]
 
 
-def profile_units(run_unit, units: int, out_dir: Path) -> Trace:
+def profile_units(run_unit, units: int, out_dir: Path, start=None) -> Trace:
     """Run ``run_unit(i)`` ``units`` times under torch.profiler (CPU and
     CUDA activities), each ending on the host, inside a host range
-    ``harness.window``; returns the reduced trace."""
+    ``harness.window``; returns the reduced trace.  ``start()``, once the
+    profiler runs, holds the window back (until every rank's profiler runs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     out_dir.mkdir(parents=True, exist_ok=True)
     path = out_dir / f"trace_{os.getpid()}.json"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if start is not None:
+            start()
         t0 = time.perf_counter()
         with record_function("harness.window"):
             for i in range(units):
@@ -201,3 +205,282 @@ def profile_units(run_unit, units: int, out_dir: Path) -> Trace:
         return Trace(path, (t0, t1), units)
     finally:
         path.unlink()
+
+
+# ------------------------------------------------------------ the ranks
+# The orders rank 0 gives the other ranks of a cell on several cards.
+END, CELL, UNIT, TRACE, COLLECT = 0, 1, 2, 3, 4
+RANK_TIMEOUT_S = 120.0
+
+
+def _join_group(backend: str, world: int, rank: int, port: int, timeout_s: float):
+    """Join the cell's process group through the port's
+    ``parallel/mesh.py::init_process_group`` with a collective timeout of
+    ``timeout_s``; returns the gloo group that carries rank 0's orders,
+    which waits as long as rank 0 takes between orders."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from acvae_tpu_torch.parallel import mesh
+    mesh.GROUP_TIMEOUT = timedelta(seconds=timeout_s)
+    mesh.init_process_group(backend, world, rank, f"localhost:{port}")
+    return dist.new_group(backend="gloo", timeout=timedelta(days=1))
+
+
+def _die_with_parent() -> None:
+    """Have the kernel kill this process when the process that started it
+    ends (Linux), so that no rank outlives rank 0."""
+    import ctypes
+    import signal
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+    except OSError:
+        return
+    PR_SET_PDEATHSIG = 1
+    libc.prctl(PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0)
+
+
+def _pin(rank: int, world: int) -> None:
+    """Keep this rank's process on host cores of its own: those local to
+    its card (sysfs), shared evenly among the ranks whose cards have the
+    same, or else an even share of every core the process may use."""
+    import torch
+    allowed = os.sched_getaffinity(0)
+
+    def local(r):
+        p = torch.cuda.get_device_properties(r)
+        bus = f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:{p.pci_device_id:02x}.0"
+        text = Path(f"/sys/bus/pci/devices/{bus}/local_cpulist").read_text()
+        cpus = set()
+        for part in text.strip().split(","):
+            a, _, b = part.partition("-")
+            cpus.update(range(int(a), int(b or a) + 1))
+        return frozenset(cpus & allowed)
+    try:
+        near = [local(r) for r in range(world)]
+    except (AttributeError, OSError, ValueError):
+        near = []
+    if not near or not all(near):
+        near = [frozenset(allowed)] * world
+    peers = [r for r in range(world) if near[r] == near[rank]]
+    cores = sorted(near[rank])
+    k = max(1, len(cores) // len(peers))
+    mine = cores[peers.index(rank) * k:][:k] or cores
+    os.sched_setaffinity(0, mine)
+    torch.set_num_threads(len(mine))
+
+
+class Follower:
+    """What a driver's ``Cell`` gets as ``ranks`` on ranks 1 … R−1."""
+
+    def __init__(self, rank: int, world: int, orders):
+        self.rank, self.world, self._orders = rank, world, orders
+
+    def barrier(self) -> None:
+        """Wait until every rank gets here (over the orders' gloo group)."""
+        import torch.distributed as dist
+        dist.barrier(group=self._orders)
+
+
+def _follow(rank, world, backend, port, device, driver, conf, mix, plant,
+            timeout_s, reports) -> None:
+    """Rank ``rank`` of a cell: join the group, then do rank 0's orders
+    until ``END``, answering each on ``reports`` as
+    ``(rank, order number, ok, answer or traceback)``."""
+    import gc
+    import tempfile
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    _die_with_parent()
+    seq = 0
+    try:
+        if device.startswith("cuda"):
+            torch.cuda.set_device(device)
+            _pin(rank, world)
+        else:   # the host's cores are rank 0's too
+            torch.set_num_threads(1)
+        if plant is not None:
+            from portbench.faults import FAULTS
+            FAULTS[plant[0]][plant[1]](setattr)
+        orders = _join_group(backend, world, rank, port, timeout_s)
+        Cell = load_module(Path(driver)).Cell
+        me, cell = Follower(rank, world, orders), None
+        while True:
+            cmd = torch.zeros(2, dtype=torch.int64)
+            dist.broadcast(cmd, 0, group=orders)
+            op, arg = int(cmd[0]), int(cmd[1])
+            seq += 1
+            answer = None
+            if op == CELL:
+                cell = None
+                gc.collect()
+                if device.startswith("cuda"):
+                    torch.cuda.empty_cache()
+                cell = Cell(conf, mix, arg, device, ranks=me)
+                cell.setup()
+            elif op == UNIT:
+                cell.follow_unit()
+            elif op == TRACE:
+                tr = cell.trace(arg, Path(tempfile.gettempdir()) / "portbench")
+                answer = {"busy_s": tr.busy_s(), "window_s": tr.window_s}
+            elif op == COLLECT:
+                answer = cell.collect()
+            elif op == END:
+                answer = {"memory_peak_bytes": torch.cuda.max_memory_allocated(device)
+                          if device.startswith("cuda") else 0}
+            else:
+                raise ValueError(f"unknown order {op}")
+            bad = forbidden_modules()
+            if bad:
+                raise RuntimeError(f"rank {rank} loaded modules of JAX or the "
+                                   f"JAX package: {bad}")
+            reports.put((rank, seq, True, answer))
+            if op == END:     # every rank leaves NCCL's communicators at once
+                from acvae_tpu_torch.parallel import mesh
+                mesh.destroy_process_group()
+                return
+    except BaseException:
+        reports.put((rank, seq, False, traceback.format_exc()))
+        raise
+
+
+class Ranks:
+    """Ranks 1 … R−1 of a cell on R cards, one spawned process a card (rank
+    ``r`` on ``cuda:r``); the calling process is rank 0 (``cuda:0``).  All
+    R join one process group (NCCL between cards, gloo on the CPU).
+
+    Each follower builds the cell's driver ``Cell(conf, mix, seed, device,
+    ranks=<its Follower>)`` and does rank 0's orders in step with it:
+    ``CELL`` (build for a seed and ``setup()``), ``UNIT`` (``follow_unit()``:
+    one more unit), ``TRACE`` (``trace(n, dir)``; it answers the trace's
+    busy and window seconds), ``COLLECT`` (``collect()``; it answers what
+    that returns) and ``END`` (it answers its peak memory and leaves the
+    group).  An order is an [op, argument] pair that rank 0 broadcasts over
+    a gloo group of its own, so the orders put no kernel in rank 0's trace;
+    :meth:`barrier` waits on that group too.  On cards each rank's process
+    keeps to host cores of its own, near its card (:func:`_pin`), so that
+    the ranks, which meet in every step, do not take each other's cores.
+
+    A failure ends the run with no result: a follower's exception (its
+    traceback is printed here), a follower's death, an order that a
+    follower has not done ``timeout_s`` after it was given, or a follower
+    that loaded JAX, jaxlib, flax or the JAX package.  Rank 0 then kills the
+    followers and exits with code 5.  A collective of the program waits
+    ``timeout_s`` at most, and the followers die with rank 0."""
+
+    rank = 0
+
+    def __init__(self, world: int, driver: Path, conf: Dict, mix: Dict,
+                 device: str = "cuda", plant: Optional[Tuple[str, str]] = None,
+                 timeout_s: float = RANK_TIMEOUT_S):
+        import threading
+
+        import torch
+        import torch.multiprocessing as mp
+        from acvae_tpu_torch.parallel.mesh import free_port
+        ctx = mp.get_context("spawn")
+        self.world, self.timeout_s = world, timeout_s
+        cuda = str(device).startswith("cuda")
+        backend, port = ("nccl" if cuda else "gloo"), free_port()
+        self.reports = ctx.Queue()
+        self.procs = [ctx.Process(target=_follow, daemon=True, args=(
+            r, world, backend, port, f"cuda:{r}" if cuda else "cpu", str(driver),
+            conf, mix, plant, timeout_s, self.reports))
+            for r in range(1, world)]
+        for p in self.procs:
+            p.start()
+        self._cv = threading.Condition()
+        self._seq, self._op, self._due, self._closed = 0, None, None, False
+        self._answers: Dict[int, Tuple[int, object]] = {}
+        threading.Thread(target=self._watch, daemon=True).start()
+        if cuda:       # after the spawns, which take every core
+            torch.cuda.set_device(0)
+            _pin(0, world)
+        self._orders = _join_group(backend, world, 0, port, timeout_s)
+
+    def barrier(self) -> None:
+        """Wait until every rank gets here (over the orders' gloo group)."""
+        import torch.distributed as dist
+        dist.barrier(group=self._orders)
+
+    def order(self, op: int, arg: int = 0) -> None:
+        """Broadcast order ``op`` with its argument to every follower."""
+        import torch
+        import torch.distributed as dist
+        with self._cv:
+            self._seq += 1
+            self._op, self._due = op, time.monotonic() + self.timeout_s
+        dist.broadcast(torch.tensor([op, arg], dtype=torch.int64), 0, group=self._orders)
+
+    def _done(self) -> bool:
+        return all(self._answers.get(r, (0,))[0] == self._seq
+                   for r in range(1, self.world))
+
+    def results(self) -> List:
+        """The followers' answers to the last order, in rank order, once
+        every follower has done it."""
+        with self._cv:
+            self._cv.wait_for(self._done)
+            return [self._answers[r][1] for r in range(1, self.world)]
+
+    def close(self) -> List[Dict]:
+        """``END``: every follower's last answer, once all have left the
+        group and ended."""
+        from acvae_tpu_torch.parallel import mesh
+        self.order(END)
+        last = self.results()
+        with self._cv:
+            self._closed = True
+        mesh.destroy_process_group()
+        for r, p in enumerate(self.procs, 1):
+            p.join(timeout=self.timeout_s)
+            if p.exitcode is None:
+                self._fail(f"rank {r} did not end")
+        return last
+
+    def _take(self, block: bool) -> None:
+        import queue
+        while True:
+            try:
+                rank, seq, ok, answer = self.reports.get(timeout=0.5 if block else 0)
+            except queue.Empty:
+                return
+            if not ok:
+                self._fail(f"rank {rank} failed:\n{answer}")
+            with self._cv:
+                self._answers[rank] = (seq, answer)
+                if self._done():
+                    self._due = None
+                self._cv.notify_all()
+            block = False
+
+    def _watch(self) -> None:
+        while True:
+            self._take(block=True)
+            with self._cv:
+                if self._closed:
+                    return
+                due, op = self._due, self._op
+            if any(p.exitcode is not None for p in self.procs):
+                self._take(block=False)      # what a rank said before it ended
+                with self._cv:
+                    gone = [r for r, p in enumerate(self.procs, 1)
+                            if p.exitcode is not None and (
+                                p.exitcode != 0 or self._answers.get(r, (0,))[0] < self._seq)]
+                if gone:
+                    self._fail(f"ranks {gone} died (exit codes "
+                               f"{[self.procs[r - 1].exitcode for r in gone]})")
+            if due is not None and time.monotonic() > due:
+                late = [r for r in range(1, self.world)
+                        if self._answers.get(r, (0,))[0] < self._seq]
+                self._fail(f"ranks {late} did not finish order {op} within "
+                           f"{self.timeout_s:g} s")
+
+    def _fail(self, msg: str) -> None:
+        print(f"portbench: {msg}", file=sys.stderr, flush=True)
+        for p in self.procs:
+            if p.exitcode is None:
+                p.kill()
+        os._exit(5)

@@ -58,10 +58,23 @@ def _span(gen, n, extent, size, device):
 
 
 class Cell:
+    world = 1       # the ranks one step's batch is split over
+
     def __init__(self, conf: Dict, mix: Dict, seed: int, device: str = "cuda"):
         self.conf, self.mix, self.seed, self.device = conf, mix, int(seed), device
         self.d = dims(conf)
         self.total = conf["iters_per_epoch"] * conf["epochs"]
+
+    def _place(self) -> None:
+        """Where the trainer runs (one card: as built)."""
+
+    def _feed(self, batch: Dict) -> Dict:
+        """The rows of a step's batch that this process feeds."""
+        return batch
+
+    def _seed_dropout(self, seed: int) -> None:
+        """Seed torch's global generator (the dropouts') before a checked step."""
+        ref_train.seed_global(self.device, seed)
 
     def _ratios(self, it: int) -> Dict[str, float]:
         """The recipe's schedules at iteration ``it`` of ``epoch``."""
@@ -81,9 +94,10 @@ class Cell:
         self.trainer = Trainer(common.port_conf(conf), d["V"], d["F"], device=dev,
                                total_iters=self.total)
         self.trainer.model.load_state_dict(self.sd, strict=True)
+        self._place()
         g = torch.Generator(dev).manual_seed(common.seed_of(self.seed, 2))
         rng = np.random.default_rng(common.seed_of(self.seed, 3))
-        N, T, L, E = mix["batch"], mix["t_mel"], mix["cap_len"], d["E"]
+        N, T, L, E = mix["batch"] * self.world, mix["t_mel"], mix["cap_len"], d["E"]
         self.it0 = conf["iters_per_epoch"] * (mix["epoch"] - 1)
         self.pool = []
         for b in range(mix["pool_batches"]):
@@ -106,13 +120,14 @@ class Cell:
                      "p_eps": torch.randn((L - 1, N, E), generator=g, device=dev),
                      "ss_coins": torch.rand((L - 1,), generator=g, device=dev) < r["ss"],
                      "dis_coins": torch.rand((L - 1,), generator=g, device=dev) <= r["dis"]}
-            self.pool.append({"batch": batch, "draws": {"spec": spec}, "noise": noise,
+            self.pool.append({"batch": batch, "feed": self._feed(batch),
+                              "draws": {"spec": spec}, "noise": noise,
                               "kl_weight": r["kl_weight"],
                               "rng": common.seed_of(self.seed, 10 + b)})
         names = [n for n, _ in self.trainer.model.named_parameters()]
         self.losses = []
         for i in range(mix["checked_steps"]):
-            ref_train.seed_global(dev, self.pool[i]["rng"])
+            self._seed_dropout(self.pool[i]["rng"])
             m = self._unit(i)
             self.losses.append(m["loss"])
             if i == 0:
@@ -130,7 +145,7 @@ class Cell:
     def _unit(self, i: int) -> Dict[str, float]:
         p = self.pool[i % len(self.pool)]
         with record_function("harness.call"):
-            m = self.trainer.step(p["batch"], self.it0 + 1 + i, self.mix["epoch"],
+            m = self.trainer.step(p["feed"], self.it0 + 1 + i, self.mix["epoch"],
                                   draws=p["draws"], noise=p["noise"])
         with record_function("harness.to_host"):
             return {k: float(v) for k, v in m.items()}
@@ -144,7 +159,7 @@ class Cell:
             mu0 = [st["mu"].clone() for st in opt.state]
             nu0 = [st["nu"].clone() for st in opt.state]
         count, rng = opt.count, common.seed_of(self.seed, 30)
-        ref_train.seed_global(self.device, rng)
+        self._seed_dropout(rng)
         m = self._unit(i)
         b1 = opt.args["b1"]
         with torch.no_grad():
@@ -158,27 +173,25 @@ class Cell:
                          for n, st, a in zip(self.names, opt.state, mu0)},
                 "delta": {n: p.detach() - a for n, p, a in zip(self.names, params, p0)}}
 
+    def _advance(self, checked: bool) -> None:
+        """Step ``self.done`` of the window or the trace."""
+        (self._checked_unit if checked else self._unit)(self.done)
+        self.done += 1
+
     def window(self, seconds: float) -> Dict:
         steps, start = 0, time.perf_counter()
         while True:
-            if steps == self.check_at:
-                self._checked_unit(self.done)
-            else:
-                self._unit(self.done)
-            self.done += 1
+            self._advance(steps == self.check_at)
             steps += 1
             t1 = time.perf_counter()
             if t1 - start >= seconds and steps > self.check_at:
                 break
-        n = steps * self.mix["batch"]
+        n = steps * self.mix["batch"] * self.world
         return {"metrics": {"train_samples_per_s": (n / (t1 - start), "samples/s")},
                 "attempted": n, "failed": 0, "window_s": t1 - start, "units": steps}
 
     def trace(self, units: int, out_dir):
-        def unit(i):
-            self._unit(self.done)
-            self.done += 1
-        return common.profile_units(unit, units, out_dir)
+        return common.profile_units(lambda i: self._advance(False), units, out_dir)
 
     def per_unit_least_s(self) -> float:
         from portbench.counts import work

@@ -12,8 +12,26 @@ under each.  Each takes ``setattr`` (``monkeypatch.setattr`` in a test).
 * ``rows_altered`` (serving): the beam's top-k words moved by one in the
   last twelfth of the batch's clips only (42 of 512: 126 of 1,536 beam
   rows), as a fault confined to one tile of rows would.
+
+Data-parallel training (``train_dp4``) has the train faults and three
+more:
+
+* ``exchange_left_out``: the last rank keeps its own gradients; it joins
+  the gradients' all-reduce (so no rank waits on it) but drops the sum;
+* ``local_count``: the losses divide by this rank's count of tokens and
+  rows, not the global batch's;
+* ``bn_sync_left_out``: BatchNorm normalizes with each rank's own rows'
+  statistics (no group to sum them over); the gradients are still summed.
+
+``ranks``: a rank that fails in the window (the last rank's second window
+step): ``rank_raises``, ``rank_killed`` (SIGKILL), ``rank_hangs``.  The run
+must end with no result within the ranks' timeout.
 """
 from __future__ import annotations
+
+import os
+import signal
+import time
 
 import torch
 
@@ -89,6 +107,60 @@ def _train_token_altered(setattr):
     setattr(vae, "sample_next_word", sample_next_word)
 
 
+def _dp_exchange_left_out(setattr):
+    from acvae_tpu_torch.parallel import train as ptrain
+    real = ptrain.Distributed.sync_grads
+
+    def sync_grads(self, seq_split):
+        if self.grid.rank != self.grid.world - 1:
+            return real(self, seq_split)
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        own = [g.clone() for g in grads]
+        real(self, seq_split)
+        for g, o in zip(grads, own):
+            g.copy_(o)
+    setattr(ptrain.Distributed, "sync_grads", sync_grads)
+
+
+def _dp_local_count(setattr):
+    from acvae_tpu_torch.parallel import state
+    setattr(state, "global_count", lambda x: x.sum())
+    setattr(state, "batch_mean", lambda values: values.mean())
+
+
+def _dp_bn_sync_left_out(setattr):
+    from acvae_tpu_torch.parallel import state
+    setattr(state, "bn_group", lambda: None)
+
+
+def _rank_fails(how):
+    def plant(setattr):
+        from acvae_tpu_torch.train import trainer
+        real = trainer.Trainer.step
+        calls = [0]
+
+        def step(self, *a, **k):
+            calls[0] += 1
+            g = self.parallel.grid if self.parallel else None
+            if calls[0] == 5 and g is not None and g.rank == g.world - 1:
+                if how == "raises":
+                    raise RuntimeError("planted: this rank fails")
+                if how == "killed":
+                    os.kill(os.getpid(), signal.SIGKILL)
+                time.sleep(3600)
+            return real(self, *a, **k)
+        setattr(trainer.Trainer, "step", step)
+    return plant
+
+
+def kind_of(driver: str, fault: str = "") -> str:
+    """The table of :data:`FAULTS` that holds ``fault`` (or the faults of
+    the timed path) for ``driver``."""
+    if fault in FAULTS["ranks"]:
+        return "ranks"
+    return driver if driver in FAULTS else "serve"
+
+
 FAULTS = {"serve": {"state_unchanged": _serve_state_unchanged,
                     "half_batch": _serve_half_batch,
                     "token_altered": _serve_token_altered,
@@ -96,3 +168,8 @@ FAULTS = {"serve": {"state_unchanged": _serve_state_unchanged,
           "train": {"state_unchanged": _train_state_unchanged,
                     "half_batch": _train_half_batch,
                     "token_altered": _train_token_altered}}
+FAULTS["train_dp4"] = dict(FAULTS["train"], exchange_left_out=_dp_exchange_left_out,
+                           local_count=_dp_local_count,
+                           bn_sync_left_out=_dp_bn_sync_left_out)
+FAULTS["ranks"] = {f"rank_{how}": _rank_fails(how)
+                   for how in ("raises", "killed", "hangs")}

@@ -6,7 +6,10 @@ in the program's place (``Cell.judge(..., control=True)``).  One process
 for all seeds, so set-up is paid once for the build.
 
     python3 portbench/readings.py --workload <cell> --seeds 1,2,3 [--seconds 2]
-        [--no-control] [--fault state_unchanged|half_batch|token_altered|rows_altered]
+        [--no-control] [--fault <a fault of portbench/faults.py>]
+
+A cell on several cards keeps one set of ranks for all seeds; a fault is
+planted on every rank.
 
 Prints one JSON line a seed and the largest and smallest readings; for a
 serving cell also the largest score errors of agreeing clips, and the
@@ -38,14 +41,19 @@ def main() -> int:
     bench = common.load_json(run.CHECKOUT / "BENCHMARK.json")
     f = run.cell_files(bench, args.workload)
     driver = common.load_module(f["driver"])
+    plant = None
     if args.fault:
-        from portbench.faults import FAULTS
-        kind = "train" if f["mix"]["driver"] == "train" else "serve"
-        FAULTS[kind][args.fault](setattr)
+        from portbench.faults import FAULTS, kind_of
+        plant = (kind_of(f["mix"]["driver"], args.fault), args.fault)
+        FAULTS[plant[0]][args.fault](setattr)
+    chips = f["cell"]["chips"]
+    ranks = (common.Ranks(chips, f["driver"], f["conf"], f["mix"], "cuda", plant)
+             if chips > 1 else None)
     prog, ctrl = [], []
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
-        cell = driver.Cell(f["conf"], f["mix"], seed, "cuda")
+        cell = (driver.Cell(f["conf"], f["mix"], seed, "cuda") if ranks is None
+                else driver.Cell(f["conf"], f["mix"], seed, "cuda", ranks=ranks))
         cell.setup()
         res = cell.window(args.seconds)
         s = cell.collect()
@@ -62,6 +70,9 @@ def main() -> int:
         del cell, s
         gc.collect()
         torch.cuda.empty_cache()
+    if ranks is not None:
+        print("memory_peak_bytes by rank", [torch.cuda.max_memory_allocated()]
+              + [a["memory_peak_bytes"] for a in ranks.close()])
     for tag, rows in (("program max", prog), ("control min", ctrl)):
         if rows:
             agg = max if tag.startswith("program") else min

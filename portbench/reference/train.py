@@ -15,7 +15,9 @@ description:
 * BatchNorm in train mode normalizes with the batch's biased variance
   ``E[x²] - E[x]²`` in float32; each ConvBlock is followed by dropout 0.2
   (drawn from torch's global generator, which the harness seeds alike for
-  the program's step and this one);
+  the program's step and this one); a data-parallel step (a step with
+  ``rngs``, one seed a rank) normalizes over the whole batch and drops out
+  each rank's equal chunk of rows from a generator seeded with its seed;
 * the posterior: BiGRU states zero past each caption's length (the
   backward direction starts at its last word), ``(mu, log var)`` by a
   Linear with log var clamped to +-4, ``q_z = mu + eps · e^(log var / 2)``,
@@ -37,10 +39,11 @@ side (posterior, prior, decoder, heads) to bfloat16: the control.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .model import Ctx, decoder_step, lin, prior_step
 from .params import blocks_of
@@ -54,6 +57,19 @@ def seed_global(device, seed: int) -> None:
         torch.cuda.manual_seed(seed)
     else:
         torch.manual_seed(seed)
+
+
+def _rng_state(device) -> torch.Tensor:
+    if torch.device(device).type == "cuda":
+        return torch.cuda.get_rng_state(device)
+    return torch.get_rng_state()
+
+
+def _set_rng_state(device, state: torch.Tensor) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_rng_state(state, device)
+    else:
+        torch.set_rng_state(state)
 
 
 def trainable(sd) -> List[str]:
@@ -86,26 +102,77 @@ def spec_masks(x, lens, draws):
 
 
 # ------------------------------------------------------------- encoder
-def batchnorm_train(x, P, p, axis, dtype):
+def batchnorm_train(x, P, p, axis, dtype, chunks=1):
+    """With ``chunks`` > 1, the statistics of all rows from each equal row
+    chunk's sums, added in chunk order, as a data-parallel step's ranks
+    add theirs."""
     shape = [1] * x.ndim
     shape[axis] = -1
     red = [d for d in range(x.ndim) if d != axis]
     xf = x.float()
-    mean = xf.mean(dim=red)
-    var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
+    if chunks == 1:
+        mean = xf.mean(dim=red)
+        var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
+    else:
+        sums = [torch.stack([c.sum(dim=red), (c * c).sum(dim=red)]) for c in xf.chunk(chunks)]
+        total = sum(sums[1:], sums[0])
+        count = xf.numel() // xf.shape[axis]
+        mean = total[0] / count
+        var = torch.clamp_min(total[1] / count - mean * mean, 0.0)
     mul = torch.rsqrt(var + 1e-5) * P[p + ".weight"]
-    return ((xf - mean.view(shape)) * mul.view(shape) + P[p + ".bias"].view(shape)).to(dtype)
+    parts = [((c - mean.view(shape)) * mul.view(shape) + P[p + ".bias"].view(shape)).to(dtype)
+             for c in xf.chunk(chunks)]
+    # each chunk normalized on its own, so that the statistics' gradients
+    # are summed over the chunks, as the ranks' are
+    return parts[0] if chunks == 1 else torch.cat(parts)
 
 
-def encoder_train(P, feats, lens, dtype=torch.bfloat16, conv_dropout=0.2):
-    """Cnn10 in train mode: ``audio_embeds`` [N, T/16, C] and lengths."""
-    x = batchnorm_train(feats, P, "encoder.bn0", 2, feats.dtype)[:, None]
+def _conv_bn_relu(x, P, conv, bn, dtype, chunks=1):
+    """A conv (each of ``chunks`` equal row chunks on its own, as each rank
+    of a data-parallel step convolves its rows), BatchNorm over all rows
+    (:func:`batchnorm_train`), relu."""
+    w = P[conv + ".weight"].to(dtype)
+    parts = [F.conv2d(c.to(dtype), w, None, 1, 1) for c in x.chunk(chunks)]
+    x = parts[0] if chunks == 1 else torch.cat(parts)
+    return F.relu(batchnorm_train(x, P, bn, 1, dtype, chunks))
+
+
+def _chunk_dropout(x, p, states):
+    """Dropout of each of ``len(states)`` equal row chunks of ``x`` from
+    its own generator state, advanced in place."""
+    parts = []
+    for r, part in enumerate(x.chunk(len(states))):
+        _set_rng_state(x.device, states[r])
+        parts.append(F.dropout(part, p, True))
+        states[r] = _rng_state(x.device)
+    return torch.cat(parts)
+
+
+def encoder_train(P, feats, lens, dtype=torch.bfloat16, conv_dropout=0.2,
+                  rngs: Optional[List[int]] = None):
+    """Cnn10 in train mode: ``audio_embeds`` [N, T/16, C] and lengths.
+    With ``rngs`` (a data-parallel step's seeds, one a rank) each rank's
+    chunk of rows is convolved on its own, adds its sums to BatchNorm's
+    statistics and drops out from its own generator, and each conv,
+    BatchNorm and relu is recomputed in the backward, so that the whole
+    batch's activations fit one card."""
+    states = None
+    if rngs is not None:
+        states = []
+        for s in rngs:
+            seed_global(feats.device, s)
+            states.append(_rng_state(feats.device))
+    chunks = 1 if rngs is None else len(rngs)
+    x = batchnorm_train(feats, P, "encoder.bn0", 2, feats.dtype, chunks)[:, None]
     for i in range(len(blocks_of(P))):
         p = f"encoder.conv_block{i + 1}"
         for j in (1, 2):
-            x = F.conv2d(x.to(dtype), P[f"{p}.conv{j}.weight"].to(dtype), None, 1, 1)
-            x = F.relu(batchnorm_train(x, P, f"{p}.bn{j}", 1, dtype))
-        x = F.dropout(F.avg_pool2d(x, 2), conv_dropout, True)
+            args = (x, P, f"{p}.conv{j}", f"{p}.bn{j}", dtype, chunks)
+            x = (_conv_bn_relu(*args) if states is None else
+                 checkpoint(_conv_bn_relu, *args, use_reentrant=False))
+        x = F.avg_pool2d(x, 2)
+        x = (F.dropout(x, conv_dropout, True) if states is None
+             else _chunk_dropout(x, conv_dropout, states))
     return x.mean(dim=3).transpose(1, 2), lens // 2 ** len(blocks_of(P))
 
 
@@ -155,9 +222,10 @@ def posterior(P, caps, cap_lens, q_eps, matmul):
 
 
 # ---------------------------------------------------------------- loss
-def loss_fn(P, batch, draws, noise, kl_weight, alpha, smoothing, matmul="f32"):
+def loss_fn(P, batch, draws, noise, kl_weight, alpha, smoothing, matmul="f32",
+            rngs=None):
     feats = spec_masks(batch["feats"], batch["feat_lens"], draws["spec"])
-    emb, enc_lens = encoder_train(P, feats, batch["feat_lens"])
+    emb, enc_lens = encoder_train(P, feats, batch["feat_lens"], rngs=rngs)
     caps, cap_lens = batch["caps"].long(), batch["cap_lens"]
     q = posterior(P, caps, cap_lens, noise["q_eps"], matmul)
     ctx = Ctx(P, emb, enc_lens, matmul)
@@ -209,7 +277,8 @@ def run_steps(sd0, steps: List[Dict], conf: Dict, total_iters: int,
               matmul: str = "f32", adam: Dict = None) -> Dict:
     """The recipe's train steps ``steps`` from weights ``sd0``; each entry
     holds ``batch``, ``draws``, ``noise``, ``kl_weight`` and ``rng`` (the
-    global generator's seed before it).  They start from Adam's state
+    global generator's seed before it), and a data-parallel step ``rngs``
+    (each rank's seed of it, :func:`encoder_train`).  They start from Adam's state
     ``adam`` (``mu``, ``nu`` by tensor, ``count`` applied updates) where
     given, else from the first update.  Returns the losses, the first
     step's clipped gradient and each tensor's change."""
@@ -228,7 +297,7 @@ def run_steps(sd0, steps: List[Dict], conf: Dict, total_iters: int,
     for c, st in enumerate(steps, start=adam["count"]):
         seed_global(sd0[names[0]].device, st["rng"])
         loss = loss_fn(P, st["batch"], st["draws"], st["noise"], st["kl_weight"],
-                       conf["alpha"], conf["smoothing"], matmul)
+                       conf["alpha"], conf["smoothing"], matmul, st.get("rngs"))
         grads = torch.autograd.grad(loss, [P[n] for n in names], allow_unused=True)
         losses.append(float(loss.detach()))
         with torch.no_grad():

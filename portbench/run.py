@@ -9,7 +9,11 @@ traffic mix (``portbench/mixes/<traffic>.json``), and the mix names its
 driver (``portbench/drivers/<driver>.py``).  Each per-layer metric is read
 by ``portbench/metrics/<metric>.py``; the limits of the cell's correctness
 check are ``portbench/limits/<cell>.json``.  A new cell, mix or metric is
-new files and new entries: nothing here names one.
+new files and new entries: nothing here names one.  A cell on several
+cards runs its other ranks in processes of their own (``common.Ranks``);
+this process is rank 0, whose clock, trace and checks make the result,
+with the busy seconds averaged over the cards and the largest peak of any
+rank.
 
 The run needs a CUDA card (no CPU fallback), draws its inputs and weights
 from ``--seed``, sets up and warms up (``setup_s``, from process start),
@@ -88,7 +92,12 @@ def main(argv=None, device: str = "cuda") -> int:
              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", 3)
     f = cell_files(bench, args.workload)
     driver = common.load_module(f["driver"])
-    cell = driver.Cell(f["conf"], f["mix"], args.seed, device)
+    ranks = None
+    if chips == 1:
+        cell = driver.Cell(f["conf"], f["mix"], args.seed, device)
+    else:
+        ranks = common.Ranks(chips, f["driver"], f["conf"], f["mix"], device)
+        cell = driver.Cell(f["conf"], f["mix"], args.seed, device, ranks=ranks)
     cell.setup()
     common.sync(device)
     setup_s = time.perf_counter() - T_START
@@ -106,7 +115,12 @@ def main(argv=None, device: str = "cuda") -> int:
             v = common.load_module(HERE / "metrics" / f"{m['name']}.py").read(ctx)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-        card.update(busy_s=tr.busy_s(), window_s=tr.window_s)
+        busy = tr.busy_s()
+        if ranks is not None:   # the cards' mean busy share, over rank 0's window
+            share = [busy / tr.window_s] + [a["busy_s"] / a["window_s"]
+                                            for a in ranks.results()]
+            busy = tr.window_s * sum(share) / chips
+        card.update(busy_s=busy, window_s=tr.window_s)
         breakdown = {"device_ops": tr.device_ops(), "idle_gaps": tr.idle_gaps()}
     else:
         metrics = {}
@@ -118,7 +132,13 @@ def main(argv=None, device: str = "cuda") -> int:
                 metrics[m["name"]] = {"value": v, "unit": unit}
     card["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
 
-    numbers = cell.judge(cell.collect())
+    s = cell.collect()
+    if ranks is not None:
+        peaks = [card["memory_peak_bytes"]] + [a["memory_peak_bytes"]
+                                               for a in ranks.close()]
+        print(f"portbench: memory_peak_bytes by rank {peaks}", file=sys.stderr)
+        card["memory_peak_bytes"] = max(peaks)
+    numbers = cell.judge(s)
     checks = {k: {"value": v, "limit": f["limits"][k]} for k, v in numbers.items()}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
 

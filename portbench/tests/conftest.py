@@ -1,7 +1,8 @@
 """Fixtures of the benchmark's CPU tests: tiny copies of the cells (the
 same files, widths shrunk so that the port's plain CPU paths run them in
-seconds), a checkout holding them, and a run of ``run.py`` on the CPU
-with the harness's look for a card answered by a stand-in.
+seconds; a cell on several cards runs 2 ranks over gloo), a checkout
+holding them, and a run of ``run.py`` on the CPU with the harness's look
+for a card answered by a stand-in.
 
     python -m pytest portbench/tests -q
 """
@@ -24,7 +25,32 @@ if str(REPO) not in sys.path:
 from portbench import common  # noqa: E402
 
 BENCH = common.load_json(REPO / "BENCHMARK.json")
+
+# Cells whose files portbench/ holds but which BENCHMARK.json does not
+# measure yet (PERF.md, Open questions), with the end-to-end metrics they
+# would report: the tests drive them all the same.
+PENDING = [({"name": "cnn10.train_dp4_b128", "config": "acvae_cnn10",
+             "traffic": "train_dp4_b128", "chips": 4,
+             "why": "Trainer.distribute over 4 cards (NCCL), 128 rows a rank"},
+            ["train_samples_per_s"])]
+
+
+def with_pending(bench):
+    """``bench`` with the pending cells that it does not hold yet."""
+    bench = copy.deepcopy(bench)
+    held = {w["name"] for w in bench["workloads"]}
+    for cell, e2e in PENDING:
+        if cell["name"] not in held:
+            bench["workloads"].append(dict(cell))
+            for m in bench["end_to_end"]:
+                if m["name"] in e2e:
+                    m["workloads"].append(cell["name"])
+    return bench
+
+
+TESTED = with_pending(BENCH)       # the cells the tests drive
 TINY_SEED = 4_294_967_311          # above 2**32, as the driver's seeds can be
+TINY_RANKS = 2                     # the ranks of a cell on several cards here
 
 
 def tiny_conf(conf):
@@ -41,7 +67,7 @@ def tiny_conf(conf):
 
 def tiny_mix(mix):
     mix = dict(mix)
-    if mix["driver"] == "train":
+    if mix["driver"].startswith("train"):
         mix.update(batch=6, t_mel=64, len_min=32, len_max=64, cap_len=9, cap_min=4)
     else:
         mix.update(batch=6, t_mel=64, len_min=32, len_max=64, pool_batches=2,
@@ -57,7 +83,10 @@ def checkout(tmp_path):
     shutil.copytree(REPO / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("tests", "__pycache__"))
     (root / "acvae_tpu_torch").symlink_to(REPO / "acvae_tpu_torch")
-    shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    bench = copy.deepcopy(TESTED)
+    for w in bench["workloads"]:
+        w["chips"] = min(w["chips"], TINY_RANKS)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
     for c in BENCH["configs"]:
         p = root / c["file"]
         p.write_text(json.dumps(tiny_conf(common.load_json(p))))
@@ -67,12 +96,13 @@ def checkout(tmp_path):
 
 
 class FakeCard:
-    """torch.cuda as the harness asks it, answering for one card."""
+    """torch.cuda as the harness asks it, answering for ``TINY_RANKS``
+    cards."""
 
     def __init__(self, monkeypatch, present=True):
         import torch
         monkeypatch.setattr(torch.cuda, "is_available", lambda: present)
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: int(present))
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: TINY_RANKS * present)
         monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "stand-in")
         monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
 

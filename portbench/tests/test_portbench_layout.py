@@ -1,8 +1,9 @@
 """The benchmark's files: every cell finds its configuration, mix, driver,
 limits and metric readers by name; BENCHMARK.json keeps the contract's
-rules; a new mix or metric needs only new files and entries; a run's last
-line has the contract's keys; a run with no card, or one that loaded JAX
-or the JAX package, prints no result."""
+rules (a cell takes 1 or 4 cards, and at most a quarter of the cells, one
+at least, take 4); a new mix or metric needs only new files and entries;
+a run's last line has the contract's keys; a run with no card, or one
+that loaded JAX or the JAX package, prints no result."""
 from __future__ import annotations
 
 import importlib.util
@@ -14,12 +15,20 @@ import types
 
 import pytest
 
-from conftest import BENCH, REPO
+from conftest import BENCH, REPO, TESTED
 from portbench import common
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 TOP = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
+
+
+def chips_keep_the_rule(workloads) -> bool:
+    """Each cell takes 1 or 4 cards; at most a quarter of the cells,
+    rounded down, take 4, and one always may."""
+    chips = [w["chips"] for w in workloads]
+    return (all(c in (1, 4) for c in chips)
+            and chips.count(4) <= max(1, len(chips) // 4))
 
 
 def _load_run(root):
@@ -34,14 +43,14 @@ def _load_run(root):
     return mod
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+@pytest.mark.parametrize("cell", [w["name"] for w in TESTED["workloads"]])
 def test_every_cell_finds_its_files_by_name(cell):
     run = _load_run(REPO)
-    f = run.cell_files(BENCH, cell)
+    f = run.cell_files(TESTED, cell)
     assert f["driver"].exists()
     assert hasattr(common.load_module(f["driver"]), "Cell")
     assert set(f["limits"]) and all(v > 0 for v in f["limits"].values())
-    for m in run.metrics_for(BENCH, "per_layer", cell):
+    for m in run.metrics_for(TESTED, "per_layer", cell):
         reader = common.load_module(REPO / "portbench" / "metrics" / f"{m['name']}.py")
         assert callable(reader.read)
 
@@ -59,7 +68,7 @@ def test_benchmark_json_keeps_the_rules():
     metrics = b["end_to_end"] + b["per_layer"]
     assert len({m["name"] for m in metrics}) == len(metrics)
     cells = {w["name"]: w for w in b["workloads"]}
-    assert all(w["chips"] == 1 for w in cells.values())
+    assert chips_keep_the_rule(cells.values())
     assert {(w["config"], w["traffic"]) for w in cells.values()}.__len__() == len(cells)
     for c in b["configs"]:
         assert any(w["config"] == c["name"] for w in cells.values())
@@ -87,6 +96,14 @@ def test_benchmark_json_keeps_the_rules():
     for w in cells.values():
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
     assert b["paths"] == ["portbench"] and b["command"][1] == "portbench/run.py"
+
+
+@pytest.mark.parametrize("chips,ok", [
+    ([1], True), ([4], True), ([1, 1, 1, 1, 4], True), ([1, 1, 1, 4, 4], False),
+    ([1] * 6 + [4, 4], True), ([1] * 6 + [4] * 3, False), ([1, 2], False),
+    ([1, 8], False)])
+def test_the_four_card_rule(chips, ok):
+    assert chips_keep_the_rule([{"chips": c} for c in chips]) is ok
 
 
 def test_a_new_mix_and_metric_need_only_new_files(tmp_path):
