@@ -302,8 +302,8 @@ def _follow(rank, world, backend, port, device, driver, conf, mix, plant,
         else:   # the host's cores are rank 0's too
             torch.set_num_threads(1)
         if plant is not None:
-            from portbench.faults import FAULTS
-            FAULTS[plant[0]][plant[1]](setattr)
+            from portbench import faults
+            faults.plant(driver, plant, setattr)
         orders = _join_group(backend, world, rank, port, timeout_s)
         Cell = load_module(Path(driver)).Cell
         me, cell = Follower(rank, world, orders), None
@@ -373,7 +373,7 @@ class Ranks:
     rank = 0
 
     def __init__(self, world: int, driver: Path, conf: Dict, mix: Dict,
-                 device: str = "cuda", plant: Optional[Tuple[str, str]] = None,
+                 device: str = "cuda", plant: Optional[str] = None,
                  timeout_s: float = RANK_TIMEOUT_S):
         import threading
 

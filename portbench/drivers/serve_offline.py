@@ -1,40 +1,51 @@
 """Offline captioning: one caller sends its next batch of clips when the
 last one's captions are on the host (a closed loop), through the port's
 beam decode: ``int8_decode_fn`` (``encoder: int8``, the path of ``cli
-evaluate|serve --encoder_int8``) or ``VAECaptionModel.inference_forward``
+evaluate|serve --encoder_int8``) or the model's ``inference_forward``
 (``encoder: bf16``, the default serving path).
 
 Set-up draws the weights and a pool of ``pool_batches`` distinct batches
 (log-mels, lengths, the beam's prior noise) on the card from the seed,
 bakes the int8 encoder where the mix asks for it, and decodes every pool
-batch once.  The window cycles through the pool; a batch's time runs from
-the call until its token ids and scores are on the host.
+batch once.  The window cycles through the pool, at least once round it;
+a batch's time runs from the call until its token ids and scores are on
+the host.
 
 Correctness: once the window has closed, one clip for each row of the
-batch, from a batch of the window drawn from the seed for that row, is
-judged: every row position, so a fault confined to some rows of a batch
-is seen.  The program's encoding of their batches (its encoder entry at
-the timed batch size) against the reference's encoder (``enc_err``, the
-worst clip); then the reference's beam search, fed that same encoding and
-the same noise, against the beams the window served: the share of clips
-whose best beam's tokens differ (``beam_mismatch``; near-ties flip a few
-in sound runs), and the worst relative error of the best beam's score
-over the clips whose tokens agree (``score_err``).
+batch is judged: every row position, so a fault confined to some rows of
+a batch is seen.  Which pool batch each row's clip comes from is drawn
+from the seed alone, so a faster program is judged on the same clips;
+which of the window's repeats of that pool batch served it is drawn
+among the window's.  The program's encoding of their batches (its encoder
+entry at the timed batch size) against the reference's encoder
+(``enc_err``, the worst clip); then the reference's beam search, fed that
+same encoding and the same noise, against the beams the window served:
+the share of clips whose best beam's tokens differ (``beam_mismatch``;
+near-ties flip a few in sound runs), and the worst relative error of the
+best beam's score over the clips whose tokens agree (``score_err``).
+
+The model's parts are methods that a driver of another model overrides:
+:meth:`Cell.weights`, :meth:`Cell.ref_encode`, :meth:`Cell.ref_beam_search`
+and :meth:`Cell.per_unit_least_s`; such a driver declares its own
+``FAULTS`` (``faults.py``).  The pool, the window, the timing,
+:meth:`Cell.collect` and :func:`compare` are shared.
 """
 from __future__ import annotations
 
 import gc
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from portbench import common
+from portbench import common, faults
 from portbench.reference import int8 as ref_int8
 from portbench.reference import model as ref_model
 from portbench.reference.params import dims, make_weights
+
+FAULTS = faults.FAULTS["serve"]
 
 
 class Cell:
@@ -43,13 +54,52 @@ class Cell:
         self.int8 = mix["encoder"] == "int8"
         self.d = dims(conf)
 
+    # ------------------------------------------------- the model's parts
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """The model's weights, drawn on the card from the seed: the port's
+        model loads them (strictly) and the reference reads them."""
+        return make_weights(self.conf, common.seed_of(self.seed, 1), self.device)
+
+    def ref_encode(self, s: Dict, control: bool = False,
+                   block: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's encoding of the judged clips, ``block`` at a time,
+        in float32, and its lengths: int8 where the mix serves int8, else
+        bf16; ``control`` one precision lower (int4, or bf16 with its convs'
+        operands in float8 e4m3)."""
+        arch, sd, out = self.conf["encodermodel"], self.sd, []
+        baked = None
+        if self.int8:
+            baked = (ref_int8.calibrate(sd, arch, q=7) if control
+                     else ref_int8.calibrate(sd, arch))
+        for n0 in range(0, s["feats"].shape[0], block):
+            f, n = s["feats"][n0:n0 + block], s["lens"][n0:n0 + block]
+            if baked is not None:
+                e = ref_int8.encode(baked, sd, f, n, block=block)
+            else:
+                e = ref_model.pann_encoder(sd, f, n, arch, conv_fp8=control)
+            out.append(e["audio_embeds"].float())
+        return torch.cat(out), s["lens"] // ref_model.stride(sd, arch)
+
+    def ref_beam_search(self, enc, enc_lens, eps, control: bool = False) -> Dict:
+        """The reference's beam search from the encoding ``enc``: ``seqs``
+        [N, B, T] and ``scores`` [N, B]; ``control`` on TF32 operands."""
+        return ref_model.beam_search(self.sd, enc, enc_lens, eps, self.mix["beam_size"],
+                                     self.mix["max_length"], "tf32" if control else "f32")
+
+    def per_unit_least_s(self) -> float:
+        """The least time of a batch's model work at the card's peaks."""
+        from portbench.counts import work
+        m = self.mix
+        return work.serve_batch_least_s(self.conf, self.d, m["batch"], m["t_mel"],
+                                        m["beam_size"], m["max_length"], self.int8)
+
     # ---------------------------------------------------------- set-up
     def setup(self) -> None:
         conf, mix, dev = self.conf, self.mix, self.device
         tf = conf["precision"].get("tf32", False)
         torch.backends.cuda.matmul.allow_tf32 = tf
         torch.backends.cudnn.allow_tf32 = tf
-        self.sd = make_weights(conf, common.seed_of(self.seed, 1), dev)
+        self.sd = self.weights()
         self.model = common.build_port_model(conf, self.sd, dev)
         kw = dict(decode_method="beam", beam_size=mix["beam_size"],
                   max_length=mix["max_length"])
@@ -90,6 +140,8 @@ class Cell:
 
     # ---------------------------------------------------------- window
     def window(self, seconds: float) -> Dict:
+        """Batches for ``seconds``, and at least one of each pool batch
+        (every judged clip was served in the window)."""
         self.outs: List = []
         times = []
         start = time.perf_counter()
@@ -98,7 +150,7 @@ class Cell:
             self.outs.append(self._unit(len(self.outs)))
             t1 = time.perf_counter()
             times.append(t1 - t0)
-            if t1 - start >= seconds:
+            if t1 - start >= seconds and len(self.outs) >= len(self.pool):
                 break
         n = len(self.outs) * self.mix["batch"]
         return {"metrics": {"clips_per_s": (n / (t1 - start), "clips/s"),
@@ -109,21 +161,24 @@ class Cell:
     def trace(self, units: int, out_dir):
         return common.profile_units(self._unit, units, out_dir)
 
-    def per_unit_least_s(self) -> float:
-        from portbench.counts import work
-        m = self.mix
-        return work.serve_batch_least_s(self.conf, self.d, m["batch"], m["t_mel"],
-                                        m["beam_size"], m["max_length"], self.int8)
-
     # ----------------------------------------------------------- check
-    def collect(self) -> Dict:
-        """The sampled clips' inputs and what the program made of them;
-        then the program's state is freed."""
-        N, B = self.mix["batch"], self.mix["beam_size"]
+    def judged(self) -> Tuple[np.ndarray, np.ndarray]:
+        """For each row of the batch, the pool batch its judged clip comes
+        from (drawn from the seed alone) and the window's batch that served
+        it (one of that pool batch's repeats, drawn among those the window
+        served)."""
+        N, P, U = self.mix["batch"], len(self.pool), len(self.outs)
         rng = np.random.default_rng(common.seed_of(self.seed, 4))
-        row = np.arange(N)
-        batch = rng.integers(0, len(self.outs), size=N)
-        pools = batch % len(self.pool)
+        pools = rng.integers(0, P, size=N)
+        repeats = (U - 1 - pools) // P + 1          # window batches p, p + P, …
+        return pools, pools + P * (rng.random(N) * repeats).astype(np.int64)
+
+    def collect(self) -> Dict:
+        """The judged clips' inputs and what the program made of them;
+        then the program's state is freed."""
+        B = self.mix["beam_size"]
+        pools, batch = self.judged()
+        row = np.arange(len(pools))
         s = {"feats": [], "lens": [], "eps": [], "enc": [], "seqs": [], "scores": []}
         with torch.inference_mode():
             for p in sorted(set(pools.tolist())):
@@ -148,48 +203,26 @@ class Cell:
             torch.cuda.empty_cache()
         return out
 
-    def _ref_encode(self, s: Dict, baked, conv_fp8: bool = False, block: int = 64):
-        """The reference's encoding of the sampled clips, ``block`` at a
-        time: int8 from ``baked`` where given, else bf16 (its convs' operands
-        in float8 e4m3 where ``conv_fp8``)."""
-        arch, sd, out = self.conf["encodermodel"], self.sd, []
-        for n0 in range(0, s["feats"].shape[0], block):
-            f, n = s["feats"][n0:n0 + block], s["lens"][n0:n0 + block]
-            if baked is not None:
-                e = ref_int8.encode(baked, sd, f, n, block=block)
-            else:
-                e = ref_model.pann_encoder(sd, f, n, arch, conv_fp8=conv_fp8)
-            out.append(e["audio_embeds"].float())
-        return torch.cat(out)
-
     def judge(self, s: Dict, control: bool = False, detail: bool = False) -> Dict:
         """The compared numbers; ``control`` puts the reference, one
-        precision lower (int4 or float8 encoder, TF32 decode), in the
-        program's place; ``detail`` adds what ``readings.py`` prints."""
-        arch, sd = self.conf["encodermodel"], self.sd
-        B, T = self.mix["beam_size"], self.mix["max_length"]
+        precision lower (:meth:`ref_encode`, :meth:`ref_beam_search`), in
+        the program's place; ``detail`` adds what ``readings.py`` prints."""
         with ref_model.exact_f32(), torch.no_grad():
-            ref_enc = self._ref_encode(s, ref_int8.calibrate(sd, arch) if self.int8
-                                       else None)
+            ref_enc, enc_lens = self.ref_encode(s)
             enc, seqs, scores = s["enc"], s["seqs"], s["scores"]
-            enc_lens = s["lens"] // ref_model.stride(sd, arch)
             if control:
-                enc = self._ref_encode(s, ref_int8.calibrate(sd, arch, q=7) if self.int8
-                                       else None, conv_fp8=True)
-                low = ref_model.beam_search(sd, enc, enc_lens, s["eps"], B, T, "tf32")
+                enc = self.ref_encode(s, control=True)[0]
+                low = self.ref_beam_search(enc, enc_lens, s["eps"], control=True)
                 seqs, scores = low["seqs"], low["scores"]
-            ref = ref_model.beam_search(sd, enc, enc_lens, s["eps"], B, T)
+            ref = self.ref_beam_search(enc, enc_lens, s["eps"])
         return compare(enc, ref_enc, seqs, scores, ref, detail)
 
     def own_encoding(self, s: Dict) -> Dict[str, float]:
         """Not compared: the reference's beam search from its own encoding
         (not the program's) against the served beams, for ``readings.py``."""
-        arch, sd = self.conf["encodermodel"], self.sd
         with ref_model.exact_f32(), torch.no_grad():
-            enc = self._ref_encode(s, ref_int8.calibrate(sd, arch) if self.int8 else None)
-            ref = ref_model.beam_search(sd, enc, s["lens"] // ref_model.stride(sd, arch),
-                                        s["eps"], self.mix["beam_size"],
-                                        self.mix["max_length"])
+            enc, enc_lens = self.ref_encode(s)
+            ref = self.ref_beam_search(enc, enc_lens, s["eps"])
         got = compare(s["enc"], enc, s["seqs"], s["scores"], ref)
         return {"own_" + k: v for k, v in got.items()}
 

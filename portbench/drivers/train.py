@@ -41,9 +41,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from portbench import common
+from portbench import common, faults
 from portbench.reference import train as ref_train
 from portbench.reference.params import dims, make_weights
+
+FAULTS = faults.FAULTS["train"]
 
 
 def _span(gen, n, extent, size, device):

@@ -32,9 +32,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from portbench import common
+from portbench import common, faults
 
 train = common.load_module(Path(__file__).resolve().parent / "train.py")
+FAULTS = faults.FAULTS["train_dp4"]
 
 
 def rank_seeds(seed: int, world: int) -> List[int]:

@@ -1,7 +1,17 @@
 """Faults planted in the port's timed path, for the checks that must
 catch them: the CPU tests (``tests/test_portbench_faults.py``) and, on the
-card, ``readings.py --fault``, which reads the training cell's numbers
-under each.  Each takes ``setattr`` (``monkeypatch.setattr`` in a test).
+card, ``readings.py --fault``, which reads a cell's numbers under each.
+Each takes ``setattr`` (``monkeypatch.setattr`` in a test).
+
+Each driver declares the faults of its own timed path: its module exports
+``FAULTS``, a dict from a fault's name to its planter, and :func:`table`
+finds it from the driver's file (``drivers/<the mix's driver>.py``).  The
+tables below are what the drivers of this directory draw from; a driver
+of another model builds its own, from :data:`SERVING` (the faults every
+beam-served model shares) and a ``state_unchanged`` that breaks its own
+decoder's step.  A driver that declares no table has none: no table falls
+back to another model's.  The faults of :data:`FAULTS` ``["ranks"]``
+reach every driver by name.
 
 * ``state_unchanged``: a step returns its state unchanged (the decoder's
   step keeps its input state; the optimizer applies no update);
@@ -32,8 +42,12 @@ from __future__ import annotations
 import os
 import signal
 import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
 
 import torch
+
+from portbench import common
 
 
 def _serve_state_unchanged(setattr):
@@ -153,18 +167,10 @@ def _rank_fails(how):
     return plant
 
 
-def kind_of(driver: str, fault: str = "") -> str:
-    """The table of :data:`FAULTS` that holds ``fault`` (or the faults of
-    the timed path) for ``driver``."""
-    if fault in FAULTS["ranks"]:
-        return "ranks"
-    return driver if driver in FAULTS else "serve"
-
-
-FAULTS = {"serve": {"state_unchanged": _serve_state_unchanged,
-                    "half_batch": _serve_half_batch,
-                    "token_altered": _serve_token_altered,
-                    "rows_altered": _serve_rows_altered},
+SERVING = {"half_batch": _serve_half_batch,
+           "token_altered": _serve_token_altered,
+           "rows_altered": _serve_rows_altered}
+FAULTS = {"serve": {"state_unchanged": _serve_state_unchanged, **SERVING},
           "train": {"state_unchanged": _train_state_unchanged,
                     "half_batch": _train_half_batch,
                     "token_altered": _train_token_altered}}
@@ -173,3 +179,24 @@ FAULTS["train_dp4"] = dict(FAULTS["train"], exchange_left_out=_dp_exchange_left_
                            bn_sync_left_out=_dp_bn_sync_left_out)
 FAULTS["ranks"] = {f"rank_{how}": _rank_fails(how)
                    for how in ("raises", "killed", "hangs")}
+
+
+def table(driver, fault: Optional[str] = None) -> Dict[str, Callable]:
+    """The planters of the driver whose file is ``driver``: the ``FAULTS``
+    its module declares; for a ``fault`` of the ``ranks`` table that the
+    driver does not declare, that table."""
+    path = Path(driver)
+    own = getattr(common.load_module(path), "FAULTS", None)
+    if own is None:
+        raise KeyError(f"the driver {path.stem!r} declares no FAULTS")
+    if fault is None or fault in own:
+        return own
+    if fault in FAULTS["ranks"]:
+        return FAULTS["ranks"]
+    raise KeyError(f"the driver {path.stem!r} has no fault {fault!r}; "
+                   f"it has {sorted(own)} and {sorted(FAULTS['ranks'])}")
+
+
+def plant(driver, fault: str, setattr) -> None:
+    """Plant ``fault`` of ``driver``'s table (:func:`table`)."""
+    table(driver, fault)[fault](setattr)

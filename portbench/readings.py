@@ -41,11 +41,10 @@ def main() -> int:
     bench = common.load_json(run.CHECKOUT / "BENCHMARK.json")
     f = run.cell_files(bench, args.workload)
     driver = common.load_module(f["driver"])
-    plant = None
-    if args.fault:
-        from portbench.faults import FAULTS, kind_of
-        plant = (kind_of(f["mix"]["driver"], args.fault), args.fault)
-        FAULTS[plant[0]][args.fault](setattr)
+    plant = args.fault
+    if plant:
+        from portbench import faults
+        faults.plant(f["driver"], plant, setattr)
     chips = f["cell"]["chips"]
     ranks = (common.Ranks(chips, f["driver"], f["conf"], f["mix"], "cuda", plant)
              if chips > 1 else None)

@@ -107,15 +107,29 @@ class FakeCard:
         monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
 
 
+def fault_cases(bench, root=REPO):
+    """(cell, fault) for each cell of ``bench`` and each fault that the
+    driver of its mix declares (``faults.table``), from the files of the
+    checkout ``root``."""
+    from portbench import faults
+    out = []
+    for w in bench["workloads"]:
+        mix = common.load_json(root / "portbench" / "mixes" / f"{w['traffic']}.json")
+        drv = root / "portbench" / "drivers" / f"{mix['driver']}.py"
+        out += [(w["name"], f) for f in faults.table(drv)]
+    return out
+
+
 @pytest.fixture
-def run_cell(checkout, monkeypatch, capsys):
-    """``run_cell(cell, present=True)`` runs the checkout's ``run.py`` on the
-    CPU; returns (exit code, the last stdout line parsed or None, stderr)."""
-    def go(cell, seconds=0.3, present=True, seed=TINY_SEED):
+def run_at(monkeypatch, capsys):
+    """``run_at(root, cell, present=True)`` runs the ``run.py`` of the
+    checkout ``root`` on the CPU; returns (exit code, the last stdout line
+    parsed or None, stderr)."""
+    def go(root, cell, seconds=0.3, present=True, seed=TINY_SEED):
         FakeCard(monkeypatch, present)
         env, path = dict(os.environ), list(sys.path)
         spec = importlib.util.spec_from_file_location(
-            "portbench_run_under_test", checkout / "portbench" / "run.py")
+            "portbench_run_under_test", root / "portbench" / "run.py")
         run = importlib.util.module_from_spec(spec)
         try:
             spec.loader.exec_module(run)
@@ -133,6 +147,12 @@ def run_cell(checkout, monkeypatch, capsys):
         lines = out.out.strip().splitlines()
         return code, (json.loads(lines[-1]) if lines else None), out.err
     return go
+
+
+@pytest.fixture
+def run_cell(checkout, run_at):
+    """``run_cell(cell, present=True)``: :func:`run_at` in the tiny checkout."""
+    return lambda cell, **kw: run_at(checkout, cell, **kw)
 
 
 @pytest.fixture

@@ -21,9 +21,10 @@ import time
 
 import pytest
 
-from conftest import BENCH, REPO, TESTED, TINY_RANKS, TINY_SEED, tiny_conf, tiny_mix
-from portbench import common
-from portbench.faults import FAULTS, kind_of
+from conftest import (BENCH, REPO, TESTED, TINY_RANKS, TINY_SEED, fault_cases, tiny_conf,
+                      tiny_mix)
+from portbench import common, faults
+from portbench.faults import FAULTS
 
 SERVE = [w["name"] for w in TESTED["workloads"] if w["traffic"].startswith("serve")]
 TRAIN = [w["name"] for w in TESTED["workloads"] if w["traffic"].startswith("train")]
@@ -38,11 +39,11 @@ def _files(cell):
     return conf, mix, common.load_json(REPO / f"portbench/limits/{cell}.json")
 
 
-def _kind(cell):
-    return kind_of(_files(cell)[1]["driver"])
+def _driver(cell):
+    return REPO / "portbench" / "drivers" / f"{_files(cell)[1]['driver']}.py"
 
 
-CASES = [(c, f) for c in SERVE + TRAIN for f in FAULTS[_kind(c)]]
+CASES = fault_cases(TESTED)
 
 
 @pytest.mark.parametrize("cell", SERVE + TRAIN)
@@ -54,10 +55,9 @@ def test_a_sound_run_is_correct(run_cell, cell):
 
 @pytest.mark.parametrize("cell,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(run_cell, monkeypatch, cell, fault):
-    FAULTS[_kind(cell)][fault](monkeypatch.setattr)
+    faults.plant(_driver(cell), fault, monkeypatch.setattr)
     if CELLS[cell]["chips"] > 1:        # the other ranks too
-        monkeypatch.setattr(common, "Ranks",
-                            functools.partial(common.Ranks, plant=(_kind(cell), fault)))
+        monkeypatch.setattr(common, "Ranks", functools.partial(common.Ranks, plant=fault))
     code, res, err = run_cell(cell)
     assert code == 0 and res["correct"] is False, res["checks"]
     assert "limit" in err.strip().splitlines()[-1]
@@ -68,7 +68,7 @@ def test_the_control_fails_the_limits(cell):
     """The reference one precision lower (int4 or float8 encoder and a TF32
     decode; bf16 on the train step's decode side) in the program's place."""
     conf, mix, limits = _files(cell)
-    driver = REPO / f"portbench/drivers/{mix['driver']}.py"
+    driver = _driver(cell)
     ranks, kw = None, {}
     if CELLS[cell]["chips"] > 1:
         ranks = kw["ranks"] = common.Ranks(TINY_RANKS, driver, conf, mix, "cpu")
@@ -125,8 +125,7 @@ for name, value in (("is_available", lambda: True), ("device_count", lambda: {ra
                     ("max_memory_allocated", lambda *a: 0)):
     setattr(torch.cuda, name, value)
 from portbench import common
-common.Ranks = functools.partial(common.Ranks, plant=("ranks", {fault!r}),
-                                 timeout_s={timeout})
+common.Ranks = functools.partial(common.Ranks, plant={fault!r}, timeout_s={timeout})
 from portbench import run
 sys.exit(run.main(["--workload", {cell!r}, "--seed", "{seed}", "--seconds", "0.3",
                    "--trace", "0"], device="cpu"))

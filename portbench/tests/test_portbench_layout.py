@@ -1,9 +1,10 @@
 """The benchmark's files: every cell finds its configuration, mix, driver,
 limits and metric readers by name; BENCHMARK.json keeps the contract's
 rules (a cell takes 1 or 4 cards, and at most a quarter of the cells, one
-at least, take 4); a new mix or metric needs only new files and entries;
-a run's last line has the contract's keys; a run with no card, or one
-that loaded JAX or the JAX package, prints no result."""
+at least, take 4); a new mix or metric, and a new model's serving cell
+with its own faults, need only new files and entries; a run's last line
+has the contract's keys; a run with no card, or one that loaded JAX or
+the JAX package, prints no result."""
 from __future__ import annotations
 
 import importlib.util
@@ -14,9 +15,10 @@ import sys
 import types
 
 import pytest
+import torch
 
-from conftest import BENCH, REPO, TESTED
-from portbench import common
+from conftest import BENCH, REPO, TESTED, TINY_SEED, fault_cases, tiny_conf, tiny_mix
+from portbench import common, faults
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -134,6 +136,106 @@ def test_a_new_mix_and_metric_need_only_new_files(tmp_path):
     reader = common.load_module(root / "portbench" / "metrics" / "clips_traced.serve.py")
     ctx = types.SimpleNamespace(units=3, mix=f["mix"])
     assert reader.read(ctx) == 192
+
+
+PROBE_DRIVER = '''"""A probe model: the flagship served under weights drawn with another
+salt, with faults of its own."""
+from pathlib import Path
+
+from portbench import common, faults
+from portbench.reference.params import make_weights
+
+serve = common.load_module(Path(__file__).resolve().parent / "serve_offline.py")
+
+
+def _encoding_scaled(setattr):
+    from acvae_tpu_torch.models import common as mc
+    real = mc.CaptionModel.apply_ln
+
+    def apply_ln(self, encoded):
+        out = real(self, encoded)
+        return dict(out, audio_embeds=out["audio_embeds"] * 1.5)
+    setattr(mc.CaptionModel, "apply_ln", apply_ln)
+
+
+FAULTS = dict(faults.SERVING, encoding_scaled=_encoding_scaled)
+
+
+class Cell(serve.Cell):
+    def weights(self):
+        return make_weights(self.conf, common.seed_of(self.seed, 101), self.device)
+'''
+
+
+def _tree(root):
+    return {p.relative_to(root): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_new_model_needs_only_new_files(tmp_path, run_at):
+    """A probe model's serving cell, made as new files (a driver that
+    subclasses ``serve_offline.Cell`` and overrides its weights, with a
+    fault table of its own; a configuration, a mix and a limits file) and
+    new entries in a copy of BENCHMARK.json: its sound run is correct, each
+    of its faults fails it, its fault cases are its own table's, and no
+    file that was there before changed."""
+    root = tmp_path / "co"
+    shutil.copytree(REPO / "portbench", root / "portbench",
+                    ignore=shutil.ignore_patterns("tests", "__pycache__"))
+    (root / "acvae_tpu_torch").symlink_to(REPO / "acvae_tpu_torch")
+    pb = root / "portbench"
+    conf = tiny_conf(common.load_json(pb / "configs" / "acvae_cnn10.json"))
+    mix = dict(tiny_mix(common.load_json(pb / "mixes" / "serve_int8_b512.json")),
+               driver="probe")
+    new = {"configs/probe_cnn10.json": json.dumps(conf),
+           "mixes/probe_int8.json": json.dumps(mix),
+           "limits/probe.serve_int8.json":
+               (pb / "limits" / "cnn10.serve_int8_b512.json").read_text(),
+           "drivers/probe.py": PROBE_DRIVER}
+    for rel, text in new.items():
+        (pb / rel).write_text(text)
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    cell = "probe.serve_int8"
+    bench["configs"].append({"name": "probe_cnn10", "source": "a test's probe",
+                             "file": "portbench/configs/probe_cnn10.json",
+                             "reduced": [], "why": "another model's weights"})
+    bench["workloads"].append({"name": cell, "config": "probe_cnn10",
+                               "traffic": "probe_int8", "chips": 1,
+                               "why": "a probe model's serving cell"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "cnn10.serve_int8_b512" in m.get("workloads", []):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    probe = common.load_module(pb / "drivers" / "probe.py")
+    own = list(probe.FAULTS)
+    assert [f for c, f in fault_cases(bench, root) if c == cell] == own
+    assert "state_unchanged" not in own and "encoding_scaled" in own
+    base = common.load_module(pb / "drivers" / "serve_offline.py")
+    w_probe = probe.Cell(conf, mix, TINY_SEED, "cpu").weights()
+    w_base = base.Cell(conf, mix, TINY_SEED, "cpu").weights()
+    assert not torch.equal(w_probe["decoder.classifier.weight"],
+                           w_base["decoder.classifier.weight"])
+
+    code, res, _ = run_at(root, cell)
+    assert code == 0 and res["correct"] is True, res["checks"]
+    assert set(res["metrics"]) == {"clips_per_s", "batch_p95_ms", "setup_s"}
+    for fault in own:
+        with pytest.MonkeyPatch.context() as mp:
+            faults.plant(pb / "drivers" / "probe.py", fault, mp.setattr)
+            code, res, _ = run_at(root, cell)
+        assert code == 0 and res["correct"] is False, (fault, res["checks"])
+
+    after = _tree(pb)
+    before = {p: b for p, b in _tree(REPO / "portbench").items() if p.parts[0] != "tests"}
+    assert {str(p) for p in set(after) - set(before)} == set(new)
+    assert all(after[p] == b for p, b in before.items())
+    for group in ("configs", "workloads"):
+        bench[group].pop()
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if cell in m.get("workloads", []):
+            m["workloads"].remove(cell)
+    assert bench == json.loads((REPO / "BENCHMARK.json").read_text())
 
 
 def test_the_last_line_has_the_contracts_keys(run_cell):
