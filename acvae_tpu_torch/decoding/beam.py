@@ -16,7 +16,9 @@ Reference semantics, as in the JAX package:
 
 Top-k order is ``lax.top_k``'s: descending score, equal scores in
 ascending flat index.  ``torch.topk`` does not promise that order, so
-:func:`beam_topk` takes a stable descending sort cut to ``k``.
+:func:`topk_lax_order` takes the operator of ``ops/cuda/topk_kernel.py``:
+on the card its selection kernel, which gives the bits of a stable
+descending sort cut to ``k``; on the CPU that sort.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from acvae_tpu_torch import END_IDX, START_IDX
+from acvae_tpu_torch.ops.cuda import topk_kernel
 
 # step_fn(state, words [NB], t) -> (logits [NB, V], new_state)
 StepFn = Callable[[Any, torch.Tensor, int], Tuple[torch.Tensor, Any]]
@@ -45,9 +48,9 @@ class BeamConfig:
 
 def topk_lax_order(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the last axis of ``x`` [N, M] in ``lax.top_k``'s order
-    (ties to the lower index): a stable descending sort, cut to ``k``."""
-    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[:, :k], idx[:, :k]
+    (ties to the lower index): the bits of a stable descending sort, cut to
+    ``k``."""
+    return topk_kernel.topk_rows(x.contiguous(), k)
 
 
 def beam_topk(total: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -20,10 +20,11 @@ convention, ``(feats, feat_lens, seed) -> {seqs, scores}``: it draws the
 noise from ``torch.Generator(device).manual_seed(seed)``.
 
 The int8 serving encoder's convs and pools are the operators of
-``ops/cuda/conv_i8_kernel.py``, and the PANN ConvBlock's BatchNorm, ReLU
-and pool at inference the operator of ``ops/cuda/bn_relu_kernel.py``, so
-an artifact launches the hand-written kernels on the card and runs their
-plain versions on the CPU.
+``ops/cuda/conv_i8_kernel.py``, the PANN ConvBlock's BatchNorm, ReLU
+and pool at inference the operator of ``ops/cuda/bn_relu_kernel.py``, and
+the beam's top-k on the card the operator of ``ops/cuda/topk_kernel.py``,
+so an artifact launches the hand-written kernels on the card and runs
+their plain versions on the CPU.
 The port reads no ``.jaxexport`` (StableHLO) artifact: JAX weights cross
 through ``convert.py``.
 """
@@ -38,9 +39,9 @@ import torch
 import torch.nn as nn
 
 from acvae_tpu_torch import DEFAULT_DEVICE
-# registers the int8 operators and the ConvBlock epilogue's before a
-# program that calls them is traced or loaded
-from acvae_tpu_torch.ops.cuda import bn_relu_kernel, conv_i8_kernel  # noqa: F401
+# registers the int8 operators, the ConvBlock epilogue's and the top-k's
+# before a program that calls them is traced or loaded
+from acvae_tpu_torch.ops.cuda import bn_relu_kernel, conv_i8_kernel, topk_kernel  # noqa: F401
 from acvae_tpu_torch.decoding.dbs import dbs_bdash
 from acvae_tpu_torch.decoding.sampling import gumbel_noise
 from acvae_tpu_torch.models.captioner import _PlainCaptioner

@@ -31,7 +31,12 @@ Phases, each of which exits nonzero on failure:
    ``bn_relu`` (the bf16 ConvBlock's inference epilogue: BatchNorm, ReLU
    and the 2x2 pool as one pass): the 12 launches of a bf16 Cnn14 batch of
    512 and odd shapes, bit for bit against the unfused ops, summed beside
-   its bytes bound and the unfused ops' time.
+   its bytes bound and the unfused ops' time.  ``topk_rows`` (the beam's
+   top-k): bit for bit against the card's stable sort cut to k at a beam
+   step of 512 clips (3 x 4981 scores each, k 3), drawn, coarse (ties) and
+   planted (ties across beams, +-inf, +-0.0, NaN of both signs) rows, and
+   at other widths and k; timed beside its bytes bound, the sort and
+   ``torch.topk`` (not the same order on ties, so the port never calls it).
 4. parity: one small train step on the card against the same step on the
    CPU (plain versions), same weights and draws.
 5. train: the train path — ``Trainer`` on the flagship recipe at full
@@ -41,7 +46,8 @@ Phases, each of which exits nonzero on failure:
    finite; each kernel launched on that path.
 6. decode parity: a small flagship's beam-3 and greedy decodes on the card
    against the CPU (same weights and prior noise): tokens identical,
-   scores within rtol 1e-4; ``beam_topk``'s tie order on the card.
+   scores within rtol 1e-4; ``beam_topk``'s tie order on the card, through
+   the ``topk_rows`` kernel.
 7. serve: the serving path at full width — the flagship written to an
    experiment dir with ``save_experiment`` and read back with
    ``load_experiment``; (a) beam-3 decode at batch 512, T_mel 1024, max
@@ -273,7 +279,9 @@ Phases, each of which exits nonzero on failure:
 
 Kernel launches are counted from 0 over each path (train, serve, int8
 serve, cli, diverse, families, extras, encoders, aux, export, tools,
-parallel), and after phase 3 every call of the plain float64 FMA
+parallel; ``topk_rows`` checked at none in a train step or an export's
+trace and one a step of each group's beam in every timed decode, service
+and exported decode), and after phase 3 every call of the plain float64 FMA
 (``ops/int8.py`` ``fma_f32``) on a card tensor: none may run.  Prints the whole script's wall time, a ``{"kernels": [...]}``
 JSON line (``launches`` on each kernel's own path, ``launches_by_path`` on
 all twelve), then, last, the ``{"ok": true, "device": ...}`` line.  ``--profile DIR`` also traces two
@@ -354,10 +362,19 @@ def kernel_fns():
     from acvae_tpu_torch.ops.cuda.bn_relu_kernel import bn_relu
     from acvae_tpu_torch.ops.cuda.conv_i8_kernel import (avgpool2x2_i8, conv3x3_i8,
                                                          stem_conv3x3_i8)
+    from acvae_tpu_torch.ops.cuda.topk_kernel import topk_rows
     from acvae_tpu_torch.ops.cuda.warp_kernel import time_warp_1d
     return {"time_warp_1d": time_warp_1d, "stem_conv3x3_i8": stem_conv3x3_i8,
             "conv3x3_i8": conv3x3_i8, "avgpool2x2_i8": avgpool2x2_i8,
-            "bn_relu": bn_relu}
+            "bn_relu": bn_relu, "topk_rows": topk_rows}
+
+
+def topk_per_search(kw):
+    """topk_rows launches of one search of ``kw``: one a step of each
+    group's beam (a dbs decode's groups each take their own), none in a
+    greedy decode."""
+    groups = {"beam": 1, "dbs": kw.get("group_size")}.get(kw["decode_method"], 0)
+    return kw["max_length"] * groups
 
 
 def int8_launches(counts, before=None):
@@ -949,6 +966,67 @@ def bn_relu_kernel_phase(flush):
             "timed": f"the 12 launches of a bf16 Cnn14 batch of {DEC_BATCH}"}
 
 
+# topk_rows: a beam step of the serving cells (DEC_BATCH clips, BEAM x VOCAB
+# scores a clip, k = BEAM), then other widths and k
+TOPK_EDGES = [(1, 14943, 16), (1536, 14943, 8), (7, 4981, 3), (512, 4981, 1),
+              (33, 4097, 2), (5, 1000, 16), (9, 129, 3), (9, 128, 3), (4, 3, 3),
+              (3, 1, 2), (512, 14943, 20), (6, 4981, 33), (3, 37, 40)]
+
+
+def topk_kernel_phase(flush):
+    """topk_rows against the card's stable sort cut to k, bit for bit, then
+    its time at a beam step beside the bytes bound, the sort (its plain
+    version) and torch.topk (the yardstick: another order on ties)."""
+    from acvae_tpu_torch.ops.cuda.topk_kernel import topk_rows, topk_rows_ref
+
+    g = torch.Generator("cuda").manual_seed(17)
+    R, M, k = DEC_BATCH, BEAM * VOCAB, BEAM
+
+    def bits(a, b):
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+    def agree(x, k, what):
+        got, want = topk_rows(x, k), topk_rows_ref(x, k)
+        check(all(bits(a, b) for a, b in zip(got, want)),
+              f"topk_rows disagrees with the card's stable sort: {what}, "
+              f"{list(x.shape)} k={k}")
+
+    step = torch.randn((R, M), generator=g, device="cuda") * 4 - 30
+    agree(step, k, "drawn")
+    agree(torch.round(step), k, "coarse (ties)")
+    tied = torch.round(torch.randn((R, VOCAB), generator=g, device="cuda") * 2)
+    agree(tied.repeat(1, BEAM), k, "every beam the same")
+    planted = torch.round(step * 2) / 2
+    # +-inf, +-0.0, NaN and -NaN (sign bit set), each at drawn columns
+    words = np.array([0x7F800000, 0xFF800000, 0, 0x80000000, 0x7FC00000,
+                      0xFFC00000], np.uint32)
+    for v, n in zip(torch.tensor(words.view(np.float32)), (2, 40, 3, 3, 1, 2)):
+        cols = torch.randint(0, M, (R, n), generator=g, device="cuda")
+        planted.scatter_(1, cols, v.expand(R, n).to("cuda"))
+    agree(planted, k, "planted +-inf, +-0.0, NaN")
+    for r, m, kk in TOPK_EDGES:
+        x = torch.round(torch.randn((r, m), generator=g, device="cuda") * 3)
+        agree(x, kk, "edge")
+    print(f"topk_rows: bit for bit with the card's stable sort at [{R},{M}] "
+          f"k={k} (drawn, coarse, beams alike, planted) and {TOPK_EDGES}")
+    k_ms = time_ms(lambda: topk_rows(step, k), flush)
+    p_ms = time_ms(lambda: topk_rows_ref(step, k), flush)
+    l_ms = time_ms(lambda: torch.topk(step, k), flush)
+    nbytes = R * M * 4 + R * k * (4 + 8)
+    b_ms, by = bound(0, nbytes, FP32_FLOPS)
+    print(f"topk_rows [{R},{M}] k={k}: kernel {k_ms:.4f} ms "
+          f"({nbytes / k_ms / 1e9:.2f} TB/s, {b_ms / k_ms:.1%} of the bound), "
+          f"stable sort {p_ms:.4f} ms, torch.topk {l_ms:.4f} ms, bound "
+          f"{b_ms * 1e3:.2f} us ({by}) ({SMI})")
+    return {"name": "topk_rows", "route": "cuda",
+            "source": "acvae_tpu_torch/csrc/topk.cu",
+            "replaces": "acvae_tpu/decoding/beam.py:37-75 (lax.top_k; no Pallas)",
+            "launches": None, "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": l_ms,
+            "timed": f"one beam step of {R} clips, {M} scores each, k {k}"}
+
+
 def small_conf():
     from acvae_tpu_torch.configs import flagship_conf
     return flagship_conf(
@@ -1073,6 +1151,7 @@ def train_phase(steps, profile_dir=None):
     check(counts["time_warp_1d"] == steps,
           f"time_warp_1d launched {counts['time_warp_1d']} times in "
           f"{steps} steps (expected {steps})")
+    check(counts["topk_rows"] == 0, "a train step launched topk_rows")
     if profile_dir:
         profile_steps(trainer, rng, it0 + steps, epoch, step_ms, profile_dir)
     return counts
@@ -1155,6 +1234,7 @@ def decode_parity_phase():
     from acvae_tpu_torch.decoding.beam import beam_topk
     from acvae_tpu_torch.models.build import build_model
 
+    before = read_counts()["topk_rows"]
     rows = torch.tensor([[1, 3, 3, 2, 3, 0], [5, 5, 5, 5, 5, 5],
                          [0, 2, 2, 2, 1, 2], [4, 1, 4, 0, 4, 4]],
                         dtype=torch.float32, device="cuda")
@@ -1171,6 +1251,8 @@ def decode_parity_phase():
     want = np.stack([np.lexsort((np.arange(r.size), -r))[:BEAM] for r in coarse])
     check(np.array_equal(idx.cpu().numpy(), want),
           "beam_topk's order on the card differs from lax.top_k's at full width")
+    check(read_counts()["topk_rows"] == before + 2,
+          "beam_topk on the card did not go through the topk_rows kernel")
 
     conf = small_conf()
     V, N, T, F, L = 25, 3, 64, 16, 8
@@ -1232,7 +1314,6 @@ def serve_phase(profile_dir=None):
         want = CNN10_BN_RELU_PER_BATCH * (1 + DEC_TIMED)
         check(counts["bn_relu"] == want, f"serve decode: bn_relu launched "
                                          f"{counts['bn_relu']} times (expected {want})")
-        beam_topk_times()
         if profile_dir:
             profile_decode(decode, profile_dir, "decode")
         del model, decode
@@ -1272,6 +1353,9 @@ def decode_rate(tag, decode, encode, model, vocab, kw=BEAM_KW):
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    want = (1 + DEC_TIMED) * topk_per_search(kw)
+    check(counts["topk_rows"] == want, f"{tag}: topk_rows launched "
+                                       f"{counts['topk_rows']} times (expected {want})")
     for out in outs:
         seqs, scores = out["seqs"], out["scores"]
         check(tuple(seqs.shape) == (DEC_BATCH, rows, MAX_LEN)
@@ -1309,19 +1393,6 @@ def decode_rate(tag, decode, encode, model, vocab, kw=BEAM_KW):
           f"{kw['decode_method']} search {(t2 - t1) * 1e3:.1f} ms ({MAX_LEN} "
           f"steps{f', {groups} groups' if groups > 1 else ''})")
     return counts, feats, lens
-
-
-def beam_topk_times():
-    """The stable-sort top-k of a beam step against torch.topk."""
-    from acvae_tpu_torch.decoding.beam import beam_topk
-
-    g = torch.Generator("cuda").manual_seed(13)
-    total = torch.randn((DEC_BATCH, BEAM, VOCAB), generator=g, device="cuda")
-    flush = torch.zeros(256 * 2**20, dtype=torch.uint8, device="cuda")
-    s_ms = time_ms(lambda: beam_topk(total, BEAM), flush)
-    k_ms = time_ms(lambda: torch.topk(total.view(DEC_BATCH, -1), BEAM), flush)
-    print(f"beam_topk [{DEC_BATCH},{BEAM},{VOCAB}]: stable sort {s_ms:.4f} ms "
-          f"per step; torch.topk {k_ms:.4f} ms (not used: tie order)")
 
 
 def _http(url, data=None, headers=None, timeout=300):
@@ -1432,6 +1503,11 @@ def http_checks(exp, tag="serve", per_batch=CNN10_PER_BATCH, **svc_kw):
     check(got == want, f"{tag}: stem_conv3x3_i8/conv3x3_i8/avgpool2x2_i8 "
                        f"launched {got} times in {batches} batches (expected "
                        f"{want})")
+    # the service's decode at its defaults is BEAM_KW's, beam 3 over 20 steps
+    want = batches * topk_per_search(BEAM_KW)
+    check(counts["topk_rows"] == want, f"{tag}: topk_rows launched "
+                                       f"{counts['topk_rows']} times in {batches} "
+                                       f"batches (expected {want})")
     return counts
 
 
@@ -2914,7 +2990,8 @@ def cnn14_train(conf):
               f"encoders Cnn14 train: non-finite metric at step {i + 1}: {vals}")
     counts = read_counts()
     check(counts == {"time_warp_1d": ENC_STEPS, "stem_conv3x3_i8": 0,
-                     "conv3x3_i8": 0, "avgpool2x2_i8": 0, "bn_relu": 0},
+                     "conv3x3_i8": 0, "avgpool2x2_i8": 0, "bn_relu": 0,
+                     "topk_rows": 0},
           f"encoders Cnn14 train: launches {counts} in {ENC_STEPS} steps")
     check(all(torch.isfinite(p).all() for p in trainer.model.parameters()),
           "encoders Cnn14 train: non-finite parameters after the steps")
@@ -2953,6 +3030,7 @@ def cnn14_serve(conf):
             model.encode, model, vocab)
         want = dict.fromkeys(counts, 0)
         want["bn_relu"] = CNN14_BN_RELU_PER_BATCH * (1 + DEC_TIMED)
+        want["topk_rows"] = topk_per_search(BEAM_KW) * (1 + DEC_TIMED)
         check(counts == want, f"the bf16 decode launched {counts} in "
                               f"{1 + DEC_TIMED} batches (expected {want})")
         t0 = time.perf_counter()
@@ -3613,7 +3691,7 @@ def export_decodes(exp, conf, arts):
     batches of 512 each, in turns, on the same noise; tokens identical,
     scores within 1e-6 (float32 on the same kernels).  Returns the
     launches of these batches: 1 + 7 + 3 an int8 batch and 8 bn_relu a
-    bf16 one, either way."""
+    bf16 one, and 20 topk_rows either, either way."""
     from acvae_tpu_torch.export import load_exported
     from acvae_tpu_torch.models.quant import (int8_decode_fn, quant_encoder_for,
                                               scheme_kwargs)
@@ -3677,9 +3755,11 @@ def export_decodes(exp, conf, arts):
                   f"export {tag}: scores differ by {err}")
         n = 1 + DEC_TIMED
         want = ((per_batches(CNN10_PER_BATCH, n) if tag == "int8" else (0, 0, 0))
-                + (0, 0 if tag == "int8" else CNN10_BN_RELU_PER_BATCH * n))
+                + (0, 0 if tag == "int8" else CNN10_BN_RELU_PER_BATCH * n,
+                   topk_per_search(BEAM_KW) * n))
         for arm, c in got.items():
-            check(int8_launches(c) + (c["time_warp_1d"], c["bn_relu"]) == want,
+            check(int8_launches(c) + (c["time_warp_1d"], c["bn_relu"],
+                                      c["topk_rows"]) == want,
                   f"export {tag} {arm}: launches {c} in {n} batches (expected {want})")
             counts = {k: counts[k] + c[k] for k in counts}
         rates = {arm: DEC_BATCH * DEC_TIMED / (sum(v[1:]) / 1e3)
@@ -3843,8 +3923,10 @@ def tools_phase(tmp, exp):
     tools_doctor(cli)
     total = read_counts()
     print(f"tools: launches over the path {total} ({SMI})")
-    # bn_relu runs wherever a PANN encoder infers, the sweeps' validation too
-    outside = {k: total[k] - counts[k] for k in total if k != "bn_relu"}
+    # bn_relu runs wherever a PANN encoder infers and topk_rows wherever a
+    # beam search runs, the sweeps' validation too
+    outside = {k: total[k] - counts[k] for k in total
+               if k not in ("bn_relu", "topk_rows")}
     check(not any(outside.values()), f"tools: launches outside the evaluates "
                                      f"{total} vs {counts}")
     return total
@@ -4630,6 +4712,7 @@ def main():
     kernels = [phase("kernels", kernel_phase, flush)]
     kernels += phase("int8 kernels", int8_kernel_phase, flush)
     kernels.append(phase("bn_relu kernel", bn_relu_kernel_phase, flush))
+    kernels.append(phase("topk kernel", topk_kernel_phase, flush))
     guard_plain_fma()
     del flush
     torch.cuda.empty_cache()
@@ -4652,7 +4735,7 @@ def main():
         by_path["parallel"] = phase("parallel", parallel_phase, tmp)
     own = {"time_warp_1d": "train", "stem_conv3x3_i8": "int8_serve",
            "conv3x3_i8": "int8_serve", "avgpool2x2_i8": "int8_serve",
-           "bn_relu": "serve"}
+           "bn_relu": "serve", "topk_rows": "serve"}
     for k in kernels:
         k["launches"] = by_path[own[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: by_path[p][k["name"]] for p in PATHS}
